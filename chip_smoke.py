@@ -8,16 +8,23 @@ code != 0, no result line) without one; it never falls back to the CPU.
 Phases, each printing its own line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles K1 (``pde_inverse_torch/csrc/langevin.cu``) with nvcc;
+2. build: compiles K1 (``pde_inverse_torch/csrc/langevin.cu``) and K3/K4
+   (``csrc/pointwise.cu``) with nvcc, one process per source, together;
 3. K1 against its plain PyTorch version on the card, at the KGMM main
    path's shapes (d=4; GMM with k=3 and a Quadratic potential; 2,500
    particles with a trajectory and 75,000 without; 200 steps; EM and
    BAOAB), plus the antithetic pairing and the exact OU moment law;
-4. the main path: ``pde_inverse_torch.main.run`` on preset KGMM at full
-   width for 20 steps, counting K1 launches; then the split of one step's
-   time between sampling and loss/gradient, and one loss/gradient step on
-   the card against the same step on the CPU;
-5. timing of K1 against the plain simulator with CUDA events.
+4. K3 and K4 against their plain versions, both held against a float64
+   run of the plain version, at the non-parametric main path's shape
+   (250,000 path points, layers 64->64->256, tanh), a ragged n, and silu
+   and softplus; K4's outputs bitwise equal on two calls;
+5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM, then on
+   preset KGMM-nonparametric-online, each at full width for 20 steps with
+   the launch counts set to 0 just before and read just after; the split
+   of one step's time between sampling and loss/gradient (for the
+   non-parametric path with kfp_fused auto, xla and off); one loss/gradient
+   step of each on the card against the same step on the CPU;
+6. timing of K1, K3 and K4 against their plain versions with CUDA events.
 
 The line before the last is a JSON object describing each kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -56,10 +63,29 @@ OU_COV_ATOL = 0.1
 # one loss/gradient step on the card vs the CPU on the same batch: f32 sums
 # over 1,280 path points in another order
 STEP_RTOL = 1e-4
+# K3/K4 vs a float64 run of the plain version, relative to each output's
+# max-abs (weight gradients are sums over all points): the kernel may be at
+# most F64_FACTOR times as far from it as the float32 plain version is,
+# plus F64_FLOOR.  Both differ from it only by f32 rounding in another
+# order (FMA chains in the kernel, blocked cuBLAS sums in the plain version).
+F64_FACTOR = 8.0
+F64_FLOOR = 1e-6
+# one non-parametric loss/gradient step, card (K3/K4) vs CPU (autodiff), on
+# one shared batch: loss and gap relative, each gradient leaf relative to
+# its max-abs (tests/test_fused_pointwise.py: 1e-5 and 3e-4 for the fused
+# path against autodiff in f32), with room for the card's summation order
+NP_LOSS_RTOL = 1e-4
+NP_GRAD_RTOL = 3e-4
 
 D, K, N_STEPS, T, GAMMA = 4, 3, 200, 2.0, 0.5
 DT = T / N_STEPS
 N_PATH, N_TERMINAL = 2_500, 75_000
+# KGMM-nonparametric-online: 2,500 trajectories x 200 steps at stride 2; the
+# PotentialMLP's first layer is 4 + 2 x 64 -> 64, then 64 -> 64 -> 256
+N_POINTS, WIDTHS = 250_000, (64, 64, 256)
+NP_RUN = ["preset=KGMM-nonparametric-online", "train.number_of_iterations=20",
+          "train.steps_per_chunk=10", "test.frequency=20", "logging.writer=none",
+          "train.optimizer.ema_switch_step=10"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -87,6 +113,30 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def registers(lib_path) -> list:
+    return [int(ln.split("Used ")[1].split()[0]) for ln in
+            lib_path.with_suffix(".log").read_text().splitlines() if "Used " in ln]
+
+
+def pointwise_inputs(dev, n, dtype, seed, widths=WIDTHS):
+    """Layers after the first, first-layer streams and cotangents, from a
+    seed (the same numbers in float32 and float64)."""
+    gen = torch.Generator().manual_seed(seed)
+    mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
+            for a, b in zip(widths, widths[1:])]
+    streams = [torch.randn((n, widths[0]), generator=gen) * s for s in (1.0, 0.7, 0.3)]
+    cot = [torch.randn(n, generator=gen), torch.randn((n, widths[0]), generator=gen)]
+    to = lambda t: t.to(dev, dtype)
+    return [(to(W), to(b)) for W, b in mids], [to(t) for t in streams], [to(t) for t in cot]
+
+
+def flat(out) -> list:
+    """K3 (quad, delta) or K4 (mids_bar, z1bar, dz1bar, d2z1bar) as a list."""
+    if len(out) == 2:
+        return list(out)
+    return [t for pair in out[0] for t in pair] + list(out[1:])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs on the card only")
@@ -98,6 +148,9 @@ def main() -> None:
     from pde_inverse_torch.methods import functional_forward
     from pde_inverse_torch.ops.cuda import build
     from pde_inverse_torch.ops.cuda.langevin import langevin, langevin_plain
+    from pde_inverse_torch.ops.cuda.pointwise import (
+        mlp_grad_quad, mlp_grad_quad_bwd, mlp_grad_quad_bwd_plain, mlp_grad_quad_plain,
+    )
     from pde_inverse_torch.ops.simulate import simulate
     from pde_inverse_torch.potentials import GMMPotential, QuadraticPotential
     from pde_inverse_torch.registry import get_method, get_pde_instance
@@ -112,13 +165,14 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = build.build("langevin")
+    lib_k1, lib_pw = build.build_all(["langevin", "pointwise"])
     build_s = time.perf_counter() - t0
-    regs = [int(ln.split("Used ")[1].split()[0]) for ln in
-            lib_path.with_suffix(".log").read_text().splitlines() if "Used " in ln]
-    print(f"[build] K1 {lib_path.name} in {build_s:.1f} s "
-          f"({len(regs)} instantiations, {min(regs)}..{max(regs)} registers per thread)",
-          flush=True)
+    for what, lib_path in (("K1", lib_k1), ("K3/K4", lib_pw)):
+        regs = registers(lib_path)
+        own_s = lib_path.with_suffix(".log").read_text().splitlines()[1]
+        print(f"[build] {what} {lib_path.name} ({own_s.strip('# ')}; both sources together in "
+              f"{build_s:.1f} s): {len(regs)} kernels, {min(regs)}..{max(regs)} registers per "
+              f"thread", flush=True)
 
     # -- 3. K1 against its plain version -----------------------------------------
     gen = torch.Generator().manual_seed(20261016)
@@ -203,14 +257,49 @@ def main() -> None:
     print(f"[k1-ou-law] Quadratic d=4, 75000 particles, T=2: {'; '.join(ou_errs)} "
           f"(<= {OU_MEAN_ATOL} / {OU_COV_ATOL})", flush=True)
 
-    # -- 4. main path ---------------------------------------------------------------
+    # -- 4. K3/K4 against their plain versions ----------------------------------------
+    k34_err = {"K3": 0.0, "K4": 0.0}
+    for name, kernel, plain in (("K3", mlp_grad_quad, mlp_grad_quad_plain),
+                                ("K4", mlp_grad_quad_bwd, mlp_grad_quad_bwd_plain)):
+        rows = []
+        for act, n in (("tanh", N_POINTS), ("tanh", 4_099), ("silu", 20_000), ("softplus", 20_000)):
+            mids, streams, cot = pointwise_inputs(dev, n, torch.float32, 5)
+            mids64, streams64, cot64 = pointwise_inputs(dev, n, torch.float64, 5)
+            args, args64 = streams + (cot if name == "K4" else []), streams64 + (cot64 if name == "K4" else [])
+            got, want = flat(kernel(mids, act, *args)), flat(plain(mids, act, *args))
+            ref = flat(plain(mids64, act, *args64))
+            torch.cuda.synchronize()
+            worst_k, worst_p = 0.0, 0.0
+            for k_, p_, r_ in zip(got, want, ref):
+                scale = float(r_.abs().max())
+                err_k = float((k_.double() - r_).abs().max()) / scale
+                err_p = float((p_.double() - r_).abs().max()) / scale
+                check(bool(torch.isfinite(k_).all()) and err_k <= F64_FACTOR * err_p + F64_FLOOR,
+                      f"{name} {act} n={n} output {tuple(k_.shape)}: kernel vs f64 {err_k:.3e} > "
+                      f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
+                worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
+                k34_err[name] = max(k34_err[name], float((k_ - p_).abs().max()))
+            rows.append(f"{act}/{n}: {worst_k:.2e} vs {worst_p:.2e}")
+            del got, want, ref
+        print(f"[{name.lower()}-vs-plain] layers 64->64->256, worst output error relative to its "
+              f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows)}; gate <= "
+              f"{F64_FACTOR} x plain + {F64_FLOOR}: pass; max abs err kernel vs plain "
+              f"{k34_err[name]:.3e}", flush=True)
+    mids, streams, cot = pointwise_inputs(dev, N_POINTS, torch.float32, 6)
+    a = flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
+    b = flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "K4 outputs differ between two calls")
+    print(f"[k4-repeat] n={N_POINTS}: two calls bitwise equal in all {len(a)} outputs", flush=True)
+    del a, b
+
+    # -- 5. main paths ---------------------------------------------------------------
     cfg, _ = parse_args(["preset=KGMM", "train.number_of_iterations=20",
                          "train.steps_per_chunk=10", "test.frequency=20", "logging.writer=none"])
     check(cfg.pde_instance.domain_dim == D and cfg.solver.train.batch_size_0T == N_PATH
           and cfg.pde_instance.n_steps == N_STEPS, "KGMM preset width changed")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    langevin.launches = 0
+    langevin.launches = mlp_grad_quad.launches = mlp_grad_quad_bwd.launches = 0
     result = run(cfg, "cuda")
     torch.cuda.synchronize()
     launches = langevin.launches
@@ -275,7 +364,95 @@ def main() -> None:
     print(f"[main-path-vs-cpu] one step on a shared batch: loss/gap rel err {rel:.3e}, "
           f"grad rel err {g_rel:.3e} <= {STEP_RTOL}", flush=True)
 
-    # -- 5. timing ---------------------------------------------------------------------
+    # the non-parametric main path: K1 samples, K3/K4 carry the path batch's
+    # gradient and quadform; EMA switches at step 10
+    cfg_np, _ = parse_args(NP_RUN)
+    net = cfg_np.neural_network
+    check(cfg_np.solver.train.batch_size_0T == N_PATH and cfg_np.solver.train.path_stride == 2
+          and (net.hidden_dim, net.layers, net.feature_dim, net.fourier_features)
+          == (64, 2, 256, 64) and cfg_np.train.optimizer.use_ema, "np preset width changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    langevin.launches = mlp_grad_quad.launches = mlp_grad_quad_bwd.launches = 0
+    result_np = run(cfg_np, "cuda")
+    torch.cuda.synchronize()
+    np_launches = {"K1": langevin.launches, "K3": mlp_grad_quad.launches,
+                   "K4": mlp_grad_quad_bwd.launches}
+    peak_np = torch.cuda.max_memory_allocated()
+    n_iter = cfg_np.train.number_of_iterations
+    check(len(result_np.losses) == n_iter and bool(np.isfinite(result_np.losses).all()),
+          f"np losses not finite: {result_np.losses}")
+    check(np_launches["K1"] >= 2 * n_iter and np_launches["K3"] >= n_iter
+          and np_launches["K4"] >= n_iter, f"np launches {np_launches} in {n_iter} steps")
+    metrics_np = {**result_np.test_metrics, **result_np.result_metrics}
+    check(len(result_np.result_metrics) == 3 and all(math.isfinite(v) for v in metrics_np.values()),
+          f"np test metrics not finite: {metrics_np}")
+    print(f"[main-path-np] KGMM-nonparametric-online full width (250000 path points, "
+          f"PotentialMLP 132->64->64->256 tanh, EMA switch at 10): {n_iter} steps, loss "
+          f"{result_np.losses[0]:.4e} -> {result_np.losses[-1]:.4e}, "
+          f"{result_np.test_metrics['steps_per_sec']:.3f} steps/s, launches {np_launches}, "
+          f"peak memory {peak_np} B ({peak_np / 2**30:.3f} GiB); result "
+          + " ".join(f"{k.split()[-1]}={v:.4e}" for k, v in result_np.result_metrics.items()),
+          flush=True)
+
+    # where one full-width np step's time goes, by kfp_fused mode
+    splits = {}
+    for mode in ("auto", "xla", "off"):
+        cfg_m, _ = parse_args(NP_RUN + [f"solver.train.kfp_fused={mode}"])
+        key_problem, key_method, key_trainer, _ = rng.split(cfg_m.seed, 4)
+        inst = get_pde_instance(cfg_m)(cfg_m, key_problem, dev)
+        method = get_method(cfg_m)(inst, cfg_m, key_method, dev)
+        model, params = method.create_model_fn()
+        loss_mod, fwd = method._loss_module(), functional_forward(model)
+        t_sample, t_loss = [], []
+        for s_ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = method.sample_data(rng.fold_in(key_trainer, s_))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = loss_mod.value_and_grad_fn(fwd, params, batch, inst, **method._fused_kwargs())
+            float(out["loss"])
+            t2 = time.perf_counter()
+            if s_:
+                t_sample.append(t1 - t0)
+                t_loss.append(t2 - t1)
+        splits[mode] = (1e3 * float(np.median(t_sample)), 1e3 * float(np.median(t_loss)))
+        del out, batch
+    print("[step-split-np] full-width np step, median of 5: " + "; ".join(
+        f"kfp_fused={m}: sampling {a:.3f} ms, loss+gradient {b:.3f} ms"
+        for m, (a, b) in splits.items()), flush=True)
+
+    # one np loss/gradient step on the card (K3/K4) vs the CPU (autodiff)
+    cfg_s, _ = parse_args(NP_RUN + ["solver.train.batch_size_0T=64", "pde_instance.n_steps=20"])
+    key_problem, key_method, key_trainer, _ = rng.split(cfg_s.seed, 4)
+    outs, batch = {}, None
+    for name in ("cuda", "cpu"):
+        d = torch.device(name)
+        inst = get_pde_instance(cfg_s)(cfg_s, key_problem, d)
+        method = get_method(cfg_s)(inst, cfg_s, key_method, d)
+        model, params = method.create_model_fn()
+        if batch is None:
+            batch = {k: v.cpu() for k, v in method.sample_data(key_trainer).items()}
+            params_cpu = {k: v.cpu() for k, v in params.items()}
+        before = mlp_grad_quad_bwd.launches
+        outs[name] = method._loss_module().value_and_grad_fn(
+            functional_forward(model), {k: v.to(d) for k, v in params_cpu.items()},
+            {k: v.to(d) for k, v in batch.items()}, inst, **method._fused_kwargs()
+        )
+        check((mlp_grad_quad_bwd.launches > before) == (name == "cuda"),
+              f"np step on {name}: K4 launched {mlp_grad_quad_bwd.launches - before} times")
+    rel = max(float(abs(float(outs["cuda"][n]) - float(outs["cpu"][n])) / abs(float(outs["cpu"][n])))
+              for n in ("loss", "loss ground truth"))
+    g_rel = max(float((outs["cuda"]["grad"][k].cpu() - g).abs().max() / g.abs().max())
+                for k, g in outs["cpu"]["grad"].items())
+    check(rel <= NP_LOSS_RTOL and g_rel <= NP_GRAD_RTOL,
+          f"np card vs CPU step: loss rel {rel:.3e}, grad rel {g_rel:.3e}")
+    print(f"[main-path-np-vs-cpu] one np step on a shared batch (640 path points), K3/K4 on the "
+          f"card vs autodiff on the CPU: loss/gap rel err {rel:.3e} <= {NP_LOSS_RTOL}, worst "
+          f"gradient leaf rel err {g_rel:.3e} <= {NP_GRAD_RTOL}", flush=True)
+
+    # -- 6. timing ---------------------------------------------------------------------
     def time_ms(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
@@ -299,6 +476,19 @@ def main() -> None:
               f"{times[shape][1]:.4f} ms (runs: plain {p1:.4f}, kernel {k1:.4f}, "
               f"kernel {k2:.4f}, plain {p2:.4f})", flush=True)
 
+    mids, streams, cot = pointwise_inputs(dev, N_POINTS, torch.float32, 7)
+    for name, kernel, plain, args in (
+        ("K3", mlp_grad_quad, mlp_grad_quad_plain, streams),
+        ("K4", mlp_grad_quad_bwd, mlp_grad_quad_bwd_plain, streams + cot),
+    ):
+        k_fn = lambda: kernel(mids, "tanh", *args)
+        p_fn = lambda: plain(mids, "tanh", *args)
+        p1, k1, k2, p2 = time_ms(p_fn, 5), time_ms(k_fn, 20), time_ms(k_fn, 20), time_ms(p_fn, 5)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[timing] {name} full width (n={N_POINTS}, layers 64->64->256, tanh): kernel "
+              f"{times[name][0]:.4f} ms, plain torch {times[name][1]:.4f} ms (runs: plain "
+              f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
+
     check("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [{
         "name": "K1 kinetic Langevin (EM/BAOAB, GMM or Quadratic force)",
@@ -310,7 +500,19 @@ def main() -> None:
         # one training step's two launches: path (2500, trajectory) + terminal (75000)
         "ms": times["path"][0] + times["terminal"][0],
         "plain_ms": times["path"][1] + times["terminal"][1],
-    }]}))
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": "pde_inverse_torch/csrc/pointwise.cu",
+        "replaces": f"pde_inverse_tpu/ops/pallas/pointwise_kernel.py:{line}",
+        "launches": np_launches[kid],
+        "max_abs_err": k34_err[kid],
+        "ms": times[kid][0],
+        "plain_ms": times[kid][1],
+    } for kid, name, line in (
+        ("K3", "K3 fused pointwise forward (second-order MLP streams, quad and delta)", 67),
+        ("K4", "K4 fused pointwise VJP (4-stream forward, reverse sweep, weight gradients)", 186),
+    ))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

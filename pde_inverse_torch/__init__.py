@@ -8,7 +8,10 @@ the same ``Config`` dataclasses and ``PRESETS``.
 The port grows slice by slice (ROADMAP.md).  Slice 1 is online kinetic
 Fokker-Planck with a GMM potential and parametric means recovery
 (``preset=KGMM``); its Langevin simulator is a hand-written CUDA kernel
-(``csrc/langevin.cu``).  Every configuration outside the slice raises
+(``csrc/langevin.cu``).  Slice 2 is the same problem with a non-parametric
+PotentialMLP (``preset=KGMM-nonparametric-online``); its fused pointwise
+pass and that pass's gradient are hand-written CUDA kernels
+(``csrc/pointwise.cu``).  Every configuration outside the slices raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
 
 Importing any module of this package initialises neither CUDA nor JAX.

@@ -1,7 +1,8 @@
 """Device resolution.
 
-The port names its device explicitly everywhere.  A request for CUDA on a
-machine without it raises instead of silently running on the CPU.
+The port names its device explicitly everywhere.  No device means CUDA,
+and a request for CUDA on a machine without it raises instead of silently
+running on the CPU: only an explicit ``device=cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -14,11 +15,11 @@ import torch
 def resolve_device(name: Optional[str] = None) -> torch.device:
     """torch.device for `name` ("cpu", "cuda", "cuda:1", ...).
 
-    None picks "cuda" when a CUDA device is present and "cpu" otherwise.
-    Raises RuntimeError when a CUDA device is requested but absent.
+    None means "cuda".  Raises RuntimeError when a CUDA device is requested
+    (or implied) but absent.
     """
     if name is None or name == "":
-        name = "cuda" if torch.cuda.is_available() else "cpu"
+        name = "cuda"
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

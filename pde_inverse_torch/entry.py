@@ -1,10 +1,14 @@
 """One-step check of the port's main path.
 
-``entry()`` builds the KGMM preset (problem, method, model), runs one
-training step's sampling, loss and gradient on the resolved device, and
-returns its outputs after checking that they are finite:
+``entry()`` builds a preset (KGMM by default; any ported preset, e.g.
+KGMM-nonparametric-online) with its problem, method and model, runs one
+training step's sampling, loss and gradient on the resolved device (CUDA
+unless ``device="cpu"``), and returns its outputs after checking that they
+are finite:
 
     python -c "from pde_inverse_torch.entry import entry; print(entry()['loss'])"
+    python -c "from pde_inverse_torch.entry import entry; \
+        print(entry(preset='KGMM-nonparametric-online')['loss'])"
 """
 
 from __future__ import annotations

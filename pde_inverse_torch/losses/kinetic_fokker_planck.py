@@ -7,11 +7,12 @@ For the candidate potential V and path samples z = [x | v]:
          + 2 gamma E_0T [grad V . v]  +  E_0T ||grad V_true||^2
          + (2 / T) ( E_term [grad V . v] - E_init [grad V . v] )
 
-The gradient and the Hessian quadratic form come from one
-forward-over-reverse pass (``ops.autodiff``); the parameter gradient is an
-outer ``torch.func.grad``.  Only the autodiff provider is ported: the fused
-pointwise kernels (K3/K4) serve PotentialMLP hypotheses, which slice 1
-does not run.
+The gradient and the Hessian quadratic form on the path batch come from
+one forward-over-reverse pass (``ops.autodiff``) or, for PotentialMLP
+hypotheses, from the fused provider (``losses.fused_pointwise``: kernels
+K3/K4 on CUDA), as ``solver.train.kfp_fused`` selects.  The parameter
+gradient is an outer ``torch.func.grad``, or ``torch.autograd`` where the
+fused provider is engaged.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from torch.func import grad_and_value
 
 from pde_inverse_torch import rng
+from pde_inverse_torch.losses import fused_pointwise as fp
 from pde_inverse_torch.ops import autodiff as ad
 
 
@@ -33,9 +35,25 @@ def _mean_sq_norm(g: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.sum(g * g, dim=-1))
 
 
-def make_loss_fn(forward_fn: Callable, data: Dict[str, torch.Tensor], pde_instance):
+def _use_fused(fused_module, fused_mode: str, device: torch.device) -> bool:
+    return (
+        fused_module is not None
+        and fp.active(fused_mode, device)
+        and fp.supported(fused_module)
+    )
+
+
+def make_loss_fn(
+    forward_fn: Callable,
+    data: Dict[str, torch.Tensor],
+    pde_instance,
+    fused_module=None,
+    fused_mode: str = "auto",
+):
     """loss_fn(params) -> (loss, gap) over the batch `data`; gap =
-    E_0T ||grad V_true - grad V||^2, the accuracy diagnostic."""
+    E_0T ||grad V_true - grad V||^2, the accuracy diagnostic.  With a
+    supported `fused_module` and an active `fused_mode`, the path batch's
+    gradient and quadform come from the fused provider."""
     x_init, v_init = _split_xv(data["initial"])
     x_term, v_term = _split_xv(data["terminal"])
     x_0T, v_0T = _split_xv(data["0T"])
@@ -43,10 +61,16 @@ def make_loss_fn(forward_fn: Callable, data: Dict[str, torch.Tensor], pde_instan
     T = pde_instance.total_evolving_time
     nabla_V_true = ad.batched_grad(pde_instance.V_true_fn, x_0T)
     loss_nabla_true = _mean_sq_norm(nabla_V_true)
+    use_fused = _use_fused(fused_module, fused_mode, x_0T.device)
 
     def loss_fn(params):
         V = lambda x: forward_fn(params, x)[0]
-        nabla_0T, quad_0T = ad.batched_grad_and_hvp_quadform(V, x_0T, v_0T)
+        if use_fused:
+            nabla_0T, quad_0T = fp.grad_and_quadform(
+                fused_module, params, x_0T, v_0T, mode=fused_mode
+            )
+        else:
+            nabla_0T, quad_0T = ad.batched_grad_and_hvp_quadform(V, x_0T, v_0T)
         loss_nabla = _mean_sq_norm(nabla_0T)
         loss_hessian = torch.mean(quad_0T)
         loss_friction = gamma * torch.mean(torch.sum(nabla_0T * v_0T, dim=-1))
@@ -69,16 +93,27 @@ def make_loss_fn(forward_fn: Callable, data: Dict[str, torch.Tensor], pde_instan
 
 
 def value_and_grad_fn(
-    forward_fn: Callable, params, data, pde_instance, fused_module=None
+    forward_fn: Callable,
+    params,
+    data,
+    pde_instance,
+    fused_module=None,
+    fused_mode: str = "auto",
 ) -> Dict[str, object]:
     """{"loss", "grad" (dict like params), "grad_norm", "loss ground truth"}."""
-    if fused_module is not None:
-        raise NotImplementedError(
-            "the fused pointwise provider (kernels K3/K4) is not ported yet: "
-            "ROADMAP queue 1, item 16 (losses/fused_pointwise.py)"
-        )
-    loss_fn = make_loss_fn(forward_fn, data, pde_instance)
-    grads, (loss, gap) = grad_and_value(loss_fn, has_aux=True)(params)
+    loss_fn = make_loss_fn(forward_fn, data, pde_instance, fused_module, fused_mode)
+    if _use_fused(fused_module, fused_mode, data["0T"].device):
+        # the fused provider's autograd.Function hands raw device pointers
+        # to K3/K4, which functorch-wrapped tensors (its backward's inputs
+        # under torch.func.grad) do not have: take this gradient with
+        # torch.autograd instead (same result, tests/test_torch_fused_pointwise.py)
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with torch.enable_grad():
+            loss, gap = loss_fn(leaves)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        loss, gap = loss.detach(), gap.detach()
+    else:
+        grads, (loss, gap) = grad_and_value(loss_fn, has_aux=True)(params)
     return {
         "loss": loss,
         "grad": grads,

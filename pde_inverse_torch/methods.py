@@ -4,7 +4,9 @@ online SDE path).
 
 Each training step samples (initial, terminal, path) batches through the
 problem's simulator -- K1 on CUDA -- and evaluates the weak-form loss and
-its parameter gradient.
+its parameter gradient; for a PotentialMLP hypothesis the loss takes the
+fused pointwise provider (K3/K4 on CUDA) as ``solver.train.kfp_fused``
+selects.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch.func import functional_call
 from pde_inverse_tpu.config import Config
 from pde_inverse_torch import rng
 from pde_inverse_torch.losses import LOSS_MODULES
+from pde_inverse_torch.losses import fused_pointwise as fp
 from pde_inverse_torch.models import get_model
 
 
@@ -27,7 +30,7 @@ def functional_forward(model: torch.nn.Module) -> Callable:
 
 
 class ConsistencyBased:
-    """Weak-form consistency estimator (slice 1: kinetic Fokker-Planck)."""
+    """Weak-form consistency estimator (kinetic Fokker-Planck)."""
 
     def __init__(self, pde_instance, cfg: Config, key: int, device: torch.device):
         self.pde_instance = pde_instance
@@ -59,7 +62,15 @@ class ConsistencyBased:
             params=params,
             data=data,
             pde_instance=self.pde_instance,
+            **self._fused_kwargs(),
         )
+
+    def _fused_kwargs(self) -> Dict:
+        """The fused pointwise provider's arguments for a supported
+        PotentialMLP on the kinetic Fokker-Planck loss, none otherwise."""
+        if self.cfg.pde_instance.name != "Kinetic-Fokker-Planck" or not fp.supported(self._model):
+            return {}
+        return {"fused_module": self._model, "fused_mode": self.cfg.solver.train.kfp_fused}
 
     def test_fn(self, forward_fn, params, key: int) -> Dict[str, torch.Tensor]:
         return self._loss_module().test_fn(

@@ -48,29 +48,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this source exists.
+def build_all(names) -> list:
+    """Compile csrc/<name>.cu for every name whose library does not exist
+    yet, one nvcc process per source, all started together; returns the
+    library paths in the order of `names`.
 
-    The compiler's resource report (-Xptxas=-v) is kept beside the library
-    as ``.log``."""
-    out = library_path(name)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    The compiler's resource report (-Xptxas=-v) is kept beside each library
+    as ``.log``.  Any failed build raises."""
+    outs = [library_path(name) for name in names]
+    running = []
+    for name, out in zip(names, outs):
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, cmd, proc, t0 in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}.cu:\n{' '.join(cmd)}\n{log}")
+            continue
+        out.with_suffix(".log").write_text(
+            f"{' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n{log}"
         )
-    out.with_suffix(".log").write_text(
-        f"{' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n{proc.stdout}{proc.stderr}"
-    )
-    os.replace(tmp, out)
-    return out
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the library for this source exists."""
+    return build_all([name])[0]
 
 
 @functools.lru_cache(maxsize=None)

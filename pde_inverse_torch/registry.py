@@ -2,8 +2,10 @@
 pde_inverse_tpu/registry.py).
 
 The port runs what it has ported and refuses the rest: every configuration
-outside slice 1 raises NotImplementedError naming the ROADMAP item that
-will port it.  Nothing is silently ignored.
+outside the ported slices (online KGMM with the parametric means or a
+non-parametric MLP, ResNet or bilinear hypothesis) raises
+NotImplementedError naming the ROADMAP item that will port it.  Nothing is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -22,20 +24,22 @@ _NOT_PORTED = {
 
 
 def _unsupported(cfg: Config):
-    """(setting, ROADMAP item) for every setting slice 1 does not run."""
-    p, tr, be = cfg.pde_instance, cfg.solver.train, cfg.backend
+    """(setting, ROADMAP item) for every setting the ported slices do not run."""
+    p, tr, be, net = cfg.pde_instance, cfg.solver.train, cfg.backend, cfg.neural_network
+    non_parametric = cfg.estimation_mode == "non-parametric"
     checks = [
         (cfg.solver.name == "PINN", "solver.name=PINN", "queue 1, item 23"),
         (p.sample_mode != "online", f"pde_instance.sample_mode={p.sample_mode}",
          "queue 1, item 17"),
-        (cfg.estimation_mode != "parametric", f"estimation_mode={cfg.estimation_mode}",
-         "queue 1, item 15"),
+        (non_parametric and net.model == "fourier-kernel",
+         "neural_network.model=fourier-kernel", "queue 1, item 20"),
+        (non_parametric and net.model != "bilinear-debug" and net.dtype != "float32",
+         f"neural_network.dtype={net.dtype}", "queue 1, item 27"),
         (p.init_broaden > 1.0, "pde_instance.init_broaden>1", "queue 1, item 14"),
         (p.langevin_pack > 1, "pde_instance.langevin_pack>1", "queue 2, K2"),
         (tr.boundary_reservoir > 0, "solver.train.boundary_reservoir", "queue 1, item 14"),
         (tr.boundary_per_chunk, "solver.train.boundary_per_chunk", "'Do not port' list"),
         (tr.boundary_rotate, "solver.train.boundary_rotate", "'Do not port' list"),
-        (cfg.train.optimizer.use_ema, "train.optimizer.use_ema", "queue 1, item 10"),
         (cfg.save_and_load.save_model or cfg.save_and_load.load_model,
          "save_and_load.*", "queue 1, item 10"),
         (be.data_axis_size > 1, "backend.data_axis_size>1", "queue 1, item 24"),
@@ -47,7 +51,7 @@ def _unsupported(cfg: Config):
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError if `cfg` leaves slice 1."""
+    """Raise NotImplementedError if `cfg` leaves the ported slices."""
     key = (cfg.pde_instance.name, cfg.pde_instance.potential)
     if key in _NOT_PORTED:
         raise NotImplementedError(

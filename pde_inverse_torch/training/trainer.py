@@ -9,6 +9,14 @@ steps/s is measured from the end of the first chunk.
 
 Step s draws its data from ``fold_in(train_key, s)`` and the test at step
 s from ``fold_in(test_key, s)``: every stream is derivable from (seed, step).
+
+EMA (``train.optimizer.use_ema``) follows the JAX trainer: the average
+starts at zeros, is reset to the live parameters at ``ema_switch_step``
+and from then on is updated after every optimizer step as
+``(1 - decay) p + decay ema``.  In "switch" mode the live parameters are
+replaced by the average each step; in "track" mode training keeps its full
+dynamics and the average is a decoupled Polyak average, which is what the
+test and the returned parameters use once engaged.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from pde_inverse_tpu.config import Config
+from pde_inverse_tpu.config import Config, OptimizerConfig
 from pde_inverse_torch import rng
 from pde_inverse_torch.ops.autodiff import pytree_l2_norm
 from pde_inverse_torch.training.metrics import MetricWriter, NullWriter
@@ -33,6 +41,29 @@ def cadence_fires(prev_step: int, step: int, frequency: int) -> bool:
     if frequency <= 0:
         return False
     return step // frequency > prev_step // frequency
+
+
+def ema_step(ocfg: OptimizerConfig, params, ema, step: int):
+    """(params, ema) after the optimizer update of step `step` (0-based):
+    from ``ema_switch_step`` on, the average is reset to `params` at the
+    switch and then updated; "switch" mode replaces the live parameters by
+    it."""
+    if not ocfg.use_ema or step < ocfg.ema_switch_step:
+        return params, ema
+    if step == ocfg.ema_switch_step:
+        ema = params
+    d = ocfg.ema_decay
+    ema = {k: (1 - d) * p + d * ema[k] for k, p in params.items()}
+    return (ema if ocfg.ema_mode == "switch" else params), ema
+
+
+def eval_params(ocfg: OptimizerConfig, params, ema, at_step: int):
+    """Parameters to test and return after `at_step` steps: the tracked
+    average once engaged (ema_mode=track), the live ones otherwise (in
+    "switch" mode the live parameters are the average past the switch)."""
+    if ocfg.use_ema and ocfg.ema_mode == "track" and at_step > ocfg.ema_switch_step:
+        return ema
+    return params
 
 
 class Trainer:
@@ -55,16 +86,22 @@ class Trainer:
         self.writer = writer or NullWriter()
         self.losses = np.zeros((0,), np.float32)  # every step's loss
         self.test_metrics: Dict[str, float] = {}  # the last test's
+        ocfg = cfg.train.optimizer
+        if ocfg.ema_mode not in ("switch", "track"):
+            raise ValueError(
+                f"train.optimizer.ema_mode must be 'switch' or 'track', got {ocfg.ema_mode!r}"
+            )
 
-    def _step(self, params, opt_state, step: int):
+    def _step(self, params, opt_state, ema, step: int):
         out = self.method.value_and_grad_fn(
             self.forward_fn, params, rng.fold_in(self.train_key, step), step=step
         )
         grad = out.pop("grad")
         updates, opt_state = self.optimizer.update(grad, opt_state, params)
         params = apply_updates(params, updates)
+        params, ema = ema_step(self.cfg.train.optimizer, params, ema, step)
         out["params_norm"] = pytree_l2_norm(params)
-        return params, opt_state, out
+        return params, opt_state, ema, out
 
     def fit(self) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
@@ -72,6 +109,7 @@ class Trainer:
         k = min(cfg.train.steps_per_chunk, n_iters)
         params = self.params
         opt_state = self.optimizer.init(params)
+        ema = {k: torch.zeros_like(v) for k, v in params.items()}
 
         step = 0
         t_start = time.perf_counter()
@@ -80,7 +118,7 @@ class Trainer:
             this_k = min(k, n_iters - step)
             chunk = []
             for s in range(step, step + this_k):
-                params, opt_state, out = self._step(params, opt_state, s)
+                params, opt_state, ema, out = self._step(params, opt_state, ema, s)
                 chunk.append(out)
             names = list(chunk[0])
             # one host sync per chunk: [metrics, K] in a single copy
@@ -102,7 +140,9 @@ class Trainer:
             # the final chunk always tests
             if cadence_fires(prev_step, step, cfg.test.frequency) or step >= n_iters:
                 test = self.method.test_fn(
-                    self.forward_fn, params, rng.fold_in(self.test_key, step)
+                    self.forward_fn,
+                    eval_params(cfg.train.optimizer, params, ema, step),
+                    rng.fold_in(self.test_key, step),
                 )
                 test = {name: float(v) for name, v in test.items()}
                 since_warm = step > warm_step
@@ -117,5 +157,5 @@ class Trainer:
                     msg += " ".join(f"{n}={v:.3e}" for n, v in test.items())
                     print(msg)
 
-        self.params = params
-        return params
+        self.params = eval_params(cfg.train.optimizer, params, ema, step)
+        return self.params

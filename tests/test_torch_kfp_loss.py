@@ -93,12 +93,21 @@ def test_loss_at_truth_is_the_gap_floor(instances):
 
 
 def test_fused_provider_is_refused(instances):
+    """The fused provider serves PotentialMLP hypotheses only: for the
+    parametric means the loss stays on the autodiff path, bit for bit, in
+    every mode; an unknown mode raises."""
     _, tinst = instances
     model = tmodels.GMMMeansModel(D, 3)
     params = {"mus": torch.zeros((3, D))}
     batch = {k: torch.from_numpy(v) for k, v in _batch(4).items()}
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tkfp.value_and_grad_fn(functional_forward(model), params, batch, tinst, fused_module=model)
+    fwd = functional_forward(model)
+    ref = tkfp.value_and_grad_fn(fwd, params, batch, tinst)
+    for mode in ("auto", "on", "fwd", "xla", "off"):
+        out = tkfp.value_and_grad_fn(fwd, params, batch, tinst, fused_module=model, fused_mode=mode)
+        assert float(out["loss"]) == float(ref["loss"])
+        assert torch.equal(out["grad"]["mus"], ref["grad"]["mus"])
+    with pytest.raises(ValueError, match="kfp_fused"):
+        tkfp.value_and_grad_fn(fwd, params, batch, tinst, fused_module=model, fused_mode="pallas")
 
 
 class _FixedPoints:

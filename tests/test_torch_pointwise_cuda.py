@@ -1,0 +1,157 @@
+"""K3 and K4, the CUDA pointwise kernels, against their plain PyTorch
+versions on the card, at small and full-width shapes.  The gates repeat
+``chip_smoke.py``'s.
+
+Without a CUDA device every test skips.  On the card:
+
+    python -m pytest -q tests/test_torch_pointwise_cuda.py
+
+This file imports neither JAX nor the JAX package; where JAX is not
+installed, add ``--noconftest`` (the conftest imports JAX).
+"""
+
+import pytest
+import torch
+
+from pde_inverse_torch.losses import fused_pointwise as fp
+from pde_inverse_torch.models.mlp import PotentialMLP
+from pde_inverse_torch.ops.cuda.pointwise import (
+    mlp_grad_quad,
+    mlp_grad_quad_bwd,
+    mlp_grad_quad_bwd_plain,
+    mlp_grad_quad_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+# Each output of the kernel may be at most F64_FACTOR times as far from a
+# float64 run of the plain version as the float32 plain version is, plus
+# F64_FLOOR; distances are relative to the output's max-abs.  Both differ
+# from the float64 run only by f32 rounding in another order (FMA in the
+# kernel, blocked sums in cuBLAS).
+F64_FACTOR, F64_FLOOR = 8.0, 1e-6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run this file on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, widths, n, seed=0, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    mids = [((torch.randn((a, b), generator=gen) / a**0.5), torch.randn(b, generator=gen) * 0.1)
+            for a, b in zip(widths, widths[1:])]
+    streams = [torch.randn((n, widths[0]), generator=gen) * s for s in (1.0, 0.7, 0.3)]
+    cot = (torch.randn(n, generator=gen), torch.randn((n, widths[0]), generator=gen))
+    to = lambda t: t.to(dev, dtype)
+    return [(to(W), to(b)) for W, b in mids], [to(s) for s in streams], [to(c) for c in cot]
+
+
+def _flat(out):
+    """K3 (quad, delta) or K4 (mids_bar, a, b, c) -> list of tensors."""
+    if len(out) == 2:
+        return list(out)
+    return [t for pair in out[0] for t in pair] + list(out[1:])
+
+
+def _rel(a, b, scale):
+    return float((a.double() - b.double()).abs().max()) / max(scale, 1e-30)
+
+
+def _gate(kernel, plain, ref):
+    for k, p, r in zip(_flat(kernel), _flat(plain), _flat(ref)):
+        assert k.shape == r.shape and bool(torch.isfinite(k).all())
+        scale = float(r.abs().max())
+        err_k, err_p = _rel(k, r, scale), _rel(p, r, scale)
+        assert err_k <= F64_FACTOR * err_p + F64_FLOOR, (tuple(k.shape), err_k, err_p)
+
+
+FULL = (64, 64, 256)  # the KGMM-nonparametric-online preset's layers after the first
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("widths,n", [(FULL, 1), (FULL, 37), (FULL, 4099), ((8, 8, 4), 29),
+                                      ((20,) * 8 + (128,), 300), ((5, 7, 3), 50)])
+def test_kernels_match_plain_versions(cuda, act, widths, n):
+    mids, streams, cot = _inputs(cuda, widths, n)
+    mids64, streams64, cot64 = _inputs(cuda, widths, n, dtype=torch.float64)
+    _gate(mlp_grad_quad(mids, act, *streams), mlp_grad_quad_plain(mids, act, *streams),
+          mlp_grad_quad_plain(mids64, act, *streams64))
+    _gate(mlp_grad_quad_bwd(mids, act, *streams, *cot),
+          mlp_grad_quad_bwd_plain(mids, act, *streams, *cot),
+          mlp_grad_quad_bwd_plain(mids64, act, *streams64, *cot64))
+
+
+def test_k4_is_bitwise_repeatable(cuda):
+    mids, streams, cot = _inputs(cuda, FULL, 20_011)
+    a = _flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
+    b = _flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_padded_points_do_not_leak(cuda):
+    """The weight gradients of n = 33 points (a ragged last tile) equal, bit
+    for bit, those of the same points followed by 15 points with other
+    streams and zero cotangents: such points, like the kernel's padding,
+    add exactly zero."""
+    mids, streams, (gq, gd) = _inputs(cuda, FULL, 33)
+    _, extra, _ = _inputs(cuda, FULL, 15, seed=1)
+    zero_pad = lambda t: torch.cat([t, torch.zeros((15,) + t.shape[1:], device=cuda)])
+    bars = mlp_grad_quad_bwd(mids, "tanh", *streams, gq, gd)[0]
+    padded = mlp_grad_quad_bwd(mids, "tanh", *(torch.cat([s, e]) for s, e in zip(streams, extra)),
+                               zero_pad(gq), zero_pad(gd))[0]
+    for (w, b), (wp, bp) in zip(bars, padded):
+        assert torch.equal(w, wp) and torch.equal(b, bp)
+
+
+def test_launch_counters_count_kernel_launches_only(cuda):
+    mids, streams, cot = _inputs(cuda, (8, 8, 4), 10)
+    before = (mlp_grad_quad.launches, mlp_grad_quad_bwd.launches)
+    mlp_grad_quad(mids, "tanh", *streams)
+    mlp_grad_quad_bwd(mids, "tanh", *streams, *cot)
+    cpu = lambda xs: [t.cpu() for t in xs]
+    mlp_grad_quad([(W.cpu(), b.cpu()) for W, b in mids], "tanh", *cpu(streams))
+    assert (mlp_grad_quad.launches, mlp_grad_quad_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("mode", ["on", "fwd", "auto"])
+def test_provider_on_the_card_matches_the_cpu(cuda, mode):
+    gen = torch.Generator().manual_seed(3)
+    model = PotentialMLP(4, [64, 64], feature_dim=256, fourier_features=64, quadratic_head=True,
+                         generator=gen)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    x, v = torch.randn((2_000, 4), generator=gen), torch.randn((2_000, 4), generator=gen)
+
+    def loss(p, xx, vv, m):
+        nab, quad = fp.grad_and_quadform(model, p, xx, vv, mode=m)
+        return torch.mean(torch.sum(nab**2, -1)) - 2.0 * torch.mean(quad)
+
+    def grad(p, xx, vv, m):  # torch.autograd, as the loss takes it
+        leaves = {k: t.detach().requires_grad_() for k, t in p.items()}
+        return dict(zip(leaves, torch.autograd.grad(loss(leaves, xx, vv, m), list(leaves.values()))))
+
+    g_cpu = grad(params, x, v, "xla")
+    before = (mlp_grad_quad.launches, mlp_grad_quad_bwd.launches)
+    g_gpu = grad({k: t.to(cuda) for k, t in params.items()}, x.to(cuda), v.to(cuda), mode)
+    assert mlp_grad_quad.launches == before[0] + 1
+    assert mlp_grad_quad_bwd.launches == before[1] + (mode != "fwd")
+    for k, g in g_cpu.items():
+        assert _rel(g_gpu[k].cpu(), g, float(g.abs().max())) < 3e-4, k
+
+
+def test_wrappers_check_their_inputs(cuda):
+    mids, streams, cot = _inputs(cuda, (8, 8, 4), 10)
+    with pytest.raises(ValueError, match="float32"):
+        mlp_grad_quad(mids, "tanh", streams[0].double(), *streams[1:])
+    with pytest.raises(ValueError, match="chain"):
+        mlp_grad_quad([mids[1], mids[0]], "tanh", *streams)
+    with pytest.raises(ValueError, match="derivative table"):
+        mlp_grad_quad(mids, "gelu", *streams)
+    with pytest.raises(ValueError, match="shared memory"):
+        mlp_grad_quad([(torch.zeros((8, 4096), device=cuda), torch.zeros(4096, device=cuda))],
+                      "tanh", *streams)
+    with pytest.raises(ValueError, match="g_quad"):
+        mlp_grad_quad_bwd(mids, "tanh", *streams, cot[0][:5], cot[1])

@@ -8,6 +8,7 @@
 """
 
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -79,6 +80,88 @@ def test_five_steps_match_jax_on_injected_batches():
         tparams = {k: p + tupdates[k] for k, p in tparams.items()}
         np.testing.assert_allclose(tparams["mus"].numpy(), np.asarray(jparams["params"]["mus"]),
                                    rtol=0, atol=PARAM_ATOL)
+
+
+NP_SMALL = ["solver.train.batch_size_0T=16", "pde_instance.n_steps=10", "logging.writer=none",
+            "neural_network.hidden_dim=16", "neural_network.feature_dim=8",
+            "neural_network.fourier_features=4"]
+
+
+@pytest.mark.parametrize("mode", ["switch", "track"])
+def test_np_steps_match_jax_on_injected_batches(mode):
+    """Three full non-parametric training steps (loss -> gradient -> clip ->
+    Adam -> EMA, switch at step 1) of the port, with the fused provider's
+    plain versions (kfp_fused=on), against the JAX package's (autodiff on
+    the CPU), on the same injected batches from the same flax weights."""
+    cfg = config_lib.preset("KGMM-nonparametric-online", NP_SMALL + [
+        "train.optimizer.ema_switch_step=1", "train.optimizer.ema_decay=0.5",
+        f"train.optimizer.ema_mode={mode}", "solver.train.kfp_fused=on",
+    ])
+    jcfg = config_lib.preset("KGMM-nonparametric-online", NP_SMALL)  # JAX: auto = autodiff here
+    jinst = JaxKGMM(jcfg, jax.random.PRNGKey(0))
+    jmethod = JaxMethod(pde_instance=jinst, cfg=jcfg, rng=jax.random.PRNGKey(1))
+    jnet, jparams = jmethod.create_model_fn()
+    tinst = KineticFokkerPlanckGMM(cfg, 0, "cpu",
+                                   configuration={"mus": np.asarray(jinst.configuration["mus"])})
+    tmethod = ConsistencyBased(tinst, cfg, 1, "cpu")
+    model, _ = tmethod.create_model_fn()
+    tparams = from_flax_params(jax.tree_util.tree_map(np.asarray, jparams))
+    assert set(tparams) == set(dict(model.named_parameters()))
+    ocfg = cfg.train.optimizer
+    jopt, topt = jax_get_optimizer(ocfg), tmain.get_optimizer(ocfg)
+    jstate, tstate = jopt.init(jparams), topt.init(tparams)
+    jema = optax.ema(ocfg.ema_decay)
+    jes = jema.init(jparams)
+    tema = {k: torch.zeros_like(v) for k, v in tparams.items()}
+
+    def jax_step(params, batch, key):
+        jmethod.sample_data = lambda *a, **k: batch
+        return jmethod.value_and_grad_fn(jnet.apply, params, key)
+
+    jax_step = jax.jit(jax_step)
+    rs = np.random.default_rng(3)
+    fwd = functional_forward(model)
+    for step in range(3):
+        batch = _batch(rs, n_init=48, n_term=48, n_path=64)
+        tmethod.sample_data = lambda key: {n: torch.from_numpy(v) for n, v in batch.items()}
+        jout = jax_step(jparams, {n: jnp.asarray(v) for n, v in batch.items()}, jax.random.PRNGKey(step))
+        tout = tmethod.value_and_grad_fn(fwd, tparams, step, step=step)
+        np.testing.assert_allclose(float(tout["loss"]), float(jout["loss"]), rtol=1e-5)
+        updates, jstate = jopt.update(jout["grad"], jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        if step >= ocfg.ema_switch_step:  # pde_inverse_tpu/training/trainer.py:114-140
+            if step == ocfg.ema_switch_step:
+                jes = optax.EmaState(count=jnp.zeros([], jnp.int32), ema=jparams)
+            _, jes = jema.update(jparams, jes)
+            jparams = jparams if mode == "track" else jes.ema
+        tupdates, tstate = topt.update(tout["grad"], tstate, tparams)
+        tparams, tema = trainer.ema_step(ocfg, {k: p + tupdates[k] for k, p in tparams.items()},
+                                         tema, step)
+        want = from_flax_params(jax.tree_util.tree_map(
+            np.asarray, trainer.eval_params(ocfg, jparams, jes.ema, step + 1)))
+        got = trainer.eval_params(ocfg, tparams, tema, step + 1)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0, atol=PARAM_ATOL)
+
+
+def test_np_cli_runs_on_cpu_and_reports_test_metrics(monkeypatch, capsys):
+    argv = ["preset=KGMM-nonparametric-online", "device=cpu", "train.number_of_iterations=4",
+            "train.steps_per_chunk=2", "test.frequency=2", "test.verbose=True",
+            "train.optimizer.ema_switch_step=2", *NP_SMALL]
+    monkeypatch.setattr("sys.argv", ["pde_inverse_torch.main", *argv])
+    tmain.main()
+    out = capsys.readouterr().out
+    assert out.count("steps/s]") == 2
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("[result] ")]
+    for where in ("initial", "path", "terminal"):
+        assert f"relative error of gradient estimation {where}=" in line
+    values = [float(v) for v in re.findall(r"=(\S+)", line)]
+    assert len(values) == 3 and np.isfinite(values).all()
+
+
+def test_np_entry_one_step_is_finite():
+    out = entry(NP_SMALL, device="cpu", preset="KGMM-nonparametric-online")
+    assert np.isfinite(float(out["loss"])) and out["grad"]["Dense_0.weight"].shape == (16, 12)
 
 
 def test_cli_runs_on_cpu_and_reports_rel_l2(monkeypatch, capsys):
@@ -196,10 +279,15 @@ def test_rng_is_derivable():
 
 
 def test_cuda_requested_but_absent_raises(monkeypatch):
+    """No device means CUDA: without it the port raises instead of running on
+    the CPU; only an explicit device=cpu does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
-    assert resolve_device(None) == torch.device("cpu")
+    for implied in (None, ""):
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device(implied)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 UNSUPPORTED = {
@@ -207,12 +295,14 @@ UNSUPPORTED = {
     "ou": ("OU", []),
     "kmv": ("KMV", []),
     "offline": ("KGMM-offline", []),
-    "non_parametric": ("KGMM", ["estimation_mode=non-parametric"]),
+    "non_parametric": ("KGMM", ["estimation_mode=non-parametric", "neural_network.model=fourier-kernel"]),
+    "np_offline": ("KGMM-nonparametric", []),
+    "bf16": ("KGMM-nonparametric-online", ["neural_network.dtype=bfloat16"]),
     "init_broaden": ("KGMM", ["pde_instance.init_broaden=1.5"]),
     "boundary_reservoir": ("KGMM", ["solver.train.boundary_reservoir=1000"]),
     "boundary_per_chunk": ("KGMM", ["solver.train.boundary_per_chunk=True"]),
     "boundary_rotate": ("KGMM", ["solver.train.boundary_rotate=True"]),
-    "use_ema": ("KGMM", ["train.optimizer.use_ema=True"]),
+    "use_ema": ("KGMM", ["train.optimizer.use_ema=True", "save_and_load.save_model=True"]),
     "save_model": ("KGMM", ["save_and_load.save_model=True"]),
     "load_model": ("KGMM", ["save_and_load.load_model=True"]),
     "pinn": ("KGMM", ["solver.name=PINN"]),
