@@ -8,8 +8,9 @@ code != 0, no result line) without one; it never falls back to the CPU.
 Phases, each printing its own line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles K1 (``pde_inverse_torch/csrc/langevin.cu``) and K3/K4
-   (``csrc/pointwise.cu``) with nvcc, one process per source, together;
+2. build: compiles K1 (``pde_inverse_torch/csrc/langevin.cu``), K3/K4
+   (``csrc/pointwise.cu``) and K5-K8 (``csrc/pairwise.cu``) with nvcc, one
+   process per source, together;
 3. K1 against its plain PyTorch version on the card, at the KGMM main
    path's shapes (d=4; GMM with k=3 and a Quadratic potential; 2,500
    particles with a trajectory and 75,000 without; 200 steps; EM and
@@ -18,13 +19,22 @@ Phases, each printing its own line:
    run of the plain version, at the non-parametric main path's shape
    (250,000 path points, layers 64->64->256, tanh), a ragged n, and silu
    and softplus; K4's outputs bitwise equal on two calls;
+   K5-K8 against their plain versions, held the same way, at the KMV main
+   path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
+   128, tanh), a ragged n and m with masked refs, and silu and softplus;
+   K6's and K8's outputs bitwise equal on two calls;
 5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM, then on
    preset KGMM-nonparametric-online, each at full width for 20 steps with
    the launch counts set to 0 just before and read just after; the split
    of one step's time between sampling and loss/gradient (for the
    non-parametric path with kfp_fused auto, xla and off); one loss/gradient
-   step of each on the card against the same step on the CPU;
-6. timing of K1, K3 and K4 against their plain versions with CUDA events.
+   step of each on the card against the same step on the CPU.  Then the
+   KMV paths, each read the same way: the MLP configuration (the JAX
+   package's ``mlp_pairwise`` bench row) for 20 steps with kmv_pallas=auto
+   (K7/K8), a shorter run with kmv_pallas=on (K5/K6), preset KMV
+   (parametric, closed form) for 20 steps; the KMV step's split by
+   kmv_pallas mode; one np KMV step on the card against the CPU;
+6. timing of K1 and K3-K8 against their plain versions with CUDA events.
 
 The line before the last is a JSON object describing each kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -77,12 +87,29 @@ F64_FLOOR = 1e-6
 NP_LOSS_RTOL = 1e-4
 NP_GRAD_RTOL = 3e-4
 
+# one KMV loss/gradient step, card (K7/K8) vs CPU (the plain |f|^2
+# formulation), on a shared batch: the collapsed head reassociates the
+# feature contraction, so the JAX package's own gate for the packed kernels
+# against its plain path applies (tests/test_pallas_packed.py: 2e-4 on the
+# loss, 5e-3 relative per gradient leaf)
+KMV_LOSS_RTOL = 2e-4
+KMV_GRAD_RTOL = 5e-3
+
 D, K, N_STEPS, T, GAMMA = 4, 3, 200, 2.0, 0.5
 DT = T / N_STEPS
 N_PATH, N_TERMINAL = 2_500, 75_000
 # KGMM-nonparametric-online: 2,500 trajectories x 200 steps at stride 2; the
 # PotentialMLP's first layer is 4 + 2 x 64 -> 64, then 64 -> 64 -> 256
 N_POINTS, WIDTHS = 250_000, (64, 64, 256)
+# the KMV MLP configuration: 7 stamps x 2,000 samples (refs = the samples at
+# the same stamp), PotentialMLP 2 -> 20 x 8 -> 128, tanh
+KMV_NT, KMV_N, KMV_WIDTHS = 7, 2_000, (20,) * 8 + (128,)
+KMV_MLP = ["preset=KMV-nonparametric-fourier", "neural_network.model=mlp",
+           "neural_network.fourier_features=0", "neural_network.fourier_trainable=False",
+           "solver.train.kmv_field_reg=0.0", "train.optimizer.weight_decay=1e-1",
+           "logging.writer=none"]
+KMV_RUN = KMV_MLP + ["train.number_of_iterations=20", "train.steps_per_chunk=10", "test.frequency=20"]
+KMV_ON_STEPS = 4
 NP_RUN = ["preset=KGMM-nonparametric-online", "train.number_of_iterations=20",
           "train.steps_per_chunk=10", "test.frequency=20", "logging.writer=none",
           "train.optimizer.ema_switch_step=10"]
@@ -130,11 +157,45 @@ def pointwise_inputs(dev, n, dtype, seed, widths=WIDTHS):
     return [(to(W), to(b)) for W, b in mids], [to(t) for t in streams], [to(t) for t in cot]
 
 
+def pairwise_inputs(dev, nt, n, m, dtype, seed, zero_refs=()):
+    """Layers after the first, ax, av, ar, mask and the cotangents of the
+    pairwise kernels, from a seed (the same numbers in float32 and float64)."""
+    gen = torch.Generator().manual_seed(seed)
+    widths = KMV_WIDTHS
+    mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
+            for a, b in zip(widths, widths[1:])]
+    w0 = widths[0]
+    ax, av, ar = (torch.randn((nt, k, w0), generator=gen) * s for k, s in ((n, 1.0), (n, 0.7), (m, 1.0)))
+    mask = torch.ones(m)
+    mask[list(zero_refs)] = 0.0
+    cot = [torch.randn((nt, n), generator=gen), torch.randn((nt, n), generator=gen),
+           torch.randn((nt, n, w0), generator=gen)]
+    to = lambda t: t.to(dev, dtype)
+    return [(to(W), to(b)) for W, b in mids], [to(t) for t in (ax, av, ar, mask)], [to(t) for t in cot]
+
+
+def pairwise_call(kid, fn, act, mids, tensors, cot):
+    """Call K5-K8 (or a plain version) the way the provider does: K7/K8 take
+    the hidden layers and the collapsed head M = W_F W_F^T, u = 2 W_F b_F."""
+    if kid in ("K7", "K8"):
+        WF, bF = mids[-1]
+        args = (mids[:-1], WF @ WF.T, 2.0 * (WF @ bF))
+    else:
+        args = (mids,)
+    return fn(*args, act, *tensors, *(cot if kid in ("K6", "K8") else []))
+
+
 def flat(out) -> list:
-    """K3 (quad, delta) or K4 (mids_bar, z1bar, dz1bar, d2z1bar) as a list."""
-    if len(out) == 2:
-        return list(out)
-    return [t for pair in out[0] for t in pair] + list(out[1:])
+    """A kernel's outputs (a dict, or a tuple of tensors and [(Wbar, bbar)]
+    lists) as a list of tensors."""
+    if isinstance(out, dict):
+        return [out["value"], out["hess"], out["s_dz0"]]
+    res = []
+    for item in out:
+        res += [t for pair in item for t in pair] if isinstance(item, list) else [item]
+    return res
+
+
 
 
 def main() -> None:
@@ -151,6 +212,7 @@ def main() -> None:
     from pde_inverse_torch.ops.cuda.pointwise import (
         mlp_grad_quad, mlp_grad_quad_bwd, mlp_grad_quad_bwd_plain, mlp_grad_quad_plain,
     )
+    from pde_inverse_torch.ops.cuda import pairwise as pw
     from pde_inverse_torch.ops.simulate import simulate
     from pde_inverse_torch.potentials import GMMPotential, QuadraticPotential
     from pde_inverse_torch.registry import get_method, get_pde_instance
@@ -165,12 +227,12 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_k1, lib_pw = build.build_all(["langevin", "pointwise"])
+    lib_k1, lib_pw, lib_pair = build.build_all(["langevin", "pointwise", "pairwise"])
     build_s = time.perf_counter() - t0
-    for what, lib_path in (("K1", lib_k1), ("K3/K4", lib_pw)):
+    for what, lib_path in (("K1", lib_k1), ("K3/K4", lib_pw), ("K5-K8", lib_pair)):
         regs = registers(lib_path)
         own_s = lib_path.with_suffix(".log").read_text().splitlines()[1]
-        print(f"[build] {what} {lib_path.name} ({own_s.strip('# ')}; both sources together in "
+        print(f"[build] {what} {lib_path.name} ({own_s.strip('# ')}; all sources together in "
               f"{build_s:.1f} s): {len(regs)} kernels, {min(regs)}..{max(regs)} registers per "
               f"thread", flush=True)
 
@@ -291,6 +353,46 @@ def main() -> None:
     check(all(torch.equal(x, y) for x, y in zip(a, b)), "K4 outputs differ between two calls")
     print(f"[k4-repeat] n={N_POINTS}: two calls bitwise equal in all {len(a)} outputs", flush=True)
     del a, b
+
+    kernels = {"K5": (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_plain),
+               "K6": (pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_bwd_plain),
+               "K7": (pw.mlp_pairwise_sums_packed, pw.mlp_pairwise_sums_packed_plain),
+               "K8": (pw.mlp_pairwise_sums_packed_bwd, pw.mlp_pairwise_sums_packed_bwd_plain)}
+    pair_cases = (("tanh", KMV_NT, KMV_N, KMV_N, ()), ("tanh", KMV_NT, 1_999, 1_013, (0, 7, 500, 1_012)),
+                  ("silu", 2, 300, 257, (3,)), ("softplus", 2, 300, 257, (3,)))
+    pair_err = {kid: 0.0 for kid in kernels}
+    for kid, (kernel, plain) in kernels.items():
+        rows = []
+        for act, nt_, n_, m_, zeros in pair_cases:
+            mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros)
+            mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros)
+            got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
+            want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
+            ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
+            torch.cuda.synchronize()
+            worst_k, worst_p = 0.0, 0.0
+            for k_, p_, r_ in zip(got, want, ref):
+                scale = float(r_.abs().max())
+                err_k = float((k_.double() - r_).abs().max()) / scale
+                err_p = float((p_.double() - r_).abs().max()) / scale
+                check(bool(torch.isfinite(k_).all()) and err_k <= F64_FACTOR * err_p + F64_FLOOR,
+                      f"{kid} {act} {nt_}x{n_}x{m_} output {tuple(k_.shape)}: kernel vs f64 {err_k:.3e} > "
+                      f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
+                worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
+                pair_err[kid] = max(pair_err[kid], float((k_ - p_).abs().max()))
+            rows.append(f"{act}/{nt_}x{n_}x{m_}{'/masked' if zeros else ''}: {worst_k:.2e} vs {worst_p:.2e}")
+            del got, want, ref
+        print(f"[{kid.lower()}-vs-plain] layers 20x8->128, worst output error relative to its max-abs, "
+              f"kernel vs f64 / plain f32 vs f64: {'; '.join(rows)}; gate <= {F64_FACTOR} x plain + "
+              f"{F64_FLOOR}: pass; max abs err kernel vs plain {pair_err[kid]:.3e}", flush=True)
+    for kid in ("K6", "K8"):
+        mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9)
+        a = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
+        b = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{kid} outputs differ between two calls")
+        print(f"[{kid.lower()}-repeat] {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal in all "
+              f"{len(a)} outputs", flush=True)
+        del a, b
 
     # -- 5. main paths ---------------------------------------------------------------
     cfg, _ = parse_args(["preset=KGMM", "train.number_of_iterations=20",
@@ -452,6 +554,126 @@ def main() -> None:
           f"card vs autodiff on the CPU: loss/gap rel err {rel:.3e} <= {NP_LOSS_RTOL}, worst "
           f"gradient leaf rel err {g_rel:.3e} <= {NP_GRAD_RTOL}", flush=True)
 
+    # the KMV MLP path (K7/K8 with kmv_pallas=auto), then K5/K6 (kmv_pallas=on)
+    pair_launch = lambda: {"K5": pw.mlp_pairwise_sums.launches, "K6": pw.mlp_pairwise_sums_bwd.launches,
+                           "K7": pw.mlp_pairwise_sums_packed.launches,
+                           "K8": pw.mlp_pairwise_sums_packed_bwd.launches}
+
+    def zero_pair_launches():
+        for fn in (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_packed,
+                   pw.mlp_pairwise_sums_packed_bwd):
+            fn.launches = 0
+
+    kmv_launches = {}
+    for mode, extra, n_iter in (("auto", [], 20),
+                                ("on", [f"train.number_of_iterations={KMV_ON_STEPS}",
+                                        f"train.steps_per_chunk={KMV_ON_STEPS // 2}",
+                                        f"test.frequency={KMV_ON_STEPS}"], KMV_ON_STEPS)):
+        cfg_k, _ = parse_args(KMV_RUN + extra + [f"solver.train.kmv_pallas={mode}"])
+        tr, net = cfg_k.solver.train, cfg_k.neural_network
+        check((tr.n_time_stamps, tr.sample_per_time) == (KMV_NT, KMV_N)
+              and (net.hidden_dim, net.layers, net.feature_dim, net.fourier_features) == (20, 8, 128, 0),
+              "KMV MLP configuration width changed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        langevin.launches = mlp_grad_quad.launches = mlp_grad_quad_bwd.launches = 0
+        zero_pair_launches()
+        result_k = run(cfg_k, "cuda")
+        torch.cuda.synchronize()
+        launches_k = pair_launch()
+        peak_k = torch.cuda.max_memory_allocated()
+        check(len(result_k.losses) == n_iter and bool(np.isfinite(result_k.losses).all()),
+              f"KMV {mode} losses not finite: {result_k.losses}")
+        pair = ("K7", "K8") if mode == "auto" else ("K5", "K6")
+        others = [k for k in launches_k if k not in pair]
+        check(all(launches_k[k] >= n_iter for k in pair) and all(launches_k[k] == 0 for k in others),
+              f"KMV kmv_pallas={mode}: launches {launches_k} in {n_iter} steps")
+        metrics_k = {**result_k.test_metrics, **result_k.result_metrics}
+        check(len(result_k.result_metrics) == 1 and all(math.isfinite(v) for v in metrics_k.values()),
+              f"KMV test metrics not finite: {metrics_k}")
+        kmv_launches[mode] = launches_k
+        print(f"[main-path-kmv-{mode}] KMV MLP full width ({KMV_NT} stamps x {KMV_N} samples, refs at "
+              f"the same stamp: {KMV_NT * KMV_N * KMV_N} pairs per step; PotentialMLP 2->20x8->128 "
+              f"tanh), kmv_pallas={mode}: {n_iter} steps, loss {result_k.losses[0]:.4e} -> "
+              f"{result_k.losses[-1]:.4e}, {result_k.test_metrics['steps_per_sec']:.3f} steps/s, "
+              f"launches {launches_k}, peak memory {peak_k} B ({peak_k / 2**30:.3f} GiB); result "
+              + " ".join(f"{k}={v:.4e}" for k, v in result_k.result_metrics.items()), flush=True)
+
+    # parametric KMV (closed form, no kernel)
+    cfg_q, _ = parse_args(["preset=KMV", "train.number_of_iterations=20", "train.steps_per_chunk=10",
+                           "test.frequency=20", "logging.writer=none"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_pair_launches()
+    result_q = run(cfg_q, "cuda")
+    torch.cuda.synchronize()
+    peak_q = torch.cuda.max_memory_allocated()
+    check(len(result_q.losses) == 20 and bool(np.isfinite(result_q.losses).all())
+          and result_q.rel_l2 is not None and math.isfinite(result_q.rel_l2),
+          f"KMV parametric: losses {result_q.losses}, rel-L2 {result_q.rel_l2}")
+    check(sum(pair_launch().values()) == 0, "the closed-form KMV path launched a pairwise kernel")
+    print(f"[main-path-kmv-parametric] preset KMV full width (d=2, 1 stamp x 5000 samples, closed "
+          f"form): 20 steps, loss {result_q.losses[0]:.4e} -> {result_q.losses[-1]:.4e}, "
+          f"{result_q.test_metrics['steps_per_sec']:.3f} steps/s, peak memory {peak_q} B "
+          f"({peak_q / 2**30:.3f} GiB); recovered-parameter rel-L2 {result_q.rel_l2:.4e}", flush=True)
+
+    # where one full-width KMV MLP step's time goes, by kmv_pallas mode
+    splits_k = {}
+    for mode in ("auto", "on", "off"):
+        cfg_m, _ = parse_args(KMV_RUN + [f"solver.train.kmv_pallas={mode}"])
+        key_problem, key_method, key_trainer, _ = rng.split(cfg_m.seed, 4)
+        inst = get_pde_instance(cfg_m)(cfg_m, key_problem, dev)
+        method = get_method(cfg_m)(inst, cfg_m, key_method, dev)
+        model, params = method.create_model_fn()
+        loss_mod, fwd = method._loss_module(), functional_forward(model)
+        t_sample, t_loss = [], []
+        for s_ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = method.sample_data(rng.fold_in(key_trainer, s_))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = loss_mod.value_and_grad_fn(fwd, params, batch, inst, **method._kmv_kwargs())
+            float(out["loss"])
+            t2 = time.perf_counter()
+            if s_:
+                t_sample.append(t1 - t0)
+                t_loss.append(t2 - t1)
+        splits_k[mode] = (1e3 * float(np.median(t_sample)), 1e3 * float(np.median(t_loss)))
+        del out, batch
+    print("[step-split-kmv] full-width KMV MLP step, median of 3: " + "; ".join(
+        f"kmv_pallas={m}: sampling {a:.3f} ms, loss+gradient {b:.3f} ms"
+        for m, (a, b) in splits_k.items()), flush=True)
+
+    # one KMV MLP loss/gradient step on the card (K7/K8) vs the CPU (plain)
+    cfg_s, _ = parse_args(KMV_MLP + ["solver.train.sample_per_time=64"])
+    key_problem, key_method, key_trainer, _ = rng.split(cfg_s.seed, 4)
+    outs, batch = {}, None
+    for name in ("cuda", "cpu"):
+        d = torch.device(name)
+        inst = get_pde_instance(cfg_s)(cfg_s, key_problem, d)
+        method = get_method(cfg_s)(inst, cfg_s, key_method, d)
+        model, params = method.create_model_fn()
+        if batch is None:
+            batch = {k: v.cpu() for k, v in method.sample_data(key_trainer).items()}
+            params_cpu = {k: v.cpu() for k, v in params.items()}
+        before = pw.mlp_pairwise_sums_packed_bwd.launches
+        outs[name] = method._loss_module().value_and_grad_fn(
+            functional_forward(model), {k: v.to(d) for k, v in params_cpu.items()},
+            {k: v.to(d) for k, v in batch.items()}, inst, **method._kmv_kwargs()
+        )
+        check((pw.mlp_pairwise_sums_packed_bwd.launches > before) == (name == "cuda"),
+              f"KMV step on {name}: K8 launched {pw.mlp_pairwise_sums_packed_bwd.launches - before} times")
+    rel = max(float(abs(float(outs["cuda"][n]) - float(outs["cpu"][n])) / abs(float(outs["cpu"][n])))
+              for n in ("loss", "loss ground truth"))
+    g_rel = max(float((outs["cuda"]["grad"][k].cpu() - g).abs().max() / g.abs().max())
+                for k, g in outs["cpu"]["grad"].items())
+    check(rel <= KMV_LOSS_RTOL and g_rel <= KMV_GRAD_RTOL,
+          f"KMV card vs CPU step: loss rel {rel:.3e}, grad rel {g_rel:.3e}")
+    print(f"[main-path-kmv-vs-cpu] one KMV MLP step on a shared batch ({KMV_NT} x 64 samples), K7/K8 on "
+          f"the card vs the plain formulation on the CPU: loss/gap rel err {rel:.3e} <= {KMV_LOSS_RTOL}, "
+          f"worst gradient leaf rel err {g_rel:.3e} <= {KMV_GRAD_RTOL}", flush=True)
+
     # -- 6. timing ---------------------------------------------------------------------
     def time_ms(fn, reps: int) -> float:
         fn()
@@ -489,6 +711,16 @@ def main() -> None:
               f"{times[name][0]:.4f} ms, plain torch {times[name][1]:.4f} ms (runs: plain "
               f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
 
+    mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 10)
+    for kid, (kernel, plain) in kernels.items():
+        k_fn = lambda: pairwise_call(kid, kernel, "tanh", mids, tens, cot)
+        p_fn = lambda: pairwise_call(kid, plain, "tanh", mids, tens, cot)
+        p1, k1, k2, p2 = time_ms(p_fn, 2), time_ms(k_fn, 3), time_ms(k_fn, 3), time_ms(p_fn, 2)
+        times[kid] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[timing] {kid} full width ({KMV_NT}x{KMV_N}x{KMV_N} pairs, layers 20x8->128, tanh): "
+              f"kernel {times[kid][0]:.4f} ms, plain torch {times[kid][1]:.4f} ms (runs: plain "
+              f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
+
     check("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [{
         "name": "K1 kinetic Langevin (EM/BAOAB, GMM or Quadratic force)",
@@ -512,6 +744,25 @@ def main() -> None:
     } for kid, name, line in (
         ("K3", "K3 fused pointwise forward (second-order MLP streams, quad and delta)", 67),
         ("K4", "K4 fused pointwise VJP (4-stream forward, reverse sweep, weight gradients)", 186),
+    )), *({
+        "name": name,
+        "route": "cuda",
+        "source": "pde_inverse_torch/csrc/pairwise.cu",
+        "replaces": replaces,
+        # K7/K8 from the kmv_pallas=auto run, K5/K6 from the kmv_pallas=on run
+        "launches": kmv_launches["auto" if kid in ("K7", "K8") else "on"][kid],
+        "max_abs_err": pair_err[kid],
+        "ms": times[kid][0],
+        "plain_ms": times[kid][1],
+    } for kid, name, replaces in (
+        ("K5", "K5 pairwise mean-field sums, |f|^2 head (value, vHv, dPhi/dz0 over refs)",
+         "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:136"),
+        ("K6", "K6 VJP of K5 (4-stream forward, reverse sweep, weight and ar gradients)",
+         "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340"),
+        ("K7", "K7 pairwise sums through the collapsed head g.Mg + u.g",
+         "pde_inverse_tpu/ops/pallas/pairwise_packed.py:219"),
+        ("K8", "K8 VJP of K7 (mids, M, u, ax, av, ar)",
+         "pde_inverse_tpu/ops/pallas/pairwise_packed.py:468"),
     ))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,7 +11,11 @@ Fokker-Planck with a GMM potential and parametric means recovery
 (``csrc/langevin.cu``).  Slice 2 is the same problem with a non-parametric
 PotentialMLP (``preset=KGMM-nonparametric-online``); its fused pointwise
 pass and that pass's gradient are hand-written CUDA kernels
-(``csrc/pointwise.cu``).  Every configuration outside the slices raises
+(``csrc/pointwise.cu``).  Slice 3 is online kinetic McKean-Vlasov with
+exact-law batches (``preset=KMV`` and the non-parametric PotentialMLP
+interaction kernel); its pairwise mean-field sums and their gradient are
+hand-written CUDA kernels (``csrc/pairwise.cu``).  Every configuration
+outside the slices raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
 
 Importing any module of this package initialises neither CUDA nor JAX.

@@ -1,0 +1,793 @@
+// K5-K8: the pairwise mean-field sums of the non-parametric KMV loss for a
+// PotentialMLP interaction kernel, forward and VJP, for Hopper.
+//
+// For each stamp t, point i and ref j the pair's first-layer preactivation
+// is z0 = ax[t, i] - ar[t, j], with the velocity tangent d_v z0 = av[t, i].
+// The forward kernel sums over the refs j, weighted by mask[j]:
+//     value[t, i] = sum_j mask_j Phi,  hess[t, i] = sum_j mask_j v^T Hess Phi v,
+//     s_dz0[t, i] = sum_j mask_j dPhi/dz0.
+// The backward kernel is its VJP with respect to the layers, ax, av and ar
+// for the cotangents (g_val, g_hess [nt, n], g_dz0 [nt, n, w0]).
+//
+// Two heads, one template each for forward and backward:
+// * kSquare (K5 forward, K6 backward) replaces
+//   pde_inverse_tpu/ops/pallas/pairwise_kernel.py::_kernel and ::_bwd_kernel:
+//   the layers end with the feature layer and Phi = |z_L|^2;
+// * kCollapsed (K7, K8) replaces pairwise_packed.py::_fwd_kernel and
+//   ::_bwd_kernel: the feature layer is collapsed into M = W_F W_F^T [w, w],
+//   u = 2 W_F b_F, and Phi = g.(M g) + u.g with g = act(z_L) (the constant
+//   |b_F|^2 is the caller's).  The wrapper appends M as one more layer with
+//   a zero bias, so (M g, M gp, M gq, M gs) are that layer's streams; in the
+//   backward kernel the bias slot of that layer carries u's gradient.  M is
+//   assumed symmetric, as in the TPU kernel.  The TPU kernel's lane packing
+//   of several refs per 128-lane register is layout only and is not carried
+//   over.
+//
+// Streams: the forward kernel propagates (z, p = d_v z, q = d_v^2 z), the
+// backward kernel also r = d_g z with r0 = g_dz0[t, i]; the backward is one
+// 4-stream forward pass and one reverse sweep (the TPU kernels' formulation,
+// and K4's in csrc/pointwise.cu).
+//
+// Design.  A block owns (ref split s, stamp t, block of kTile points) and
+// walks the refs j of its split in order; a tile is its kTile points against
+// one ref.  Every layer's streams of the tile live in shared memory,
+// feature-major with the points minor (rows of kRow floats), as in K3/K4,
+// and the reverse sweep overwrites them with the cotangents in place.  The
+// block's sums over j (value, hess, s_dz0, or ax/av cotangents) stay in
+// shared memory, each entry owned by one thread, and are written once per
+// block into a row of per-split partials; the weight gradients of a block go
+// to its own row of a partials buffer, and each (point block, t, j) writes
+// its ar cotangent row exactly once.  Small kernels then sum those rows in a
+// fixed order, with no atomics, so the same shapes on the same card give
+// bitwise-equal results on every call.  A ref with mask 0 is skipped (it
+// adds exactly 0.0); points past n load zeros, get zero cotangents and are
+// written nowhere.
+//
+// Saving against recomputing: the reverse sweep needs every layer's streams
+// of a pair.  They stay in shared memory for the tile (about 4.6 KB a pair
+// for K6 at hidden 20 x 8 and feature 128), which bounds the tile to 32
+// pairs; recomputing the forward per layer would multiply the FMAs, and
+// writing the streams to device memory is out of the question at 28 million
+// pairs a step.
+//
+// What bounds it on an H100.  FP32 FMAs: at the KMV main path's shape (7
+// stamps x 2,000 points x 2,000 refs = 28 million pairs, hidden 20 x 8,
+// feature 128) K5 does about 21,000 FMAs a pair (three forward streams and
+// one reverse), 1.2 TFLOP a call, and K6 about three times that; K7/K8 skip
+// the 128-wide layer and do a little over half as much.  The inputs are a
+// few MB.  This first design keeps one float4 shared-memory read per
+// four FMAs and, at width 20, only 160 of a block's 256 threads busy in the
+// products; register tiling and tensor cores are later work.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 32;          // points per tile (one ref each)
+constexpr int kRow = kTile + 4;    // floats per feature row in shared memory
+constexpr int kGroup = 4;          // points per thread in a layer product
+constexpr int kGroups = kTile / kGroup;
+constexpr int kMaxMid = 17;        // 16 layers after the first, plus M
+constexpr int kTanh = 0;
+constexpr int kSilu = 1;
+constexpr int kSoftplus = 2;
+constexpr int kSquare = 0;
+constexpr int kCollapsed = 1;
+
+struct Net {
+  int n_mid;
+  int w[kMaxMid + 1];    // widths: w[0] = w0, w[k + 1] = output width of layer k
+  int p_off[kMaxMid];    // W_k [w_k, w_{k+1}] at params + p_off[k], b_k right after
+  int t_off[kMaxMid];    // W_k^T [w_{k+1}, w_k] at params_t + t_off[k]
+  int row[kMaxMid + 1];  // first shared-memory row of layer k's streams
+  int rows;              // rows of all layers (the sum of the widths)
+  int tmp_rows;          // rows of the activated copy (widest input, padded to 4)
+};
+
+template <int ACT>
+__device__ __forceinline__ void act_d(float z, float& a0, float& a1, float& a2, float& a3) {
+  if constexpr (ACT == kTanh) {
+    const float a = tanhf(z);
+    const float d1 = 1.0f - a * a;
+    a0 = a;
+    a1 = d1;
+    a2 = -2.0f * a * d1;
+    a3 = d1 * (4.0f * a * a - 2.0f * d1);
+  } else if constexpr (ACT == kSilu) {
+    const float s = 1.0f / (1.0f + expf(-z));
+    const float s1 = s * (1.0f - s);
+    const float s2 = s1 * (1.0f - 2.0f * s);
+    const float s3 = s2 * (1.0f - 2.0f * s) - 2.0f * s1 * s1;
+    a0 = z * s;
+    a1 = s + z * s1;
+    a2 = 2.0f * s1 + z * s2;
+    a3 = 3.0f * s2 + z * s3;
+  } else {
+    const float s = 1.0f / (1.0f + expf(-z));
+    const float s1 = s * (1.0f - s);
+    a0 = fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)));
+    a1 = s;
+    a2 = s1;
+    a3 = s1 * (1.0f - 2.0f * s);
+  }
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_d1(float z) {
+  float a0, a1, a2, a3;
+  act_d<ACT>(z, a0, a1, a2, a3);
+  return a1;
+}
+
+// Shared memory of a block: the streams of every layer, their activated
+// copy, the tile inputs cached for the block (ax, av, r0), two w0-row
+// accumulators and a few per-point scalar rows.
+struct Smem {
+  float* sm;     // [NS][rows][kRow]
+  float* tmp;    // [NS][tmp_rows][kRow]
+  float* cax;    // [w0][kRow]
+  float* cav;    // [w0][kRow]
+  float* cr0;    // [w0][kRow]
+  float* acc1;   // [w0][kRow]
+  float* acc2;   // [w0][kRow]
+  float* sc;     // [kScalarRows][kRow]
+};
+constexpr int kScalarRows = 4;  // value / hess sums (forward); g_val, g_hess (backward)
+
+__host__ __device__ inline int extra_rows(int w0) { return 5 * w0 + kScalarRows; }
+
+__device__ inline Smem carve(float* base, const Net& net, int ns) {
+  Smem s;
+  const int w0 = net.w[0];
+  s.sm = base;
+  s.tmp = s.sm + static_cast<size_t>(ns) * net.rows * kRow;
+  s.cax = s.tmp + static_cast<size_t>(ns) * net.tmp_rows * kRow;
+  s.cav = s.cax + w0 * kRow;
+  s.cr0 = s.cav + w0 * kRow;
+  s.acc1 = s.cr0 + w0 * kRow;
+  s.acc2 = s.acc1 + w0 * kRow;
+  s.sc = s.acc2 + w0 * kRow;
+  return s;
+}
+
+// row i of stream s of layer k, and row i of stream s of the activated copy
+__device__ __forceinline__ float* srow(const Smem& S, const Net& net, int s, int k, int i) {
+  return S.sm + static_cast<size_t>(s * net.rows + net.row[k] + i) * kRow;
+}
+__device__ __forceinline__ float* trow(const Smem& S, const Net& net, int s, int i) {
+  return S.tmp + static_cast<size_t>(s * net.tmp_rows + i) * kRow;
+}
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void fma4(float4& acc, float4 x, float w) {
+  acc.x = fmaf(x.x, w, acc.x);
+  acc.y = fmaf(x.y, w, acc.y);
+  acc.z = fmaf(x.z, w, acc.z);
+  acc.w = fmaf(x.w, w, acc.w);
+}
+
+// rows [t, i0 + p, 0..w) of a [nt, n, w] array -> cache rows [f][p], zero past n
+__device__ void load_points(float* dst, const float* __restrict__ src, int t, int i0, int n, int w) {
+  for (int idx = threadIdx.x; idx < kTile * w; idx += kThreads) {
+    const int p = idx / w;
+    const int f = idx - p * w;
+    const int i = i0 + p;
+    dst[f * kRow + p] = i < n ? src[(static_cast<size_t>(t) * n + i) * w + f] : 0.0f;
+  }
+}
+
+// Activated streams of layer k's inputs into the copy:
+// h = act(z), hp = act' p, hq = act'' p^2 + act' q, hr = act' r.
+template <int NS, int ACT>
+__device__ void activate(const Smem& S, const Net& net, int k) {
+  const int win = net.w[k];
+  for (int idx = threadIdx.x; idx < win * kTile; idx += kThreads) {
+    const int i = idx / kTile;
+    const int p = idx - i * kTile;
+    float a0, a1, a2, a3;
+    act_d<ACT>(srow(S, net, 0, k, i)[p], a0, a1, a2, a3);
+    const float dp = srow(S, net, 1, k, i)[p];
+    const float dq = srow(S, net, 2, k, i)[p];
+    trow(S, net, 0, i)[p] = a0;
+    trow(S, net, 1, i)[p] = a1 * dp;
+    trow(S, net, 2, i)[p] = a2 * dp * dp + a1 * dq;
+    if constexpr (NS == 4) trow(S, net, 3, i)[p] = a1 * srow(S, net, 3, k, i)[p];
+  }
+}
+
+// Layer k's streams out of the activated copy: out_s = h_s W (+ b for z).
+template <int NS>
+__device__ void forward_product(const Smem& S, const Net& net, int k, const float* __restrict__ params) {
+  const int win = net.w[k];
+  const int wout = net.w[k + 1];
+  const float* __restrict__ W = params + net.p_off[k];
+  const float* __restrict__ b = W + win * wout;
+  for (int item = threadIdx.x; item < kGroups * wout; item += kThreads) {
+    const int g = item / wout;
+    const int j = item - g * wout;
+    float4 acc[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = 0; i < win; ++i) {
+      const float w = __ldg(W + static_cast<size_t>(i) * wout + j);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) fma4(acc[s], ld4(trow(S, net, s, i) + g * kGroup), w);
+    }
+    const float bj = __ldg(b + j);
+    acc[0].x += bj;
+    acc[0].y += bj;
+    acc[0].z += bj;
+    acc[0].w += bj;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) st4(srow(S, net, s, k + 1, j) + g * kGroup, acc[s]);
+  }
+}
+
+template <int NS, int ACT>
+__device__ void forward(const Smem& S, const Net& net, const float* __restrict__ params) {
+  for (int k = 0; k < net.n_mid; ++k) {
+    activate<NS, ACT>(S, net, k);
+    __syncthreads();
+    forward_product<NS>(S, net, k, params);
+    __syncthreads();
+  }
+}
+
+// The tile's layer-0 streams against ref row ar_j [w0]: z = ax - ar_j,
+// p = av, q = 0 and, with four streams, r = r0.
+template <int NS>
+__device__ void pair_rows(const Smem& S, const Net& net, const float* __restrict__ ar_j) {
+  const int w0 = net.w[0];
+  for (int idx = threadIdx.x; idx < w0 * kTile; idx += kThreads) {
+    const int f = idx / kTile;
+    const int p = idx - f * kTile;
+    srow(S, net, 0, 0, f)[p] = S.cax[f * kRow + p] - __ldg(ar_j + f);
+    srow(S, net, 1, 0, f)[p] = S.cav[f * kRow + p];
+    srow(S, net, 2, 0, f)[p] = 0.0f;
+    if constexpr (NS == 4) srow(S, net, 3, 0, f)[p] = S.cr0[f * kRow + p];
+  }
+}
+
+// Reverse sweep of the forward kernel: delta_k = (delta_{k+1} W_k^T) *
+// act'(z_k), written over z_k, for k = k_top .. 0; the first product's sum
+// is scaled by `top_scale` (exact in floating point for 2).
+template <int ACT>
+__device__ void delta_sweep(const Smem& S, const Net& net, int k_top, float top_scale,
+                            const float* __restrict__ params_t) {
+  for (int k = k_top; k >= 0; --k) {
+    const int win = net.w[k];
+    const int wout = net.w[k + 1];
+    const float* __restrict__ Wt = params_t + net.t_off[k];
+    const float scale = k == k_top ? top_scale : 1.0f;
+    for (int item = threadIdx.x; item < kGroups * win; item += kThreads) {
+      const int g = item / win;
+      const int i = item - g * win;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j = 0; j < wout; ++j) {
+        fma4(acc, ld4(srow(S, net, 0, k + 1, j) + g * kGroup), __ldg(Wt + static_cast<size_t>(j) * win + i));
+      }
+      float* zp = srow(S, net, 0, k, i) + g * kGroup;
+      const float4 z = ld4(zp);
+      acc.x = acc.x * scale * act_d1<ACT>(z.x);
+      acc.y = acc.y * scale * act_d1<ACT>(z.y);
+      acc.z = acc.z * scale * act_d1<ACT>(z.z);
+      acc.w = acc.w * scale * act_d1<ACT>(z.w);
+      st4(zp, acc);
+    }
+    __syncthreads();
+  }
+}
+
+template <int ACT, int HEAD>
+__global__ void __launch_bounds__(kThreads)
+    pw_fwd_kernel(Net net, int nt, int n, int m, int chunk, const float* __restrict__ ax,
+                  const float* __restrict__ av, const float* __restrict__ ar,
+                  const float* __restrict__ mask, const float* __restrict__ params,
+                  const float* __restrict__ params_t, const float* __restrict__ u,
+                  float* __restrict__ partials) {
+  extern __shared__ float4 smem4[];
+  const Smem S = carve(reinterpret_cast<float*>(smem4), net, 3);
+  const int n_iblk = (n + kTile - 1) / kTile;
+  const int iblk = blockIdx.x % n_iblk;
+  const int t = (blockIdx.x / n_iblk) % nt;
+  const int split = blockIdx.x / (n_iblk * nt);
+  const int i0 = iblk * kTile;
+  const int j_begin = split * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const int w0 = net.w[0];
+  const int L = net.n_mid;
+  float* acc_val = S.sc;
+  float* acc_hess = S.sc + kRow;
+
+  load_points(S.cax, ax, t, i0, n, w0);
+  load_points(S.cav, av, t, i0, n, w0);
+  for (int idx = threadIdx.x; idx < w0 * kRow; idx += kThreads) S.acc1[idx] = 0.0f;
+  for (int idx = threadIdx.x; idx < 2 * kRow; idx += kThreads) S.sc[idx] = 0.0f;
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  for (int j = j_begin; j < j_end; ++j) {
+    const float mk = __ldg(mask + j);
+    if (mk == 0.0f) continue;  // block-uniform
+    pair_rows<3>(S, net, ar + (static_cast<size_t>(t) * m + j) * w0);
+    __syncthreads();
+    forward<3, ACT>(S, net, params);
+
+    // head: per point, one warp reduces over the last layer's features
+    for (int p = threadIdx.x / 32; p < kTile; p += kThreads / 32) {
+      float sv = 0.0f, sh = 0.0f;
+      for (int f = lane; f < net.w[L]; f += 32) {
+        const float z = srow(S, net, 0, L, f)[p];
+        const float dz = srow(S, net, 1, L, f)[p];
+        if constexpr (HEAD == kSquare) {
+          sv += z * z;
+          sh += dz * dz + z * srow(S, net, 2, L, f)[p];
+        } else {
+          // z = M g, dz = M gp at the M layer; g, gp, gq in the activated copy
+          const float g = trow(S, net, 0, f)[p];
+          const float gp = trow(S, net, 1, f)[p];
+          const float gq = trow(S, net, 2, f)[p];
+          const float uf = __ldg(u + f);
+          sv += g * (z + uf);
+          sh += 2.0f * gp * dz + gq * (2.0f * z + uf);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sv += __shfl_xor_sync(0xffffffffu, sv, o);
+        sh += __shfl_xor_sync(0xffffffffu, sh, o);
+      }
+      if (lane == 0) {
+        acc_val[p] += mk * sv;
+        acc_hess[p] += mk * (HEAD == kSquare ? 2.0f * sh : sh);
+      }
+    }
+    if constexpr (HEAD == kCollapsed) {
+      // dPhi/dz_{L-1} = (2 M g + u) act'(z_{L-1}), written over z_{L-1}
+      for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
+        const int f = idx / kTile;
+        const int p = idx - f * kTile;
+        float* zp = srow(S, net, 0, L - 1, f) + p;
+        *zp = (2.0f * srow(S, net, 0, L, f)[p] + __ldg(u + f)) * act_d1<ACT>(*zp);
+      }
+      __syncthreads();
+      delta_sweep<ACT>(S, net, L - 2, 1.0f, params_t);
+    } else {
+      __syncthreads();
+      delta_sweep<ACT>(S, net, L - 1, 2.0f, params_t);
+    }
+    for (int idx = threadIdx.x; idx < w0 * kTile; idx += kThreads) {
+      const int f = idx / kTile;
+      const int p = idx - f * kTile;
+      S.acc1[f * kRow + p] += mk * srow(S, net, 0, 0, f)[p];
+    }
+    __syncthreads();
+  }
+
+  // this split's sums: value | hess | s_dz0, each [nt, n(, w0)]
+  const size_t tn = static_cast<size_t>(nt) * n;
+  float* out = partials + static_cast<size_t>(split) * tn * (2 + w0);
+  for (int p = threadIdx.x; p < kTile; p += kThreads) {
+    if (i0 + p < n) {
+      out[static_cast<size_t>(t) * n + i0 + p] = acc_val[p];
+      out[tn + static_cast<size_t>(t) * n + i0 + p] = acc_hess[p];
+    }
+  }
+  for (int idx = threadIdx.x; idx < kTile * w0; idx += kThreads) {
+    const int p = idx / w0;
+    const int f = idx - p * w0;
+    if (i0 + p < n) out[2 * tn + (static_cast<size_t>(t) * n + i0 + p) * w0 + f] = S.acc1[f * kRow + p];
+  }
+}
+
+// New cotangents of layer k's inputs for one point, from the products
+// hbar_s = sbar_s W^T and the saved streams (z, p, q, r), written in place.
+template <int ACT>
+__device__ __forceinline__ void input_cotangents(float hb, float hpb, float hqb, float hrb,
+                                                 float& z, float& p, float& q, float& r) {
+  float a0, a1, a2, a3;
+  act_d<ACT>(z, a0, a1, a2, a3);
+  const float zbar = hb * a1 + hpb * (a2 * p) + hrb * (a2 * r) + hqb * (a3 * p * p + a2 * q);
+  const float pbar = hpb * a1 + hqb * (2.0f * a2 * p);
+  z = zbar;
+  p = pbar;
+  q = hqb * a1;
+  r = hrb * a1;
+}
+
+// Weight gradients of layer k into the block's partial row: Wbar[i][j] +=
+// sum over the first NSW streams s and the points of h_s(i) sbar_s(j), and
+// the bias slot += sum over points of stream `bias_stream`'s cotangent.
+template <int NSW>
+__device__ void weight_grads(const Smem& S, const Net& net, int k, int bias_stream,
+                             float* __restrict__ part) {
+  const int win = net.w[k];
+  const int wout = net.w[k + 1];
+  float* __restrict__ gW = part + net.p_off[k];
+  const int n_ig = (win + 3) / 4;
+  for (int item = threadIdx.x; item < n_ig * wout; item += kThreads) {
+    const int ig = item / wout;
+    const int j = item - ig * wout;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < NSW; ++s) {
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const float4 c = ld4(srow(S, net, s, k + 1, j) + g * kGroup);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (4 * ig + r < win) {
+            const float4 h = ld4(trow(S, net, s, 4 * ig + r) + g * kGroup);
+            acc[r] = fmaf(h.x, c.x, acc[r]);
+            acc[r] = fmaf(h.y, c.y, acc[r]);
+            acc[r] = fmaf(h.z, c.z, acc[r]);
+            acc[r] = fmaf(h.w, c.w, acc[r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (4 * ig + r < win) gW[static_cast<size_t>(4 * ig + r) * wout + j] += acc[r];
+    }
+  }
+  for (int j = threadIdx.x; j < wout; j += kThreads) {
+    const float* zb = srow(S, net, bias_stream, k + 1, j);
+    float s = 0.0f;
+    for (int p = 0; p < kTile; ++p) s += zb[p];
+    gW[win * wout + j] += s;
+  }
+}
+
+// One step of the backward kernel's reverse sweep through layer k: the
+// activated inputs, the weight gradients, then the input cotangents over
+// the saved streams of layer k.
+template <int ACT>
+__device__ void reverse_step(const Smem& S, const Net& net, int k, const float* __restrict__ params_t,
+                             float* __restrict__ part) {
+  const int win = net.w[k];
+  const int wout = net.w[k + 1];
+  activate<4, ACT>(S, net, k);
+  __syncthreads();
+  weight_grads<4>(S, net, k, 0, part);
+  const float* __restrict__ Wt = params_t + net.t_off[k];
+  for (int item = threadIdx.x; item < kGroups * win; item += kThreads) {
+    const int g = item / win;
+    const int i = item - g * win;
+    float4 acc[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) acc[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < wout; ++j) {
+      const float w = __ldg(Wt + static_cast<size_t>(j) * win + i);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) fma4(acc[s], ld4(srow(S, net, s, k + 1, j) + g * kGroup), w);
+    }
+    float* zp = srow(S, net, 0, k, i) + g * kGroup;
+    float* pp = srow(S, net, 1, k, i) + g * kGroup;
+    float* qp = srow(S, net, 2, k, i) + g * kGroup;
+    float* rp = srow(S, net, 3, k, i) + g * kGroup;
+    float4 z = ld4(zp), p = ld4(pp), q = ld4(qp), r = ld4(rp);
+    input_cotangents<ACT>(acc[0].x, acc[1].x, acc[2].x, acc[3].x, z.x, p.x, q.x, r.x);
+    input_cotangents<ACT>(acc[0].y, acc[1].y, acc[2].y, acc[3].y, z.y, p.y, q.y, r.y);
+    input_cotangents<ACT>(acc[0].z, acc[1].z, acc[2].z, acc[3].z, z.z, p.z, q.z, r.z);
+    input_cotangents<ACT>(acc[0].w, acc[1].w, acc[2].w, acc[3].w, z.w, p.w, q.w, r.w);
+    st4(zp, z);
+    st4(pp, p);
+    st4(qp, q);
+    st4(rp, r);
+  }
+  __syncthreads();
+}
+
+template <int ACT, int HEAD>
+__global__ void __launch_bounds__(kThreads)
+    pw_bwd_kernel(Net net, int nt, int n, int m, int chunk, const float* __restrict__ ax,
+                  const float* __restrict__ av, const float* __restrict__ ar,
+                  const float* __restrict__ mask, const float* __restrict__ g_val,
+                  const float* __restrict__ g_hess, const float* __restrict__ g_dz0,
+                  const float* __restrict__ params, const float* __restrict__ params_t,
+                  const float* __restrict__ u, float* __restrict__ w_partials, int n_params,
+                  float* __restrict__ x_partials, float* __restrict__ ar_partials) {
+  extern __shared__ float4 smem4[];
+  const Smem S = carve(reinterpret_cast<float*>(smem4), net, 4);
+  const int n_iblk = (n + kTile - 1) / kTile;
+  const int iblk = blockIdx.x % n_iblk;
+  const int t = (blockIdx.x / n_iblk) % nt;
+  const int split = blockIdx.x / (n_iblk * nt);
+  const int i0 = iblk * kTile;
+  const int j_begin = split * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const int w0 = net.w[0];
+  const int L = net.n_mid;
+  float* gv = S.sc;
+  float* gh = S.sc + kRow;
+  float* __restrict__ part = w_partials + static_cast<size_t>(blockIdx.x) * n_params;
+
+  load_points(S.cax, ax, t, i0, n, w0);
+  load_points(S.cav, av, t, i0, n, w0);
+  load_points(S.cr0, g_dz0, t, i0, n, w0);
+  load_points(gv, g_val, t, i0, n, 1);
+  load_points(gh, g_hess, t, i0, n, 1);
+  for (int idx = threadIdx.x; idx < w0 * kRow; idx += kThreads) {
+    S.acc1[idx] = 0.0f;
+    S.acc2[idx] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < n_params; e += kThreads) part[e] = 0.0f;
+  __syncthreads();
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const float mk = __ldg(mask + j);
+    float* __restrict__ ar_row = ar_partials + ((static_cast<size_t>(iblk) * nt + t) * m + j) * w0;
+    if (mk == 0.0f) {  // block-uniform: this ref adds nothing
+      for (int f = threadIdx.x; f < w0; f += kThreads) ar_row[f] = 0.0f;
+      continue;
+    }
+    pair_rows<4>(S, net, ar + (static_cast<size_t>(t) * m + j) * w0);
+    __syncthreads();
+    forward<4, ACT>(S, net, params);
+
+    // head cotangents of S = mk (gv Phi + gh vHv + <g_dz0, dPhi/dz0>), zero
+    // past n
+    if constexpr (HEAD == kSquare) {
+      for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
+        const int f = idx / kTile;
+        const int p = idx - f * kTile;
+        const float c = i0 + p < n ? mk : 0.0f;
+        float* zr = srow(S, net, 0, L, f) + p;
+        float* pr = srow(S, net, 1, L, f) + p;
+        float* qr = srow(S, net, 2, L, f) + p;
+        float* rr = srow(S, net, 3, L, f) + p;
+        const float z = *zr, pp = *pr, q = *qr, r = *rr;
+        *zr = c * (2.0f * gv[p] * z + 2.0f * gh[p] * q + 2.0f * r);
+        *pr = c * (4.0f * gh[p] * pp);
+        *qr = c * (2.0f * gh[p] * z);
+        *rr = c * (2.0f * z);
+      }
+      __syncthreads();
+      for (int k = L - 1; k >= 0; --k) reverse_step<ACT>(S, net, k, params_t, part);
+    } else {
+      // g-level cotangents from the M layer's streams (M g, M gp, M gq, M gs),
+      // then through act at z_{L-1}; the M layer's rows become the
+      // cotangents of (M g, M gp) and, in the bias row, u's
+      for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
+        const int f = idx / kTile;
+        const int p = idx - f * kTile;
+        const float c = i0 + p < n ? mk : 0.0f;
+        const float g = trow(S, net, 0, f)[p];
+        const float gp = trow(S, net, 1, f)[p];
+        const float gq = trow(S, net, 2, f)[p];
+        const float gs = trow(S, net, 3, f)[p];
+        float* Zr = srow(S, net, 0, L, f) + p;
+        float* Pr = srow(S, net, 1, L, f) + p;
+        float* Qr = srow(S, net, 2, L, f) + p;
+        float* Rr = srow(S, net, 3, L, f) + p;
+        const float two = 2.0f * *Zr + __ldg(u + f);
+        const float gbar = c * (gv[p] * two + 2.0f * gh[p] * *Qr + 2.0f * *Rr);
+        const float gpbar = c * (4.0f * gh[p] * *Pr);
+        const float gqbar = c * (gh[p] * two);
+        const float gsbar = c * two;
+        *Zr = c * (gv[p] * g + 2.0f * gh[p] * gq + 2.0f * gs);
+        *Pr = c * (2.0f * gh[p] * gp);
+        *Qr = c * (gv[p] * g + gh[p] * gq + gs);
+        *Rr = 0.0f;
+        float* zp = srow(S, net, 0, L - 1, f) + p;
+        float* pp = srow(S, net, 1, L - 1, f) + p;
+        float* qp = srow(S, net, 2, L - 1, f) + p;
+        float* rp = srow(S, net, 3, L - 1, f) + p;
+        input_cotangents<ACT>(gbar, gpbar, gqbar, gsbar, *zp, *pp, *qp, *rp);
+      }
+      __syncthreads();
+      weight_grads<2>(S, net, L - 1, 2, part);
+      __syncthreads();
+      for (int k = L - 2; k >= 0; --k) reverse_step<ACT>(S, net, k, params_t, part);
+    }
+
+    // layer 0 now holds (z0bar, p0bar, q0bar, r0bar)
+    for (int idx = threadIdx.x; idx < w0 * kTile; idx += kThreads) {
+      const int f = idx / kTile;
+      const int p = idx - f * kTile;
+      S.acc1[f * kRow + p] += srow(S, net, 0, 0, f)[p];
+      S.acc2[f * kRow + p] += srow(S, net, 1, 0, f)[p];
+    }
+    for (int f = threadIdx.x; f < w0; f += kThreads) {
+      const float* zb = srow(S, net, 0, 0, f);
+      float s = 0.0f;
+      for (int p = 0; p < kTile; ++p) s += zb[p];
+      ar_row[f] = -s;
+    }
+    __syncthreads();
+  }
+
+  // this split's ax and av cotangents, each [nt, n, w0]
+  const size_t tnw = static_cast<size_t>(nt) * n * w0;
+  float* out = x_partials + static_cast<size_t>(split) * 2 * tnw;
+  for (int idx = threadIdx.x; idx < kTile * w0; idx += kThreads) {
+    const int p = idx / w0;
+    const int f = idx - p * w0;
+    if (i0 + p < n) {
+      const size_t o = (static_cast<size_t>(t) * n + i0 + p) * w0 + f;
+      out[o] = S.acc1[f * kRow + p];
+      out[tnw + o] = S.acc2[f * kRow + p];
+    }
+  }
+}
+
+// out[e] = sum over rows r, in order, of part[r][e]
+__global__ void sum_rows(const float* __restrict__ part, float* __restrict__ out, int rows, size_t len) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= len) return;
+  float s = 0.0f;
+  for (int r = 0; r < rows; ++r) s += part[static_cast<size_t>(r) * len + e];
+  out[e] = s;
+}
+
+cudaError_t launch_sum_rows(const float* part, float* out, int rows, size_t len, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>((len + kThreads - 1) / kThreads);
+  sum_rows<<<grid, kThreads, 0, st>>>(part, out, rows, len);
+  return cudaGetLastError();
+}
+
+// Net from the widths; returns the parameter count, or -1 if invalid.
+int make_net(int n_mid, const int* widths, Net* net) {
+  if (n_mid < 1 || n_mid > kMaxMid) return -1;
+  net->n_mid = n_mid;
+  int p = 0, t = 0, row = 0, max_in = 0;
+  for (int k = 0; k <= n_mid; ++k) {
+    if (widths[k] < 1) return -1;
+    net->w[k] = widths[k];
+    net->row[k] = row;
+    row += widths[k];
+  }
+  for (int k = 0; k < n_mid; ++k) {
+    net->p_off[k] = p;
+    net->t_off[k] = t;
+    p += widths[k] * widths[k + 1] + widths[k + 1];
+    t += widths[k] * widths[k + 1];
+    if (widths[k] > max_in) max_in = widths[k];
+  }
+  net->rows = row;
+  net->tmp_rows = (max_in + 3) / 4 * 4;
+  return p;
+}
+
+size_t shared_bytes(const Net& net, int n_streams) {
+  return static_cast<size_t>(n_streams * (net.rows + net.tmp_rows) + extra_rows(net.w[0])) * kRow *
+         sizeof(float);
+}
+
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+template <typename Kernel>
+cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+}
+
+// run the statements after `head` with `kern` bound to KERNEL<act, head>;
+// an unknown act or head returns cudaErrorInvalidValue
+#define PW_DISPATCH(KERNEL, act, head, ...)                                    \
+  do {                                                                         \
+    if ((head) == kSquare) {                                                   \
+      switch (act) {                                                           \
+        case kTanh: { auto kern = KERNEL<kTanh, kSquare>; __VA_ARGS__; } break;       \
+        case kSilu: { auto kern = KERNEL<kSilu, kSquare>; __VA_ARGS__; } break;       \
+        case kSoftplus: { auto kern = KERNEL<kSoftplus, kSquare>; __VA_ARGS__; } break; \
+        default: return static_cast<int>(cudaErrorInvalidValue);               \
+      }                                                                        \
+    } else if ((head) == kCollapsed) {                                         \
+      switch (act) {                                                           \
+        case kTanh: { auto kern = KERNEL<kTanh, kCollapsed>; __VA_ARGS__; } break;    \
+        case kSilu: { auto kern = KERNEL<kSilu, kCollapsed>; __VA_ARGS__; } break;    \
+        case kSoftplus: { auto kern = KERNEL<kSoftplus, kCollapsed>; __VA_ARGS__; } break; \
+        default: return static_cast<int>(cudaErrorInvalidValue);               \
+      }                                                                        \
+    } else {                                                                   \
+      return static_cast<int>(cudaErrorInvalidValue);                          \
+    }                                                                          \
+  } while (0)
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes.  Each launches on `stream` and
+// returns a CUDA error code (0 on success); validation of shapes, dtypes and
+// devices is the Python wrapper's job.  `widths` is a host array of n_mid + 1
+// ints; params packs [W_k (row-major [w_k, w_{k+1}]), b_k] for every layer
+// (for the collapsed head the last layer is M with a zero bias), params_t
+// packs W_k^T.  Arrays: ax, av [nt, n, w0], ar [nt, m, w0], mask [m],
+// g_val, g_hess [nt, n], g_dz0 [nt, n, w0], u [w] (collapsed head only).
+
+// Resident blocks per SM of the forward (bwd = 0) or backward kernel.
+extern "C" int pw_max_blocks(int device, int act, int head, int bwd, int n_mid, const int* widths,
+                             int* blocks) {
+  Net net;
+  if (make_net(n_mid, widths, &net) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bwd) {
+    const size_t smem = shared_bytes(net, 4);
+    PW_DISPATCH(pw_bwd_kernel, act, head, err = blocks_per_sm(kern, smem, blocks));
+  } else {
+    const size_t smem = shared_bytes(net, 3);
+    PW_DISPATCH(pw_fwd_kernel, act, head, err = blocks_per_sm(kern, smem, blocks));
+  }
+  return static_cast<int>(err);
+}
+
+// partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n * (2 + w0)]
+// = value [nt, n] | hess [nt, n] | s_dz0 [nt, n, w0].
+extern "C" int pw_sums(int device, int act, int head, int n_mid, const int* widths, int nt, int n,
+                       int m, int n_split, const float* ax, const float* av, const float* ar,
+                       const float* mask, const float* params, const float* params_t,
+                       const float* u, float* partials, float* out, void* stream) {
+  Net net;
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || make_net(n_mid, widths, &net) < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = shared_bytes(net, 3);
+  const int chunk = (m + n_split - 1) / n_split;
+  const int n_iblk = (n + kTile - 1) / kTile;
+  const dim3 grid(n_split * nt * n_iblk);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PW_DISPATCH(pw_fwd_kernel, act, head, {
+    err = allow_shared(kern, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, params, params_t, u,
+                                       partials);
+  });
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int w0 = net.w[0];
+  return static_cast<int>(
+      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
+}
+
+// w_partials: [n_split * nt * n_blk, n_params]; x_partials: [n_split, 2, nt,
+// n, w0]; ar_partials: [n_blk, nt, m, w0] (n_blk = ceil(n / 32)) scratch.
+// grads: [n_params] in the params layout (for the collapsed head the M
+// layer's slot holds the transposed M gradient and its bias slot u's);
+// axv_bar: [2, nt, n, w0] = ax_bar | av_bar; ar_bar: [nt, m, w0].
+extern "C" int pw_sums_bwd(int device, int act, int head, int n_mid, const int* widths, int nt,
+                           int n, int m, int n_split, const float* ax, const float* av,
+                           const float* ar, const float* mask, const float* g_val,
+                           const float* g_hess, const float* g_dz0, const float* params,
+                           const float* params_t, const float* u, float* w_partials, float* grads,
+                           float* x_partials, float* axv_bar, float* ar_partials, float* ar_bar,
+                           void* stream) {
+  Net net;
+  const int n_params = make_net(n_mid, widths, &net);
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || n_params < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = shared_bytes(net, 4);
+  const int chunk = (m + n_split - 1) / n_split;
+  const int n_iblk = (n + kTile - 1) / kTile;
+  const int blocks = n_split * nt * n_iblk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PW_DISPATCH(pw_bwd_kernel, act, head, {
+    err = allow_shared(kern, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<blocks, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess, g_dz0,
+                                         params, params_t, u, w_partials, n_params, x_partials,
+                                         ar_partials);
+  });
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int w0 = net.w[0];
+  err = launch_sum_rows(w_partials, grads, blocks, static_cast<size_t>(n_params), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * w0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
+}

@@ -1,7 +1,7 @@
 """One-step check of the port's main path.
 
 ``entry()`` builds a preset (KGMM by default; any ported preset, e.g.
-KGMM-nonparametric-online) with its problem, method and model, runs one
+KGMM-nonparametric-online or KMV) with its problem, method and model, runs one
 training step's sampling, loss and gradient on the resolved device (CUDA
 unless ``device="cpu"``), and returns its outputs after checking that they
 are finite:

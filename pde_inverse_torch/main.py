@@ -5,6 +5,7 @@ Usage (the JAX package's overrides and presets, plus ``device=``):
     python -m pde_inverse_torch.main preset=KGMM train.number_of_iterations=20 \
         train.steps_per_chunk=10 logging.writer=none
     python -m pde_inverse_torch.main preset=KGMM device=cpu solver.train.batch_size_0T=64
+    python -m pde_inverse_torch.main preset=KMV device=cpu solver.train.sample_per_time=1000
 
 ``device`` defaults to CUDA and raises when no CUDA device is present;
 ``device=cpu`` runs on the CPU.  Flow: 4-way seed split ->

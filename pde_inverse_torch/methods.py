@@ -1,12 +1,18 @@
 """Method layer: the consistency-based estimator and its online data
-policy (counterpart of pde_inverse_tpu/methods.py, kinetic Fokker-Planck
-online SDE path).
+policies (counterpart of pde_inverse_tpu/methods.py).
 
-Each training step samples (initial, terminal, path) batches through the
-problem's simulator -- K1 on CUDA -- and evaluates the weak-form loss and
-its parameter gradient; for a PotentialMLP hypothesis the loss takes the
-fused pointwise provider (K3/K4 on CUDA) as ``solver.train.kfp_fused``
-selects.
+Each training step samples a batch and evaluates the weak-form loss and its
+parameter gradient:
+
+* kinetic Fokker-Planck, online SDE: (initial, terminal, path) batches from
+  the problem's simulator (K1 on CUDA); for a PotentialMLP hypothesis the
+  loss takes the fused pointwise provider (K3/K4 on CUDA) as
+  ``solver.train.kfp_fused`` selects;
+* kinetic McKean-Vlasov, online exact law: initial and terminal draws from
+  the closed-form laws and a grid_time path batch with its stamps
+  ``tau_0T``; the loss takes the closed-form statistics for the parametric
+  quadratic model, or the blockwise pairwise reduction for a PotentialMLP
+  (K5-K8 on CUDA, ``solver.train.kmv_pallas``).
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ from pde_inverse_tpu.config import Config
 from pde_inverse_torch import rng
 from pde_inverse_torch.losses import LOSS_MODULES
 from pde_inverse_torch.losses import fused_pointwise as fp
+from pde_inverse_torch.losses import pairwise_blockwise as bw
 from pde_inverse_torch.models import get_model
+from pde_inverse_torch.models.parametric import QuadraticFormModel
 
 
 def functional_forward(model: torch.nn.Module) -> Callable:
@@ -30,7 +38,8 @@ def functional_forward(model: torch.nn.Module) -> Callable:
 
 
 class ConsistencyBased:
-    """Weak-form consistency estimator (kinetic Fokker-Planck)."""
+    """Weak-form consistency estimator (kinetic Fokker-Planck and kinetic
+    McKean-Vlasov)."""
 
     def __init__(self, pde_instance, cfg: Config, key: int, device: torch.device):
         self.pde_instance = pde_instance
@@ -51,6 +60,19 @@ class ConsistencyBased:
         package likewise initialises from a fixed key)."""
         model = get_model(self.cfg, self.pde_instance, rng.generator(11))
         self._model = model
+        cfg = self.cfg
+        if (
+            cfg.pde_instance.name == "Kinetic-McKean-Vlasov"
+            and cfg.estimation_mode == "non-parametric"
+            and cfg.train.optimizer.weight_decay < 1e-1
+            and cfg.solver.train.kmv_field_reg <= 0.0
+        ):
+            print(
+                "[warn] non-parametric KMV without a stabilizer: the weak-form loss's "
+                "linear-in-Phi terms leave unbounded finite-sample descent directions "
+                "(the field norm can explode within ~1k steps). Set "
+                "train.optimizer.weight_decay=1e-1."
+            )
         params = {k: v.detach().clone() for k, v in model.named_parameters()}
         return model, params
 
@@ -63,7 +85,31 @@ class ConsistencyBased:
             data=data,
             pde_instance=self.pde_instance,
             **self._fused_kwargs(),
+            **self._kmv_kwargs(),
         )
+
+    def _kmv_closed_form(self) -> bool:
+        """Parametric KMV with the exactly quadratic model: the mean-field
+        reduction collapses to per-stamp sufficient statistics."""
+        return (
+            self.cfg.pde_instance.name == "Kinetic-McKean-Vlasov"
+            and self.cfg.solver.train.kmv_closed_form
+            and isinstance(self._model, QuadraticFormModel)
+        )
+
+    def _kmv_kwargs(self) -> Dict:
+        """The KMV loss's model-side route: closed form, or the blockwise
+        reduction for a PotentialMLP; none (the generic reduction) otherwise."""
+        tr = self.cfg.solver.train
+        if self.cfg.pde_instance.name != "Kinetic-McKean-Vlasov":
+            return {}
+        kwargs = {"element_budget": tr.kmv_element_budget}
+        if self._kmv_closed_form():
+            kwargs["closed_form_quadratic"] = True
+        elif tr.kmv_blockwise and bw.supports(self._model):
+            kwargs.update(blockwise_module=self._model, blockwise_rows=tr.kmv_blockwise_rows,
+                          pallas_mode=tr.kmv_pallas)
+        return kwargs
 
     def _fused_kwargs(self) -> Dict:
         """The fused pointwise provider's arguments for a supported
@@ -92,20 +138,32 @@ class ConsistencyBased:
 
     def _boundary_unsharded(self, key: int, batch_size=None):
         inst = self.pde_instance
-        if inst.sample_scheme != "SDE":
-            raise NotImplementedError(
-                "exact-law sampling (KFP-OU) is not ported yet: ROADMAP queue 1, "
-                "items 4-5"
-            )
-        _, _, key_0T = rng.split(key, 3)
-        n = batch_size or self.cfg.solver.train.batch_size_0T
+        tr = self.cfg.solver.train
+        key_init, key_term, key_0T = rng.split(key, 3)
+        if inst.sample_scheme == "exact":
+            return {
+                "initial": inst.distribution_initial.sample(
+                    batch_size or tr.batch_size_init, rng.generator(key_init, inst.device)
+                ),
+                "terminal": inst.distribution_terminal.sample(
+                    batch_size or tr.batch_size_terminal, rng.generator(key_term, inst.device)
+                ),
+            }
+        n = batch_size or tr.batch_size_0T
         initial, terminal = inst.sample_boundary_only(key_0T, n)
         return {"initial": initial, "terminal": terminal}
 
     def _path_unsharded(self, key: int):
+        inst = self.pde_instance
+        tr = self.cfg.solver.train
         _, _, key_0T = rng.split(key, 3)
-        return {
-            "0T": self.pde_instance.sample_path_only(
-                key_0T, self.cfg.solver.train.batch_size_0T
+        if inst.sample_scheme == "exact":
+            spec = (
+                tr.batch_size_0T if tr.sample_mode == "random_time"
+                else (tr.n_time_stamps, tr.sample_per_time)
             )
-        }
+            return {
+                "0T": inst.sample_ground_truth(key_0T, spec),
+                "tau_0T": inst.get_time_sample_ground_truth(key_0T, spec),
+            }
+        return {"0T": inst.sample_path_only(key_0T, tr.batch_size_0T)}

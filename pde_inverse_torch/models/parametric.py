@@ -12,15 +12,17 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pde_inverse_torch.models.mlp import _dense
 from pde_inverse_torch.potentials import GMMPotential
 
 
 class QuadraticFormModel(nn.Module):
-    """V(x) = x . (W x + b); the symmetric part of W estimates F~/2."""
+    """V(x) = x . (W x + b); the symmetric part of W estimates F~/2.  The
+    kernel starts LeCun-normal and the bias at zero, as flax's Dense."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.F = nn.Linear(dim, dim)
+        self.F = _dense(dim, dim, 1.0, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         value = torch.sum(x * self.F(x), dim=-1)
@@ -39,3 +41,10 @@ class GMMMeansModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         value = GMMPotential.create(self.mus, 1.0).value(x)
         return value[None] if x.ndim == 1 else value
+
+
+def recovered_quadratic_matrix(params) -> torch.Tensor:
+    """F~ estimate of a QuadraticFormModel: V(x) = x^T W x estimates
+    1/2 x^T F~ x, so F~ = W + W^T (W the flax kernel, F.weight^T here)."""
+    weight = params["F.weight"]
+    return weight + weight.T

@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
-from torch.func import grad, jvp, vmap
+from torch.func import grad, grad_and_value, jvp, vmap
 
 
 def batched_grad(f: Callable, x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +30,19 @@ def batched_grad_and_hvp_quadform(f: Callable, x: torch.Tensor, v: torch.Tensor)
     def one(xi, vi):
         g, hv = jvp(grad(f), (xi,), (vi,))
         return g, torch.dot(vi, hv)
+
+    for _ in range(x.ndim - 1):
+        one = vmap(one)
+    return one(x, v)
+
+
+def batched_value_grad_hvp_quadform(f: Callable, x: torch.Tensor, v: torch.Tensor):
+    """(f(x) [...], grad f(x) [..., d], v^T H_f(x) v [...]) in one
+    forward-over-reverse pass over the points x [..., d]."""
+
+    def one(xi, vi):
+        (g, val), (hv, _) = jvp(grad_and_value(f), (xi,), (vi,))
+        return val, g, torch.dot(vi, hv)
 
     for _ in range(x.ndim - 1):
         one = vmap(one)

@@ -1,0 +1,449 @@
+"""K5-K8: the pairwise mean-field kernels (``csrc/pairwise.cu``) and their
+plain PyTorch versions.
+
+Layouts are the JAX package's: ax, av [nt, n, w0] are the first-layer
+projections of the points and velocities (ax includes the bias), ar
+[nt, m, w0] those of the refs, mask [m] the refs' weights.  For each stamp
+t and point i the pair with ref j has first-layer preactivation
+z0 = ax[t, i] - ar[t, j] and tangent av[t, i]; every function returns the
+masked sums over j
+
+    value [nt, n]      = sum_j mask_j Phi
+    hess  [nt, n]      = sum_j mask_j v^T Hess Phi v
+    s_dz0 [nt, n, w0]  = sum_j mask_j dPhi/dz0
+
+or their VJP.  Counterparts:
+
+* ``mlp_pairwise_sums`` (K5) and ``mlp_pairwise_sums_bwd`` (K6):
+  ``pde_inverse_tpu/ops/pallas/pairwise_kernel.py``, the layers after the
+  first (``mids``: [(W [w_in, w_out], b)], the feature layer last) and
+  Phi = |f_L|^2;
+* ``mlp_pairwise_sums_packed`` (K7) and ``mlp_pairwise_sums_packed_bwd``
+  (K8): ``pairwise_packed.py``, the hidden layers before the feature layer
+  (``mids_m``) and the collapsed head Phi = g.(M g) + u.g with g the last
+  hidden activation, M = W_F W_F^T and u = 2 W_F b_F; value excludes
+  c = |b_F|^2 and M is assumed symmetric.
+
+For a CUDA tensor each wrapper launches its kernel on the current stream
+and raises if the build or the launch fails; for a CPU tensor it runs its
+plain version.  ``<wrapper>.launches`` counts kernel launches (CPU calls do
+not count).  The plain versions process the refs in chunks of at most
+``ROWS_PER_CHUNK`` pairs, so they also run at the full main-path width.
+All arithmetic is float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from pde_inverse_torch.ops.activations import ACT_D012, ACT_D0123, supported_activation
+from pde_inverse_torch.ops.cuda import build
+
+Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+ROWS_PER_CHUNK = 1 << 20  # pairs per chunk of the plain versions
+MAX_MID = 16  # layers after the first that the kernels take
+_ACTS = {"tanh": 0, "silu": 1, "softplus": 2}
+_SQUARE, _COLLAPSED = 0, 1
+_TILE = 32  # points per tile, csrc/pairwise.cu kTile
+_ROW = _TILE + 4  # floats per feature row of a tile in shared memory
+_MAX_SHARED_BYTES = 227 * 1024  # a block's opt-in maximum on Hopper
+_WAVES = 4  # aim for this many waves of resident blocks when splitting the refs
+
+
+# -- plain versions ----------------------------------------------------------------
+
+
+def _chunks(ar: torch.Tensor, n: int, rows: int):
+    """(j0, j1) ref ranges of at most `rows` pairs (at least one ref each)."""
+    nt, m = ar.shape[0], ar.shape[1]
+    c = max(1, min(m, rows // max(1, nt * n)))
+    return [(j0, min(m, j0 + c)) for j0 in range(0, m, c)]
+
+
+def _pair_rows(ax, av, ar_c):
+    """Flat pair rows ordered (t, j, i): z0 = ax_i - ar_j and dz0 = av_i."""
+    nt, n, w0 = ax.shape
+    c = ar_c.shape[1]
+    z = (ax[:, None] - ar_c[:, :, None]).reshape(-1, w0)
+    dz = av[:, None].expand(nt, c, n, w0).reshape(-1, w0)
+    return z, dz
+
+
+def _per_row(x, nt: int, c: int, n: int):
+    """A per-point [nt, n] or per-ref [c] scalar as a [rows, 1] column."""
+    if x.ndim == 1:
+        return x[None, :, None].expand(nt, c, n).reshape(-1, 1)
+    return x[:, None, :].expand(nt, c, n).reshape(-1, 1)
+
+
+def _fwd_rows(layers: Layers, act_name: str, z, dz, head=None):
+    """(Phi, vHv, dPhi/dz0) per pair row.  head None: Phi = |z_L|^2 after
+    `layers`; head (M, u): Phi = g.(M g) + u.g with g = act(z_L)."""
+    act = ACT_D012[act_name]
+    d2z = torch.zeros_like(z)
+    preacts = []
+    for W, b in layers:
+        preacts.append(z)
+        a, d1, d2 = act(z)
+        z, dz, d2z = a @ W + b, (d1 * dz) @ W, (d2 * dz * dz + d1 * d2z) @ W
+    if head is None:
+        val = torch.sum(z * z, dim=-1)
+        hess = 2.0 * torch.sum(dz * dz + z * d2z, dim=-1)
+        delta = 2.0 * z
+    else:
+        M, u = head
+        g, d1, d2 = act(z)
+        gp, gq = d1 * dz, d2 * dz * dz + d1 * d2z
+        Mg = g @ M
+        two = 2.0 * Mg + u
+        val = torch.sum(g * (Mg + u), dim=-1)
+        hess = torch.sum(2.0 * gp * (gp @ M) + gq * two, dim=-1)
+        delta = two * d1
+    for (W, _), zk in zip(reversed(layers), reversed(preacts)):
+        delta = (delta @ W.T) * act(zk)[1]
+    return val, hess, delta
+
+
+def _sums(layers, act_name, ax, av, ar, mask, head, rows):
+    nt, n, w0 = ax.shape
+    value = torch.zeros((nt, n), dtype=ax.dtype, device=ax.device)
+    hess = torch.zeros_like(value)
+    s_dz0 = torch.zeros_like(ax)
+    for j0, j1 in _chunks(ar, n, rows):
+        c = j1 - j0
+        z, dz = _pair_rows(ax, av, ar[:, j0:j1])
+        val, hs, delta = _fwd_rows(layers, act_name, z, dz, head)
+        mk = mask[j0:j1].to(ax.dtype)[None, :, None]
+        value = value + torch.sum(val.reshape(nt, c, n) * mk, dim=1)
+        hess = hess + torch.sum(hs.reshape(nt, c, n) * mk, dim=1)
+        s_dz0 = s_dz0 + torch.sum(delta.reshape(nt, c, n, w0) * mk[..., None], dim=1)
+    return {"value": value, "hess": hess, "s_dz0": s_dz0}
+
+
+def mlp_pairwise_sums_plain(mids: Layers, act_name: str, ax, av, ar, mask, rows=ROWS_PER_CHUNK):
+    """K5's plain version (the JAX package's ``_tile_stats`` sums)."""
+    return _sums(mids, act_name, ax, av, ar, mask, None, rows)
+
+
+def mlp_pairwise_sums_packed_plain(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask,
+                                   rows=ROWS_PER_CHUNK):
+    """K7's plain version: the collapsed-head sums, value without c."""
+    return _sums(mids_m, act_name, ax, av, ar, mask, (M, u), rows)
+
+
+def _forward4(layers: Layers, act3, z, p, r):
+    """Four streams (z, p = d_v z, q = d_v^2 z, r = d_g z) through `layers`,
+    saving every layer's inputs."""
+    q = torch.zeros_like(z)
+    saved = []
+    for W, b in layers:
+        saved.append((z, p, q, r))
+        a0, a1, a2, _ = act3(z)
+        z, p, q, r = a0 @ W + b, (a1 * p) @ W, (a2 * p * p + a1 * q) @ W, (a1 * r) @ W
+    return (z, p, q, r), saved
+
+
+def _reverse4(layers: Layers, act3, saved, bars):
+    """One reverse sweep over the 4-stream formulation from the output
+    cotangents `bars`; returns ([(Wbar, bbar)], z0bar, p0bar)."""
+    zbar, pbar, qbar, rbar = bars
+    grads: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for (W, _), (zk, pk, qk, rk) in zip(reversed(layers), reversed(saved)):
+        a0, a1, a2, a3 = act3(zk)
+        h, hp, hq, hr = a0, a1 * pk, a2 * pk * pk + a1 * qk, a1 * rk
+        grads.append((h.T @ zbar + hp.T @ pbar + hq.T @ qbar + hr.T @ rbar, torch.sum(zbar, dim=0)))
+        hb, hpb, hqb, hrb = zbar @ W.T, pbar @ W.T, qbar @ W.T, rbar @ W.T
+        zbar = hb * a1 + hpb * (a2 * pk) + hrb * (a2 * rk) + hqb * (a3 * pk * pk + a2 * qk)
+        pbar = hpb * a1 + hqb * (2.0 * a2 * pk)
+        qbar, rbar = hqb * a1, hrb * a1
+    return grads[::-1], zbar, pbar
+
+
+def _sums_bwd(layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, head, rows):
+    """VJP of the sums with respect to (layers, [M, u], ax, av, ar), as the
+    kernels compute it: S = mask (g_val Phi + g_hess vHv + <g_dz0, dPhi/dz0>)
+    per pair, a 4-stream forward pass with r0 = g_dz0, one reverse sweep."""
+    act3 = ACT_D0123[act_name]
+    nt, n, w0 = ax.shape
+    layer_bars = [(torch.zeros_like(W), torch.zeros_like(b)) for W, b in layers]
+    ax_bar, av_bar = torch.zeros_like(ax), torch.zeros_like(av)
+    ar_bar = torch.zeros_like(ar)
+    if head is not None:
+        M, u = head
+        M_bar, u_bar = torch.zeros_like(M), torch.zeros_like(u)
+    for j0, j1 in _chunks(ar, n, rows):
+        c = j1 - j0
+        z0, p0 = _pair_rows(ax, av, ar[:, j0:j1])
+        r0 = g_dz0[:, None].expand(nt, c, n, w0).reshape(-1, w0)
+        mk = _per_row(mask[j0:j1].to(ax.dtype), nt, c, n)
+        gv = mk * _per_row(g_val, nt, c, n)
+        gh = mk * _per_row(g_hess, nt, c, n)
+        (z, p, q, r), saved = _forward4(layers, act3, z0, p0, r0)
+        if head is None:
+            bars = (2.0 * gv * z + 2.0 * gh * q + 2.0 * mk * r, 4.0 * gh * p, 2.0 * gh * z, 2.0 * mk * z)
+        else:
+            a0, a1, a2, a3 = act3(z)
+            g, gp, gq, gs = a0, a1 * p, a2 * p * p + a1 * q, a1 * r
+            Mg, Mgp, Mgq, Mgr = g @ M, gp @ M, gq @ M, gs @ M
+            two = 2.0 * Mg + u
+            gbar = gv * two + 2.0 * gh * Mgq + 2.0 * mk * Mgr
+            gpbar, gqbar, gsbar = 4.0 * gh * Mgp, gh * two, mk * two
+            L1 = gv * g + 2.0 * gh * gq + 2.0 * mk * gs
+            M_bar = M_bar + L1.T @ g + (2.0 * gh * gp).T @ gp
+            u_bar = u_bar + torch.sum(gv * g + gh * gq + mk * gs, dim=0)
+            bars = (
+                gbar * a1 + gpbar * (a2 * p) + gqbar * (a3 * p * p + a2 * q) + gsbar * (a2 * r),
+                gpbar * a1 + gqbar * (2.0 * a2 * p),
+                gqbar * a1,
+                gsbar * a1,
+            )
+        grads, z0bar, p0bar = _reverse4(layers, act3, saved, bars)
+        layer_bars = [(Wb + gW, bb + gb) for (Wb, bb), (gW, gb) in zip(layer_bars, grads)]
+        z0bar = z0bar.reshape(nt, c, n, w0)
+        ax_bar = ax_bar + torch.sum(z0bar, dim=1)
+        av_bar = av_bar + torch.sum(p0bar.reshape(nt, c, n, w0), dim=1)
+        ar_bar[:, j0:j1] = -torch.sum(z0bar, dim=2)
+    if head is None:
+        return layer_bars, ax_bar, av_bar, ar_bar
+    return layer_bars, M_bar, u_bar, ax_bar, av_bar, ar_bar
+
+
+def mlp_pairwise_sums_bwd_plain(mids: Layers, act_name: str, ax, av, ar, mask, g_val, g_hess, g_dz0,
+                                rows=ROWS_PER_CHUNK):
+    """K6's plain version: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar)."""
+    return _sums_bwd(mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, None, rows)
+
+
+def mlp_pairwise_sums_packed_bwd_plain(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask,
+                                       g_val, g_hess, g_dz0, rows=ROWS_PER_CHUNK):
+    """K8's plain version: ([(Wbar, bbar)], M_bar, u_bar, ax_bar, av_bar,
+    ar_bar); M_bar is the VJP of the symmetric composition (the JAX
+    kernel's)."""
+    return _sums_bwd(mids_m, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, (M, u), rows)
+
+
+# -- kernels -----------------------------------------------------------------------
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("pairwise")
+    if lib.pw_sums.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        common = [ci, ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci]
+        lib.pw_sums.argtypes = common + [vp] * 10
+        lib.pw_sums_bwd.argtypes = common + [vp] * 17
+        lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks):
+            fn.restype = ci
+    return lib
+
+
+def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
+    """Dynamic shared memory of one block: every layer's streams of a tile,
+    the activated copy of the widest layer input, the cached tile inputs and
+    the block's accumulators."""
+    rows = sum(widths)
+    tmp_rows = -(-max(widths[:-1]) // 4) * 4
+    return (n_streams * (rows + tmp_rows) + 5 * widths[0] + 4) * _ROW * 4
+
+
+def _raise(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+class _Launch:
+    """Validated inputs of one launch: widths, packed layers, device."""
+
+    def __init__(self, name, layers, act_name, ax, av, ar, mask, extra=(), head=None):
+        if not supported_activation(act_name):
+            raise ValueError(f"{name}: activation {act_name!r} has no derivative table")
+        n_layers = len(layers) - (head is not None)  # the collapsed head's M is no layer of the net
+        least = 0 if head is not None else 1
+        if not least <= n_layers <= MAX_MID:
+            raise ValueError(f"{name} takes at most {MAX_MID} layers after the first, got {n_layers}")
+        if ax.ndim != 3 or tuple(av.shape) != tuple(ax.shape) or ar.ndim != 3 \
+                or ar.shape[0] != ax.shape[0] or ar.shape[2] != ax.shape[2]:
+            raise ValueError(f"{name}: need ax, av [nt, n, w0] and ar [nt, m, w0], got "
+                             f"{tuple(ax.shape)}, {tuple(av.shape)}, {tuple(ar.shape)}")
+        self.nt, self.n, w0 = ax.shape
+        self.m = ar.shape[1]
+        if tuple(mask.shape) != (self.m,):
+            raise ValueError(f"{name}: mask must be [{self.m}], got {tuple(mask.shape)}")
+        widths = [w0]
+        for W, b in layers:
+            if W.ndim != 2 or W.shape[0] != widths[-1] or tuple(b.shape) != (W.shape[1],):
+                raise ValueError(f"{name}: layer shapes {tuple(W.shape)}, {tuple(b.shape)} do not chain")
+            widths.append(W.shape[1])
+        dev = ax.device
+        for t in [ax, av, ar, mask, *extra, *(x for pair in layers for x in pair)]:
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{name}: every input must be float32 on {dev}, got {t.dtype} on {t.device}")
+        if not (1 <= self.n and 1 <= self.m and self.nt * self.n * (2 + w0) < 2**31
+                and -(-self.n // _TILE) * self.nt * self.m * w0 < 2**31):
+            raise ValueError(f"{name}: sizes nt={self.nt}, n={self.n}, m={self.m} out of range")
+        self.name, self.widths, self.dev = name, widths, dev
+        self.act, self.head = _ACTS[act_name], _SQUARE if head is None else _COLLAPSED
+        self.params = torch.cat([x for W, b in layers for x in (W.reshape(-1), b)])
+        self.params_t = torch.cat([W.t().reshape(-1) for W, _ in layers]).contiguous()
+        self.device = dev.index if dev.index is not None else torch.cuda.current_device()
+        self.c_widths = (ctypes.c_int * len(widths))(*widths)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def splits(self, lib, bwd: bool) -> int:
+        """Ref splits: enough blocks for about _WAVES waves of resident
+        blocks, at most one split per ref."""
+        smem = shared_bytes(self.widths, 4 if bwd else 3)
+        if smem > _MAX_SHARED_BYTES:
+            raise ValueError(f"{self.name}: widths {self.widths} need {smem} B of shared memory "
+                             f"per block, more than {_MAX_SHARED_BYTES}")
+        per_sm = ctypes.c_int(0)
+        _raise(lib.pw_max_blocks(self.device, self.act, self.head, int(bwd), len(self.widths) - 1,
+                                 self.c_widths, ctypes.byref(per_sm)), f"{self.name} occupancy query")
+        if per_sm.value < 1:
+            raise RuntimeError(f"{self.name}: no block fits on an SM at widths {self.widths}")
+        resident = per_sm.value * torch.cuda.get_device_properties(self.dev).multi_processor_count
+        base = self.nt * -(-self.n // _TILE)
+        return max(1, min(self.m, -(-_WAVES * resident // base)))
+
+    def empty(self, *shape):
+        return torch.empty(shape, dtype=torch.float32, device=self.dev)
+
+
+def _grads_of(grads: torch.Tensor, layers: Layers):
+    """The packed gradient vector as [(Wbar, bbar)] in the layers' shapes."""
+    out, off = [], 0
+    for W, b in layers:
+        out.append((grads[off: off + W.numel()].view(W.shape), grads[off + W.numel(): off + W.numel() + b.numel()]))
+        off += W.numel() + b.numel()
+    return out
+
+
+def _fwd_launch(name, layers, act_name, ax, av, ar, mask, u=None, head=None) -> Dict[str, torch.Tensor]:
+    L = _Launch(name, layers, act_name, ax, av, ar, mask, () if u is None else (u,), head)
+    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
+    lib = _library()
+    n_split = L.splits(lib, bwd=False)
+    w0 = L.widths[0]
+    tn = L.nt * L.n
+    partials = L.empty(n_split, tn * (2 + w0))
+    out = L.empty(tn * (2 + w0))
+    _raise(lib.pw_sums(
+        L.device, L.act, L.head, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), L.params.data_ptr(),
+        L.params_t.data_ptr(), None if u is None else u.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), L.stream,
+    ), name)
+    return {"value": out[:tn].view(L.nt, L.n), "hess": out[tn: 2 * tn].view(L.nt, L.n),
+            "s_dz0": out[2 * tn:].view(L.nt, L.n, w0)}
+
+
+def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, u=None, head=None):
+    extra = (g_val, g_hess, g_dz0) + (() if u is None else (u,))
+    L = _Launch(name, layers, act_name, ax, av, ar, mask, extra, head)
+    if tuple(g_val.shape) != (L.nt, L.n) or tuple(g_hess.shape) != (L.nt, L.n) \
+            or tuple(g_dz0.shape) != tuple(ax.shape):
+        raise ValueError(f"{name}: cotangents must be [{L.nt}, {L.n}] and {tuple(ax.shape)}")
+    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
+    g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
+    lib = _library()
+    n_split = L.splits(lib, bwd=True)
+    w0 = L.widths[0]
+    n_blk = -(-L.n // _TILE)
+    n_params = L.params.numel()
+    w_partials = L.empty(n_split * L.nt * n_blk, n_params)
+    grads = L.empty(n_params)
+    x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
+    axv_bar = L.empty(2, L.nt, L.n, w0)
+    ar_partials = L.empty(n_blk, L.nt * L.m * w0)
+    ar_bar = L.empty(L.nt, L.m, w0)
+    _raise(lib.pw_sums_bwd(
+        L.device, L.act, L.head, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
+        g_hess.data_ptr(), g_dz0.data_ptr(), L.params.data_ptr(), L.params_t.data_ptr(),
+        None if u is None else u.data_ptr(), w_partials.data_ptr(), grads.data_ptr(),
+        x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr(),
+        L.stream,
+    ), name)
+    return _grads_of(grads, layers), axv_bar[0], axv_bar[1], ar_bar
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA one; raises
+    for anything else."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA or CPU tensors, got {t.device}")
+    return True
+
+
+def mlp_pairwise_sums(mids: Layers, act_name: str, ax, av, ar, mask):
+    """K5: {value, hess, s_dz0}.  CUDA tensors: the kernel; CPU tensors:
+    ``mlp_pairwise_sums_plain``."""
+    if not _on_cuda("K5", ax):
+        return mlp_pairwise_sums_plain(mids, act_name, ax, av, ar, mask)
+    out = _fwd_launch("K5", mids, act_name, ax, av, ar, mask)
+    mlp_pairwise_sums.launches += 1
+    return out
+
+
+def mlp_pairwise_sums_bwd(mids: Layers, act_name: str, ax, av, ar, mask, g_val, g_hess, g_dz0):
+    """K6: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar).  CUDA tensors: the
+    kernel (per-block partials summed in a fixed order: two calls give
+    bitwise-equal results); CPU tensors: ``mlp_pairwise_sums_bwd_plain``."""
+    if not _on_cuda("K6", ax):
+        return mlp_pairwise_sums_bwd_plain(mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
+    out = _bwd_launch("K6", mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
+    mlp_pairwise_sums_bwd.launches += 1
+    return out
+
+
+def _with_m_layer(mids_m: Layers, M):
+    """The collapsed head's M as one more layer with a zero bias."""
+    if M.ndim != 2 or M.shape[0] != M.shape[1]:
+        raise ValueError(f"M must be square, got {tuple(M.shape)}")
+    return [*mids_m, (M, torch.zeros(M.shape[0], dtype=M.dtype, device=M.device))]
+
+
+def mlp_pairwise_sums_packed(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask):
+    """K7: {value (without c), hess, s_dz0}.  CUDA tensors: the kernel; CPU
+    tensors: ``mlp_pairwise_sums_packed_plain``."""
+    if not _on_cuda("K7", ax):
+        return mlp_pairwise_sums_packed_plain(mids_m, M, u, act_name, ax, av, ar, mask)
+    if tuple(u.shape) != (M.shape[0],):
+        raise ValueError(f"K7: u must be [{M.shape[0]}], got {tuple(u.shape)}")
+    out = _fwd_launch("K7", _with_m_layer(mids_m, M), act_name, ax, av, ar, mask,
+                      u=u.contiguous(), head=(M, u))
+    mlp_pairwise_sums_packed.launches += 1
+    return out
+
+
+def mlp_pairwise_sums_packed_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask,
+                                 g_val, g_hess, g_dz0):
+    """K8: ([(Wbar, bbar)], M_bar, u_bar, ax_bar, av_bar, ar_bar).  CUDA
+    tensors: the kernel (bitwise repeatable, as K6); CPU tensors:
+    ``mlp_pairwise_sums_packed_bwd_plain``."""
+    if not _on_cuda("K8", ax):
+        return mlp_pairwise_sums_packed_bwd_plain(mids_m, M, u, act_name, ax, av, ar, mask,
+                                                  g_val, g_hess, g_dz0)
+    if tuple(u.shape) != (M.shape[0],):
+        raise ValueError(f"K8: u must be [{M.shape[0]}], got {tuple(u.shape)}")
+    grads, ax_bar, av_bar, ar_bar = _bwd_launch(
+        "K8", _with_m_layer(mids_m, M), act_name, ax, av, ar, mask, g_val, g_hess, g_dz0,
+        u=u.contiguous(), head=(M, u))
+    mlp_pairwise_sums_packed_bwd.launches += 1
+    # the kernel accumulates the M layer's weight gradient transposed and
+    # u's gradient in that layer's bias slot
+    Mt_bar, u_bar = grads[-1]
+    return grads[:-1], Mt_bar.t(), u_bar, ax_bar, av_bar, ar_bar
+
+
+mlp_pairwise_sums.launches = 0
+mlp_pairwise_sums_bwd.launches = 0
+mlp_pairwise_sums_packed.launches = 0
+mlp_pairwise_sums_packed_bwd.launches = 0

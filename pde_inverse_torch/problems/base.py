@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from pde_inverse_tpu.config import Config
+from pde_inverse_torch.distributions import Uniform
 
 
 class ProblemInstance:
@@ -26,6 +27,8 @@ class ProblemInstance:
         self.dim = cfg.pde_instance.domain_dim
         self.total_evolving_time = float(cfg.pde_instance.total_evolving_time)
         self.sample_mode = cfg.pde_instance.sample_mode
+        # time stamps start at 1e-4, away from the degenerate t = 0 law
+        self.distribution_time = Uniform.create(1e-4, self.total_evolving_time, self.device)
 
     def V_true_fn(self, x: torch.Tensor) -> torch.Tensor:
         """True potential at x [..., d] -> [...]."""

@@ -2,24 +2,26 @@
 pde_inverse_tpu/registry.py).
 
 The port runs what it has ported and refuses the rest: every configuration
-outside the ported slices (online KGMM with the parametric means or a
-non-parametric MLP, ResNet or bilinear hypothesis) raises
-NotImplementedError naming the ROADMAP item that will port it.  Nothing is
-silently ignored.
+outside the ported slices (online KGMM and online exact-law KMV, each with
+its parametric model or a non-parametric MLP, ResNet or bilinear
+hypothesis) raises NotImplementedError naming the ROADMAP item that will
+port it.  Nothing is silently ignored.
 """
 
 from __future__ import annotations
 
 from pde_inverse_tpu.config import Config
 from pde_inverse_torch.methods import ConsistencyBased
-from pde_inverse_torch.problems import KineticFokkerPlanckGMM
+from pde_inverse_torch.problems import KineticFokkerPlanckGMM, KineticMcKeanVlasovQuadratic
 
-PDE_INSTANCES = {("Kinetic-Fokker-Planck", "GMM"): KineticFokkerPlanckGMM}
+PDE_INSTANCES = {
+    ("Kinetic-Fokker-Planck", "GMM"): KineticFokkerPlanckGMM,
+    ("Kinetic-McKean-Vlasov", "Quadratic"): KineticMcKeanVlasovQuadratic,
+}
 
 _NOT_PORTED = {
     ("Fokker-Planck", "Quadratic"): "ROADMAP queue 1, item 22 (overdamped FP)",
     ("Kinetic-Fokker-Planck", "Quadratic"): "ROADMAP queue 1, items 4-5 (KFP-OU, preset KOU)",
-    ("Kinetic-McKean-Vlasov", "Quadratic"): "ROADMAP queue 1, items 18-19 (KMV)",
 }
 
 
@@ -36,6 +38,9 @@ def _unsupported(cfg: Config):
         (non_parametric and net.model != "bilinear-debug" and net.dtype != "float32",
          f"neural_network.dtype={net.dtype}", "queue 1, item 27"),
         (p.init_broaden > 1.0, "pde_instance.init_broaden>1", "queue 1, item 14"),
+        (tr.kmv_field_reg > 0.0, "solver.train.kmv_field_reg>0", "queue 1, item 19"),
+        ((tr.kmv_pallas_block_i, tr.kmv_pallas_block_j) != (128, 8),
+         "solver.train.kmv_pallas_block_i/j (TPU tile shapes)", "'Do not port' list"),
         (p.langevin_pack > 1, "pde_instance.langevin_pack>1", "queue 2, K2"),
         (tr.boundary_reservoir > 0, "solver.train.boundary_reservoir", "queue 1, item 14"),
         (tr.boundary_per_chunk, "solver.train.boundary_per_chunk", "'Do not port' list"),

@@ -29,7 +29,14 @@ def test_importing_every_module_loads_no_jax_and_no_cuda():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every module of the ported slices was imported
+    assert int(out.stdout.strip()) >= 36  # every module of the ported slices was imported
+
+
+def test_slice_three_modules_are_importable_without_jax_or_cuda():
+    """The KMV slice's modules are among those the probe imports."""
+    names = {p.relative_to(PKG).with_suffix("").as_posix() for p in PKG.rglob("*.py")}
+    assert {"ops/ou", "ops/cuda/pairwise", "problems/kfp_ou", "problems/kmv_quadratic",
+            "losses/kinetic_mckean_vlasov", "losses/pairwise_blockwise"} <= names
 
 
 def _sources():
@@ -53,8 +60,10 @@ def test_only_the_shared_config_is_taken_from_the_jax_package():
 
 
 def test_kernel_wrapper_has_no_fallback():
-    """The K1, K3 and K4 wrappers, their build and the fused provider raise
-    on failure; no try/except falls back to a plain version."""
+    """The K1, K3-K8 wrappers, their build and the fused and blockwise
+    providers raise on failure; no try/except falls back to a plain version."""
     for name in ("ops/cuda/langevin.py", "ops/cuda/build.py", "ops/simulate.py",
-                 "ops/cuda/pointwise.py", "losses/fused_pointwise.py", "device.py"):
+                 "ops/cuda/pointwise.py", "losses/fused_pointwise.py", "device.py",
+                 "ops/cuda/pairwise.py", "losses/pairwise_blockwise.py",
+                 "losses/kinetic_mckean_vlasov.py", "methods.py"):
         assert not re.search(r"^\s*(try|except)\b", (PKG / name).read_text(), re.M), name

@@ -1,0 +1,185 @@
+"""K5-K8, the CUDA pairwise kernels, against their plain PyTorch versions on
+the card, with ragged n and m and masks.  The gates repeat
+``chip_smoke.py``'s.
+
+Without a CUDA device every test skips.  On the card:
+
+    python -m pytest -q tests/test_torch_pairwise_cuda.py
+
+This file imports neither JAX nor the JAX package; where JAX is not
+installed, add ``--noconftest`` (the conftest imports JAX).
+"""
+
+import pytest
+import torch
+
+from pde_inverse_torch.losses import pairwise_blockwise as bw
+from pde_inverse_torch.models.mlp import PotentialMLP
+from pde_inverse_torch.ops.cuda import pairwise as pk
+
+pytestmark = pytest.mark.cuda
+
+# Each output of the kernel may be at most F64_FACTOR times as far from a
+# float64 run of the plain version as the float32 plain version is, plus
+# F64_FLOOR; distances are relative to the output's max-abs.  Both differ
+# from the float64 run only by f32 rounding in another order.
+F64_FACTOR, F64_FLOOR = 8.0, 1e-6
+
+# the KMV MLP configuration's layers after the first: hidden 20 x 8, feature 128
+FULL = (20,) * 8 + (128,)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run this file on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, widths, nt, n, m, seed=0, dtype=torch.float32, zero_refs=()):
+    """(mids, ax, av, ar, mask, cotangents) from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
+            for a, b in zip(widths, widths[1:])]
+    w0 = widths[0]
+    ax = torch.randn((nt, n, w0), generator=gen)
+    av = torch.randn((nt, n, w0), generator=gen) * 0.7
+    ar = torch.randn((nt, m, w0), generator=gen)
+    mask = torch.ones(m)
+    mask[list(zero_refs)] = 0.0
+    cot = [torch.randn((nt, n), generator=gen), torch.randn((nt, n), generator=gen),
+           torch.randn((nt, n, w0), generator=gen)]
+    to = lambda t: t.to(dev, dtype)
+    return ([(to(W), to(b)) for W, b in mids], to(ax), to(av), to(ar), to(mask), [to(c) for c in cot])
+
+
+def _collapse(mids):
+    (WF, bF) = mids[-1]
+    return list(mids[:-1]), WF @ WF.T, 2.0 * (WF @ bF)
+
+
+def _flat(out):
+    if isinstance(out, dict):
+        return [out["value"], out["hess"], out["s_dz0"]]
+    res = []
+    for item in out:
+        if isinstance(item, list):
+            res += [t for pair in item for t in pair]
+        else:
+            res.append(item)
+    return res
+
+
+def _rel(a, b, scale):
+    return float((a.double() - b.double()).abs().max()) / max(scale, 1e-30)
+
+
+def _gate(kernel, plain, ref):
+    for k, p, r in zip(_flat(kernel), _flat(plain), _flat(ref)):
+        assert k.shape == r.shape and bool(torch.isfinite(k).all())
+        scale = float(r.abs().max())
+        err_k, err_p = _rel(k, r, scale), _rel(p, r, scale)
+        assert err_k <= F64_FACTOR * err_p + F64_FLOOR, (tuple(k.shape), err_k, err_p)
+
+
+def _calls(packed, mids, act, ax, av, ar, mask, cot):
+    """(forward, backward) of K7/K8 (packed) or K5/K6, kernel and plain."""
+    if packed:
+        mids_m, M, u = _collapse(mids)
+        return ((lambda f: f(mids_m, M, u, act, ax, av, ar, mask)),
+                (lambda f: f(mids_m, M, u, act, ax, av, ar, mask, *cot)))
+    return (lambda f: f(mids, act, ax, av, ar, mask)), (lambda f: f(mids, act, ax, av, ar, mask, *cot))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("nt,n,m,zero_refs", [(1, 1, 1, ()), (2, 37, 37, (3, 20)), (3, 37, 1, ()),
+                                              (2, 1, 37, (0,)), (2, 300, 200, (7, 8, 199))])
+def test_kernels_match_plain_versions(cuda, packed, act, nt, n, m, zero_refs):
+    args = _inputs(cuda, FULL, nt, n, m, zero_refs=zero_refs)
+    args64 = _inputs(cuda, FULL, nt, n, m, zero_refs=zero_refs, dtype=torch.float64)
+    mids, ax, av, ar, mask, cot = args
+    mids64, ax64, av64, ar64, mask64, cot64 = args64
+    fwd, bwd = _calls(packed, mids, act, ax, av, ar, mask, cot)
+    fwd64, bwd64 = _calls(packed, mids64, act, ax64, av64, ar64, mask64, cot64)
+    names = (("mlp_pairwise_sums_packed", "mlp_pairwise_sums_packed_bwd") if packed
+             else ("mlp_pairwise_sums", "mlp_pairwise_sums_bwd"))
+    for name, call, call64 in ((names[0], fwd, fwd64), (names[1], bwd, bwd64)):
+        kernel, plain = getattr(pk, name), getattr(pk, name + "_plain")
+        _gate(call(kernel), call(plain), call64(plain))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_backward_kernels_are_bitwise_repeatable(cuda, packed):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, FULL, 3, 500, 400, zero_refs=(5,))
+    _, bwd = _calls(packed, mids, "tanh", ax, av, ar, mask, cot)
+    kernel = pk.mlp_pairwise_sums_packed_bwd if packed else pk.mlp_pairwise_sums_bwd
+    a, b = _flat(bwd(kernel)), _flat(bwd(kernel))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_masked_refs_add_exactly_zero(cuda):
+    """Refs with mask 0 change no output by a single bit: the sums over 37
+    refs with refs 5 and 9 masked equal those over the 35 others."""
+    mids, ax, av, ar, mask, cot = _inputs(cuda, FULL, 2, 40, 37, zero_refs=(5, 9))
+    keep = [j for j in range(37) if j not in (5, 9)]
+    for packed in (False, True):
+        fwd, bwd = _calls(packed, mids, "tanh", ax, av, ar, mask, cot)
+        fwd_k, bwd_k = _calls(packed, mids, "tanh", ax, av, ar[:, keep].contiguous(), mask[keep], cot)
+        f_name = "mlp_pairwise_sums_packed" if packed else "mlp_pairwise_sums"
+        for x, y in zip(_flat(fwd(getattr(pk, f_name))), _flat(fwd_k(getattr(pk, f_name)))):
+            assert torch.equal(x, y)
+        full, kept = bwd(getattr(pk, f_name + "_bwd")), bwd_k(getattr(pk, f_name + "_bwd"))
+        assert torch.equal(full[-1][:, keep], kept[-1]) and not bool(full[-1][:, [5, 9]].any())
+
+
+def test_launch_counters_count_kernel_launches_only(cuda):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, (8, 8, 4), 1, 10, 9)
+    names = ("mlp_pairwise_sums", "mlp_pairwise_sums_bwd", "mlp_pairwise_sums_packed",
+             "mlp_pairwise_sums_packed_bwd")
+    before = [getattr(pk, n).launches for n in names]
+    for packed in (False, True):
+        fwd, bwd = _calls(packed, mids, "tanh", ax, av, ar, mask, cot)
+        f_name = "mlp_pairwise_sums_packed" if packed else "mlp_pairwise_sums"
+        fwd(getattr(pk, f_name))
+        bwd(getattr(pk, f_name + "_bwd"))
+    cpu = [(W.cpu(), b.cpu()) for W, b in mids]
+    pk.mlp_pairwise_sums(cpu, "tanh", ax.cpu(), av.cpu(), ar.cpu(), mask.cpu())
+    assert [getattr(pk, n).launches for n in names] == [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("mode", ["on", "fwd", "packed", "auto"])
+def test_stats_on_the_card_match_the_cpu(cuda, mode):
+    gen = torch.Generator().manual_seed(3)
+    model = PotentialMLP(2, [20] * 8, feature_dim=128, quadratic_head=True, generator=gen)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    x, v, refs = (torch.randn((60, 3, 2), generator=gen) for _ in range(3))
+
+    def grad(p, m, *xs):  # torch.autograd, as the KMV loss takes it
+        leaves = {k: t.detach().requires_grad_() for k, t in p.items()}
+        s = bw.mlp_pairwise_stats(model, leaves, *xs, pallas_mode=m)
+        scal = torch.sum(torch.sin(s["value"])) + torch.sum(s["nabla"] ** 2) + torch.sum(torch.cos(s["hess"]))
+        return dict(zip(leaves, torch.autograd.grad(scal, list(leaves.values()))))
+
+    g_cpu = grad(params, "off", x, v, refs)
+    g_gpu = grad({k: t.to(cuda) for k, t in params.items()}, mode, x.to(cuda), v.to(cuda), refs.to(cuda))
+    for k, g in g_cpu.items():
+        assert _rel(g_gpu[k].cpu(), g, float(g.abs().max())) < 3e-4, k
+
+
+def test_wrappers_check_their_inputs(cuda):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, (8, 8, 4), 2, 10, 9)
+    with pytest.raises(ValueError, match="float32"):
+        pk.mlp_pairwise_sums(mids, "tanh", ax.double(), av, ar, mask)
+    with pytest.raises(ValueError, match="chain"):
+        pk.mlp_pairwise_sums([mids[1], mids[0]], "tanh", ax, av, ar, mask)
+    with pytest.raises(ValueError, match="derivative table"):
+        pk.mlp_pairwise_sums(mids, "gelu", ax, av, ar, mask)
+    with pytest.raises(ValueError, match="mask"):
+        pk.mlp_pairwise_sums(mids, "tanh", ax, av, ar, mask[:5])
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.mlp_pairwise_sums([(torch.zeros((8, 4096), device=cuda), torch.zeros(4096, device=cuda))],
+                             "tanh", ax, av, ar, mask)
+    with pytest.raises(ValueError, match="cotangents"):
+        pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, cot[0][:, :5], *cot[1:])

@@ -1,6 +1,7 @@
-"""The port's slice 1 (online KGMM training) as a whole, on the CPU.
+"""The port's slices (online KGMM, online non-parametric KGMM, online KMV)
+as a whole, on the CPU.
 
-* five training steps of the port against five of the JAX package on the
+* training steps of the port against those of the JAX package on the
   same injected batches and the same starting parameters;
 * the CLI, ``run`` and ``entry`` end to end at a small size;
 * the trainer's chunking, NaN guard and writers;
@@ -20,6 +21,7 @@ import torch
 from pde_inverse_tpu import config as config_lib
 from pde_inverse_tpu.methods import ConsistencyBased as JaxMethod
 from pde_inverse_tpu.problems.kfp_gmm import KineticFokkerPlanckGMM as JaxKGMM
+from pde_inverse_tpu.problems.kmv_quadratic import KineticMcKeanVlasovQuadratic as JaxKMV
 from pde_inverse_tpu.training.optimizers import get_optimizer as jax_get_optimizer
 from pde_inverse_tpu.training.trainer import cadence_fires as jax_cadence_fires
 from pde_inverse_torch import main as tmain
@@ -29,6 +31,7 @@ from pde_inverse_torch.device import resolve_device
 from pde_inverse_torch.entry import entry
 from pde_inverse_torch.methods import ConsistencyBased, functional_forward
 from pde_inverse_torch.problems.kfp_gmm import KineticFokkerPlanckGMM
+from pde_inverse_torch.problems.kmv_quadratic import KineticMcKeanVlasovQuadratic
 from pde_inverse_torch.training import metrics, trainer
 
 torch.set_num_threads(1)
@@ -293,7 +296,13 @@ def test_cuda_requested_but_absent_raises(monkeypatch):
 UNSUPPORTED = {
     "kou": ("KOU", []),
     "ou": ("OU", []),
-    "kmv": ("KMV", []),
+    # KMV itself runs (online, exact law); its offline dataset does not
+    "kmv": ("KMV-offline", []),
+    "kmv_field_reg": ("KMV", ["solver.train.kmv_field_reg=1e-2"]),
+    "kmv_init_broaden": ("KMV", ["pde_instance.init_broaden=1.3"]),
+    "kmv_fourier_kernel": ("KMV-nonparametric-fourier", []),
+    "kmv_ref_axis": ("KMV", ["backend.ref_axis_size=2"]),
+    "kmv_pallas_blocks": ("KMV", ["solver.train.kmv_pallas_block_i=256"]),
     "offline": ("KGMM-offline", []),
     "non_parametric": ("KGMM", ["estimation_mode=non-parametric", "neural_network.model=fourier-kernel"]),
     "np_offline": ("KGMM-nonparametric", []),
@@ -321,3 +330,106 @@ def test_unsupported_config_raises(case):
         overrides.remove("logging.writer=none")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmain.run(config_lib.preset(name, overrides), "cpu")
+
+
+# -- slice 3: online KMV -----------------------------------------------------------
+
+KMV_MLP = ["neural_network.model=mlp", "neural_network.fourier_features=0",
+           "neural_network.fourier_trainable=False", "solver.train.kmv_field_reg=0.0",
+           "train.optimizer.weight_decay=1e-1"]
+KMV_SMALL = ["solver.train.n_time_stamps=3", "solver.train.sample_per_time=13",
+             "neural_network.hidden_dim=16", "neural_network.layers=2", "neural_network.feature_dim=8",
+             "logging.writer=none"]
+
+
+def _kmv_batch(rs, n=13, nt=3):
+    z = (rs.normal(size=(n * nt, 4)) * 0.8).astype(np.float32)
+    taus = np.sort(rs.uniform(0.05, 1.0, size=nt)).astype(np.float32)
+    return {"0T": z, "tau_0T": taus, "initial": np.zeros((0, 4), np.float32),
+            "terminal": np.zeros((0, 4), np.float32)}
+
+
+@pytest.mark.parametrize("preset,overrides,kmv_pallas", [
+    ("KMV", ["solver.train.sample_per_time=13", "solver.train.n_time_stamps=3"], "auto"),
+    ("KMV-nonparametric-fourier", KMV_MLP + KMV_SMALL, "auto"),
+    ("KMV-nonparametric-fourier", KMV_MLP + KMV_SMALL, "packed"),
+])
+def test_kmv_steps_match_jax_on_injected_batches(preset, overrides, kmv_pallas):
+    """Two KMV training steps (loss -> gradient -> clip -> Adam) of the port
+    (the parametric closed form; the non-parametric blockwise path, plain on
+    the CPU or K7/K8's plain versions behind their Function) against the
+    JAX package's, on the same injected batches from the same flax weights."""
+    cfg = config_lib.preset(preset, overrides + [f"solver.train.kmv_pallas={kmv_pallas}"])
+    jcfg = config_lib.preset(preset, overrides)  # JAX on the CPU: the jnp blockwise path
+    jinst = JaxKMV(jcfg, jax.random.PRNGKey(0))
+    jmethod = JaxMethod(pde_instance=jinst, cfg=jcfg, rng=jax.random.PRNGKey(1))
+    jnet, jparams = jmethod.create_model_fn()
+    tinst = KineticMcKeanVlasovQuadratic(cfg, 0, "cpu", configuration={"tilde_F": np.asarray(jinst.tilde_F)})
+    tmethod = ConsistencyBased(tinst, cfg, 1, "cpu")
+    model, _ = tmethod.create_model_fn()
+    tparams = from_flax_params(jax.tree_util.tree_map(np.asarray, jparams))
+    assert set(tparams) == set(dict(model.named_parameters()))
+    jopt, topt = jax_get_optimizer(cfg.train.optimizer), tmain.get_optimizer(cfg.train.optimizer)
+    jstate, tstate = jopt.init(jparams), topt.init(tparams)
+
+    def jax_step(params, batch, key):
+        jmethod.sample_data = lambda *a, **k: batch
+        return jmethod.value_and_grad_fn(jnet.apply, params, key)
+
+    rs = np.random.default_rng(5)
+    fwd = functional_forward(model)
+    for step in range(2):
+        batch = _kmv_batch(rs)
+        tmethod.sample_data = lambda key: {n: torch.from_numpy(v) for n, v in batch.items()}
+        jout = jax_step(jparams, {n: jnp.asarray(v) for n, v in batch.items()}, jax.random.PRNGKey(step))
+        tout = tmethod.value_and_grad_fn(fwd, tparams, step, step=step)
+        np.testing.assert_allclose(float(tout["loss"]), float(jout["loss"]), rtol=1e-5)
+        updates, jstate = jopt.update(jout["grad"], jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        tupdates, tstate = topt.update(tout["grad"], tstate, tparams)
+        tparams = {k: p + tupdates[k] for k, p in tparams.items()}
+        want = from_flax_params(jax.tree_util.tree_map(np.asarray, jparams))
+        for k, v in want.items():
+            np.testing.assert_allclose(tparams[k].numpy(), v.numpy(), rtol=0, atol=PARAM_ATOL)
+
+
+@pytest.mark.parametrize("case", ["parametric", "mlp"])
+def test_kmv_cli_runs_on_cpu_and_reports_its_result(case, monkeypatch, capsys):
+    if case == "parametric":
+        argv = ["preset=KMV", "solver.train.sample_per_time=200"]
+        line_start = "[result] recovered-parameter rel-L2: "
+    else:
+        argv = ["preset=KMV-nonparametric-fourier", *KMV_MLP, *KMV_SMALL]
+        line_start = "[result] relative error of interaction gradient="
+    argv += ["device=cpu", "train.number_of_iterations=4", "train.steps_per_chunk=2",
+             "test.frequency=2", "test.verbose=True", "logging.writer=none"]
+    monkeypatch.setattr("sys.argv", ["pde_inverse_torch.main", *argv])
+    tmain.main()
+    out = capsys.readouterr().out
+    assert out.count("steps/s]") == 2
+    (line,) = [ln for ln in out.splitlines() if ln.startswith(line_start)]
+    assert np.isfinite(float(line[len(line_start):].split()[0]))
+    assert ("[warn] non-parametric KMV" in out) is False  # weight decay 1e-1 is the stabiliser
+
+
+def test_kmv_np_without_stabiliser_warns(capsys):
+    cfg = config_lib.preset("KMV-nonparametric-fourier",
+                            KMV_MLP + KMV_SMALL + ["train.optimizer.weight_decay=0.0"])
+    inst = KineticMcKeanVlasovQuadratic(cfg, 0, "cpu")
+    ConsistencyBased(inst, cfg, 1, "cpu").create_model_fn()
+    assert "[warn] non-parametric KMV without a stabilizer" in capsys.readouterr().out
+
+
+def test_kmv_exact_law_batches_and_entry():
+    cfg = config_lib.preset("KMV", ["solver.train.sample_per_time=11", "solver.train.n_time_stamps=4",
+                                    "solver.train.batch_size_init=5", "solver.train.batch_size_terminal=6"])
+    inst = KineticMcKeanVlasovQuadratic(cfg, 3, "cpu")
+    method = ConsistencyBased(inst, cfg, 4, "cpu")
+    method.create_model_fn()
+    data = method.sample_data(9)
+    assert data["0T"].shape == (44, 4) and data["tau_0T"].shape == (4,)
+    assert data["initial"].shape == (5, 4) and data["terminal"].shape == (6, 4)
+    assert all(torch.equal(method.sample_data(9)[k], v) for k, v in data.items())
+    assert method._kmv_kwargs()["closed_form_quadratic"]
+    out = entry(["solver.train.sample_per_time=50"], device="cpu", preset="KMV")
+    assert np.isfinite(float(out["loss"])) and out["grad"]["F.weight"].shape == (2, 2)
