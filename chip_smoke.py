@@ -11,7 +11,8 @@ Phases, each printing its own line:
 2. build: compiles K1/K2 (``pde_inverse_torch/csrc/langevin.cu``), K3/K4
    (``csrc/pointwise.cu``), K5-K8 and S1 (``csrc/pairwise.cu``) and S2/S3
    (``csrc/mma_tf32.cu``) with nvcc, one process per source, together, and
-   prints registers and the Langevin kernels that spill;
+   prints registers, the Langevin kernels that spill and every K7
+   instantiation's registers and spill;
 3. K1 and K2 (pack=2) against their plain PyTorch version on the card, at
    the KGMM main path's shapes (d=4; GMM with k=3 and a Quadratic
    potential; 2,500 particles with a trajectory and 75,000 without; 200
@@ -24,8 +25,9 @@ Phases, each printing its own line:
    and softplus; K4's outputs bitwise equal on two calls;
    K5-K8 against their plain versions, held the same way, at the KMV main
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
-   128, tanh), a ragged n and m with masked refs, and silu and softplus;
-   K6's and K8's outputs bitwise equal on two calls;
+   128, tanh), a ragged n and m with masked refs, and silu and softplus,
+   and K7 also at width 32 and on a chain 20 -> 32 -> 8 -> 20 padded to 32;
+   K6's, K7's and K8's outputs bitwise equal on two calls;
 5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM (K1), on
    preset KGMM with langevin_pack=2 (K2), then on preset
    KGMM-nonparametric-online, each at full width with the launch counts set
@@ -198,9 +200,9 @@ def registers(lib_path) -> list:
             lib_path.with_suffix(".log").read_text().splitlines() if "Used " in ln]
 
 
-def spills(lib_path) -> dict:
-    """{kernel: (registers, spill store bytes)} of the kernels that spill,
-    from the compiler's -Xptxas=-v report."""
+def resources(lib_path) -> dict:
+    """{kernel: (registers, spill store bytes)} of every kernel, from the
+    compiler's -Xptxas=-v report."""
     out, name, spill = {}, None, 0
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -210,9 +212,20 @@ def spills(lib_path) -> dict:
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
-        if m and name is not None and spill:
+        if m and name is not None:
             out[name] = (int(m.group(1)), spill)
     return out
+
+
+def spills(lib_path) -> dict:
+    """resources() of the kernels that spill."""
+    return {k: v for k, v in resources(lib_path).items() if v[1]}
+
+
+def k7_name(mangled: str):
+    """'k7_kernel<W, ACT>' as 'W=20 tanh', or None for another kernel."""
+    m = re.search(r"k7_kernelILi(\d+)ELi(\d)E", mangled)
+    return None if m is None else f"W={m.group(1)} {('tanh', 'silu', 'softplus')[int(m.group(2))]}"
 
 
 def langevin_name(mangled: str) -> str:
@@ -237,11 +250,10 @@ def pointwise_inputs(dev, n, dtype, seed, widths=WIDTHS):
     return [(to(W), to(b)) for W, b in mids], [to(t) for t in streams], [to(t) for t in cot]
 
 
-def pairwise_inputs(dev, nt, n, m, dtype, seed, zero_refs=()):
+def pairwise_inputs(dev, nt, n, m, dtype, seed, zero_refs=(), widths=KMV_WIDTHS):
     """Layers after the first, ax, av, ar, mask and the cotangents of the
     pairwise kernels, from a seed (the same numbers in float32 and float64)."""
     gen = torch.Generator().manual_seed(seed)
-    widths = KMV_WIDTHS
     mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
             for a, b in zip(widths, widths[1:])]
     w0 = widths[0]
@@ -330,6 +342,11 @@ def main() -> None:
                                      or "none"), flush=True)
     other = {lib.name: len(spills(lib)) for lib in (lib_pw, lib_pair, lib_mma)}
     print(f"[build] kernels that spill in the other sources: {other}", flush=True)
+    k7_res = {k7_name(k): v for k, v in resources(lib_pair).items() if k7_name(k)}
+    check(len(k7_res) == 15, f"K7 instantiations in the build report: {sorted(k7_res)}")
+    print("[build] K7 instantiations (registers, spill-store bytes): " + "; ".join(
+        f"{k}: {r}, {b}" for k, (r, b) in sorted(k7_res.items(), key=lambda kv: (int(kv[0][2:4]), kv[0]))),
+        flush=True)
 
     # -- 3. K1 against its plain version -----------------------------------------
     gen = torch.Generator().manual_seed(20261016)
@@ -485,14 +502,18 @@ def main() -> None:
                "K6": (pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_bwd_plain),
                "K7": (pw.mlp_pairwise_sums_packed, pw.mlp_pairwise_sums_packed_plain),
                "K8": (pw.mlp_pairwise_sums_packed_bwd, pw.mlp_pairwise_sums_packed_bwd_plain)}
-    pair_cases = (("tanh", KMV_NT, KMV_N, KMV_N, ()), ("tanh", KMV_NT, 1_999, 1_013, (0, 7, 500, 1_012)),
-                  ("silu", 2, 300, 257, (3,)), ("softplus", 2, 300, 257, (3,)))
+    pair_cases = (("tanh", KMV_NT, KMV_N, KMV_N, (), KMV_WIDTHS),
+                  ("tanh", KMV_NT, 1_999, 1_013, (0, 7, 500, 1_012), KMV_WIDTHS),
+                  ("silu", 2, 300, 257, (3,), KMV_WIDTHS), ("softplus", 2, 300, 257, (3,), KMV_WIDTHS))
+    # K7 also at its widest instantiation and on an unequal chain padded to it
+    k7_cases = (("tanh", 2, 300, 257, (3,), (32,) * 8 + (128,)),
+                ("silu", 2, 300, 257, (3,), (20, 32, 8, 20, 128)))
     pair_err = {kid: 0.0 for kid in kernels}
     for kid, (kernel, plain) in kernels.items():
         rows = []
-        for act, nt_, n_, m_, zeros in pair_cases:
-            mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros)
-            mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros)
+        for act, nt_, n_, m_, zeros, widths in pair_cases + (k7_cases if kid == "K7" else ()):
+            mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, widths)
+            mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, widths)
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
             want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
             ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
@@ -507,12 +528,14 @@ def main() -> None:
                       f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
                 worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
                 pair_err[kid] = max(pair_err[kid], float((k_ - p_).abs().max()))
-            rows.append(f"{act}/{nt_}x{n_}x{m_}{'/masked' if zeros else ''}: {worst_k:.2e} vs {worst_p:.2e}")
+            rows.append(f"{act}/{nt_}x{n_}x{m_}{'/masked' if zeros else ''}"
+                        f"{'' if widths == KMV_WIDTHS else '/widths ' + '->'.join(map(str, widths))}: "
+                        f"{worst_k:.2e} vs {worst_p:.2e}")
             del got, want, ref
         print(f"[{kid.lower()}-vs-plain] layers 20x8->128, worst output error relative to its max-abs, "
               f"kernel vs f64 / plain f32 vs f64: {'; '.join(rows)}; gate <= {F64_FACTOR} x plain + "
               f"{F64_FLOOR}: pass; max abs err kernel vs plain {pair_err[kid]:.3e}", flush=True)
-    for kid in ("K6", "K8"):
+    for kid in ("K6", "K7", "K8"):
         mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9)
         a = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
         b = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
@@ -1098,7 +1121,8 @@ def main() -> None:
     F5, Fh, wm = mlp_products(KMV_WIDTHS), mlp_products(KMV_WIDTHS[:-1]), KMV_WIDTHS[0] ** 2
     bounds["K5"] = bound(x_bytes, 2 * pairs * 4 * F5)
     bounds["K6"] = bound(x_bytes, 2 * pairs * 12 * F5)
-    bounds["K7"] = bound(x_bytes, 2 * pairs * (3 * (Fh + wm) + Fh))
+    # K7: 3 streams through the hidden layers, Mg and M gp, 1 reverse stream
+    bounds["K7"] = bound(x_bytes, 2 * pairs * (3 * Fh + 2 * wm + Fh))
     bounds["K8"] = bound(x_bytes, 2 * pairs * (4 * (Fh + wm) + 2 * wm + 8 * Fh))
     bounds["S1"] = bound(4 * (2 * s1.BI * s1.W0 + s1.N_REFS * s1.W0 + 2 * s1.N_REFS * s1.BI * s1.W0),
                          float(s1.N_REFS * s1.BI * s1.W0))

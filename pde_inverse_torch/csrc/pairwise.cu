@@ -9,30 +9,32 @@
 // The backward kernel is its VJP with respect to the layers, ax, av and ar
 // for the cotangents (g_val, g_hess [nt, n], g_dz0 [nt, n, w0]).
 //
-// Two heads, one template each for forward and backward:
+// Two heads:
 // * kSquare (K5 forward, K6 backward) replaces
 //   pde_inverse_tpu/ops/pallas/pairwise_kernel.py::_kernel and ::_bwd_kernel:
 //   the layers end with the feature layer and Phi = |z_L|^2;
-// * kCollapsed (K7, K8) replaces pairwise_packed.py::_fwd_kernel and
-//   ::_bwd_kernel: the feature layer is collapsed into M = W_F W_F^T [w, w],
-//   u = 2 W_F b_F, and Phi = g.(M g) + u.g with g = act(z_L) (the constant
-//   |b_F|^2 is the caller's).  The wrapper appends M as one more layer with
-//   a zero bias, so (M g, M gp, M gq, M gs) are that layer's streams; in the
-//   backward kernel the bias slot of that layer carries u's gradient.  M is
-//   assumed symmetric, as in the TPU kernel.  The TPU kernel's lane packing
-//   of several refs per 128-lane register is layout only and is not carried
-//   over.
+// * the collapsed head (K7 forward, K8 backward) replaces
+//   pairwise_packed.py::_fwd_kernel and ::_bwd_kernel: the feature layer is
+//   collapsed into M = W_F W_F^T [w, w], u = 2 W_F b_F, and
+//   Phi = g.(M g) + u.g with g = act(z_L) (the constant |b_F|^2 is the
+//   caller's).  M is assumed symmetric, as in the TPU kernel.  The TPU
+//   kernel's lane packing of several refs per 128-lane register is layout
+//   only and is not carried over.  K8 is pw_bwd_kernel<ACT, kCollapsed>: the
+//   wrapper appends M as one more layer with a zero bias, so (M g, M gp,
+//   M gq, M gs) are that layer's streams and its bias slot carries u's
+//   gradient.  K7 is k7_kernel, a design of its own (below).
 //
-// Streams: the forward kernel propagates (z, p = d_v z, q = d_v^2 z), the
-// backward kernel also r = d_g z with r0 = g_dz0[t, i]; the backward is one
+// Streams: the forward kernels propagate (z, p = d_v z, q = d_v^2 z), the
+// backward kernels also r = d_g z with r0 = g_dz0[t, i]; the backward is one
 // 4-stream forward pass and one reverse sweep (the TPU kernels' formulation,
 // and K4's in csrc/pointwise.cu).
 //
-// Design.  A block owns (ref split s, stamp t, block of kTile points) and
-// walks the refs j of its split in order; a tile is its kTile points against
-// one ref.  Every layer's streams of the tile live in shared memory,
-// feature-major with the points minor (rows of kRow floats), as in K3/K4,
-// and the reverse sweep overwrites them with the cotangents in place.  The
+// Design of K5, K6 and K8.  A block owns (ref split s, stamp t, block of
+// kTile points) and walks the refs j of its split in order; a tile is its
+// kTile points against one ref.  Every layer's streams of the tile live in
+// shared memory, feature-major with the points minor (rows of kRow floats),
+// as in K3/K4, and the reverse sweep overwrites them with the cotangents in
+// place.  The
 // block's sums over j (value, hess, s_dz0, or ax/av cotangents) stay in
 // shared memory, each entry owned by one thread, and are written once per
 // block into a row of per-split partials; the weight gradients of a block go
@@ -55,15 +57,69 @@
 // feature 128) K5 does about 21,000 FMAs a pair (three forward streams and
 // one reverse), 1.2 TFLOP a call, and K6 about three times that; K7/K8 skip
 // the 128-wide layer and do a little over half as much.  The inputs are a
-// few MB.  This first design keeps one float4 shared-memory read per
-// four FMAs and, at width 20, only 160 of a block's 256 threads busy in the
-// products; register tiling and tensor cores are later work.
+// few MB.  This design keeps one float4 shared-memory read per four FMAs
+// and, at width 20, only 160 of a block's 256 threads busy in the products.
+//
+// K7: one thread per point, the refs walked in registers (k7_kernel).  K7's
+// outputs are per-point sums over refs, so a thread owns one point (t, i)
+// and walks the refs j of its split in order with no block barrier:
+// * work split: a block holds `threads` consecutive points of one stamp t
+//   (128, or 64 / 32 where the shared memory below would not fit), so every
+//   thread reads the same ref row ar[t, j] and mask[j] (broadcast loads, a
+//   uniform mask branch).  Blocks are (ref split, stamp, point block); the
+//   wrapper picks the splits (pde_inverse_torch/ops/cuda/pairwise.py
+//   k7_splits) to round the grid to whole waves of resident blocks, and
+//   every split writes one partial row that sum_rows adds in a fixed order;
+// * streams in registers: (z, p, q) of the current layer, 3 W floats, build
+//   the next layer's 3 W with f32 fmaf, each output summed over the input
+//   feature in order and the bias added last; value and hess are
+//   accumulated in registers, s_dz0[W] in shared memory (below), in ref
+//   order.  Only Mg and M gp go through M (hess = 2 gp.(M gp) +
+//   gq.(2 Mg + u) for a symmetric M);
+// * weights in shared memory, loaded once per block: every layer's W_k
+//   [W, W] and b_k [W], then M [W, W] and u [W] (4 (L (W^2 + W) + W^2 + W)
+//   bytes).  Every lane reads the same address, a float4 along the output
+//   feature, so one broadcast load feeds 12 FMAs (4 outputs x 3 streams) in
+//   the forward and 4 in the reverse sweep, which reads W_k's rows as they
+//   are (delta_k[i] = sum_j delta_{k+1}[j] W_k[i][j]);
+// * the reverse sweep for s_dz0 needs act'(z_k) of every layer k < L (that
+//   of z_L is used at once by the head): each thread keeps them in shared
+//   memory, [k][thread][R] with rows of R = W floats (W + 4 where W is a
+//   multiple of 8, so that 8 neighbouring threads' float4 accesses hit 32
+//   different banks), and its s_dz0 sums after them as row k = L:
+//   4 (L + 1) `threads` R bytes.  Every offset in a row is an immediate.
+//   The sums there rather than in registers cost W / 2 float4 accesses a
+//   pair and free W registers in every layer product;
+// * widths are template parameters W in {8, 16, 20, 24, 32}: the wrapper
+//   zero-pads every chain to the least W that holds its widest layer
+//   (weights, biases, M and u); the points' w0 <= W is read as it is and
+//   padded in registers.  Padding is exact: a padded feature's outgoing
+//   weights, bias, M row and column and u entry are 0, so it adds exactly
+//   0.0 everywhere, also where act(0) != 0 (softplus).  The number of layers
+//   L <= 16 stays a runtime value;
+// * shared memory and occupancy at the KMV main path (W = 20, L = 7, 128
+//   threads): 13,440 B of weights + 71,680 B of act' + 10,240 B of s_dz0
+//   sums = 95,360 B a block, so two blocks (256 threads) fit in an SM's
+//   228 KB, and the register file would allow 255 registers a thread.  The
+//   compiler aims at 168 (three blocks' worth) and spills to get there if
+//   it must: the width-20 instantiations fit their 6 W = 120 live stream
+//   values, the broadcast weights and the addresses in 167 registers with
+//   no spill (CUDA 12.8) only with the s_dz0 sums out of registers and
+//   immediate row offsets.  The wrapper's splits: with 2 x 132 = 264
+//   resident blocks and 7 x 16 = 112 point blocks, 7 splits (784 blocks,
+//   2.97 waves);
+// * f32 throughout, with act_d's precise tanhf / expf / log1pf; a masked
+//   ref is skipped (adds exactly 0.0); points past n compute and write
+//   nothing.  FMAs a pair at width 20 and L = 7: 3 streams x 7 layers x 400
+//   + 2 x 400 through M + 7 x 400 in the reverse sweep = 12,000, and 160
+//   tanhf.
 //
 // S1, the checks of scripts/diag_packed_onchip.py (replacing its Pallas
 // kernels, which checked the TPU kernels' lane-packing constructs), are the
 // s1_* entry points at the end: single-block kernels built from the very
 // device functions above (pair_rows, forward_product on the collapsed
-// head's M layer, sum_rows), so that they test what K5-K8 run.
+// head's M layer, sum_rows), so that they test what K5, K6 and K8 run; of
+// K7's constructs they cover sum_rows only.
 
 #include <cstdint>
 
@@ -287,13 +343,13 @@ __device__ void delta_sweep(const Smem& S, const Net& net, int k_top, float top_
   }
 }
 
-template <int ACT, int HEAD>
+// K5: the square head's forward.
+template <int ACT>
 __global__ void __launch_bounds__(kThreads)
     pw_fwd_kernel(Net net, int nt, int n, int m, int chunk, const float* __restrict__ ax,
                   const float* __restrict__ av, const float* __restrict__ ar,
                   const float* __restrict__ mask, const float* __restrict__ params,
-                  const float* __restrict__ params_t, const float* __restrict__ u,
-                  float* __restrict__ partials) {
+                  const float* __restrict__ params_t, float* __restrict__ partials) {
   extern __shared__ float4 smem4[];
   const Smem S = carve(reinterpret_cast<float*>(smem4), net, 3);
   const int n_iblk = (n + kTile - 1) / kTile;
@@ -328,18 +384,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int f = lane; f < net.w[L]; f += 32) {
         const float z = srow(S, net, 0, L, f)[p];
         const float dz = srow(S, net, 1, L, f)[p];
-        if constexpr (HEAD == kSquare) {
-          sv += z * z;
-          sh += dz * dz + z * srow(S, net, 2, L, f)[p];
-        } else {
-          // z = M g, dz = M gp at the M layer; g, gp, gq in the activated copy
-          const float g = trow(S, net, 0, f)[p];
-          const float gp = trow(S, net, 1, f)[p];
-          const float gq = trow(S, net, 2, f)[p];
-          const float uf = __ldg(u + f);
-          sv += g * (z + uf);
-          sh += 2.0f * gp * dz + gq * (2.0f * z + uf);
-        }
+        sv += z * z;
+        sh += dz * dz + z * srow(S, net, 2, L, f)[p];
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
@@ -348,23 +394,11 @@ __global__ void __launch_bounds__(kThreads)
       }
       if (lane == 0) {
         acc_val[p] += mk * sv;
-        acc_hess[p] += mk * (HEAD == kSquare ? 2.0f * sh : sh);
+        acc_hess[p] += mk * (2.0f * sh);
       }
     }
-    if constexpr (HEAD == kCollapsed) {
-      // dPhi/dz_{L-1} = (2 M g + u) act'(z_{L-1}), written over z_{L-1}
-      for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
-        const int f = idx / kTile;
-        const int p = idx - f * kTile;
-        float* zp = srow(S, net, 0, L - 1, f) + p;
-        *zp = (2.0f * srow(S, net, 0, L, f)[p] + __ldg(u + f)) * act_d1<ACT>(*zp);
-      }
-      __syncthreads();
-      delta_sweep<ACT>(S, net, L - 2, 1.0f, params_t);
-    } else {
-      __syncthreads();
-      delta_sweep<ACT>(S, net, L - 1, 2.0f, params_t);
-    }
+    __syncthreads();
+    delta_sweep<ACT>(S, net, L - 1, 2.0f, params_t);
     for (int idx = threadIdx.x; idx < w0 * kTile; idx += kThreads) {
       const int f = idx / kTile;
       const int p = idx - f * kTile;
@@ -386,6 +420,248 @@ __global__ void __launch_bounds__(kThreads)
     const int p = idx / w0;
     const int f = idx - p * w0;
     if (i0 + p < n) out[2 * tn + (static_cast<size_t>(t) * n + i0 + p) * w0 + f] = S.acc1[f * kRow + p];
+  }
+}
+
+// -- K7 ------------------------------------------------------------------------
+
+constexpr int kK7MaxThreads = 128;  // points per block, at most
+
+// floats of K7's weights in shared memory: L x (W_k, b_k), M, u
+__host__ __device__ constexpr int k7_weight_floats(int w, int n_layers) {
+  return n_layers * (w * w + w) + w * w + w;
+}
+
+// floats of one thread's row of act' (or of s_dz0 sums): w, or w + 4 where
+// w is a multiple of 8, so that rows start 4 banks apart modulo 8 and the
+// float4 accesses of 8 neighbouring threads hit 32 different banks
+__host__ __device__ constexpr int k7_row(int w) { return w % 8 == 0 ? w + 4 : w; }
+
+size_t k7_shared_bytes(int w, int threads, int n_layers) {
+  return sizeof(float) * (static_cast<size_t>(k7_weight_floats(w, n_layers)) +
+                          static_cast<size_t>(n_layers + 1) * threads * k7_row(w));
+}
+
+// One hidden layer for one point: activates the streams (z, p, q) in place,
+// keeps act'(z) in the thread's row dk, and replaces them by the layer's
+// outputs z W_k + b_k, p W_k, q W_k.
+template <int W, int ACT>
+__device__ __forceinline__ void k7_layer(const float* __restrict__ Wk, float* __restrict__ dk,
+                                         float (&z)[W], float (&p)[W], float (&q)[W]) {
+#pragma unroll
+  for (int f = 0; f < W; f += 4) {
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float a0, a2, a3;
+      act_d<ACT>(z[f + e], a0, d[e], a2, a3);
+      const float pf = p[f + e];
+      z[f + e] = a0;
+      p[f + e] = d[e] * pf;
+      q[f + e] = a2 * pf * pf + d[e] * q[f + e];
+    }
+    st4(dk + f, make_float4(d[0], d[1], d[2], d[3]));
+  }
+  float zo[W], po[W], qo[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) zo[j] = po[j] = qo[j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+#pragma unroll
+    for (int j = 0; j < W; j += 4) {
+      const float4 w = ld4(Wk + i * W + j);
+      zo[j] = fmaf(z[i], w.x, zo[j]);
+      zo[j + 1] = fmaf(z[i], w.y, zo[j + 1]);
+      zo[j + 2] = fmaf(z[i], w.z, zo[j + 2]);
+      zo[j + 3] = fmaf(z[i], w.w, zo[j + 3]);
+      po[j] = fmaf(p[i], w.x, po[j]);
+      po[j + 1] = fmaf(p[i], w.y, po[j + 1]);
+      po[j + 2] = fmaf(p[i], w.z, po[j + 2]);
+      po[j + 3] = fmaf(p[i], w.w, po[j + 3]);
+      qo[j] = fmaf(q[i], w.x, qo[j]);
+      qo[j + 1] = fmaf(q[i], w.y, qo[j + 1]);
+      qo[j + 2] = fmaf(q[i], w.z, qo[j + 2]);
+      qo[j + 3] = fmaf(q[i], w.w, qo[j + 3]);
+    }
+  }
+  const float* __restrict__ b = Wk + W * W;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    z[j] = zo[j] + b[j];
+    p[j] = po[j];
+    q[j] = qo[j];
+  }
+}
+
+// K7: for the point (t, i) of this thread and the refs of this block's
+// split, value, hess and s_dz0 into the split's partial row (see the header).
+// weights: the zero-padded [L x (W_k [W, W], b_k [W]), M [W, W], u [W]].
+template <int W, int ACT>
+__global__ void __launch_bounds__(kK7MaxThreads)
+    k7_kernel(int n_layers, int w0, int nt, int n, int m, int chunk, const float* __restrict__ ax,
+              const float* __restrict__ av, const float* __restrict__ ar,
+              const float* __restrict__ mask, const float* __restrict__ weights,
+              float* __restrict__ partials) {
+  extern __shared__ float4 smem4[];
+  const int L = n_layers;
+  const int T = blockDim.x;
+  const int n_w4 = k7_weight_floats(W, L) / 4;  // W is a multiple of 4
+  for (int idx = threadIdx.x; idx < n_w4; idx += T) {
+    smem4[idx] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
+  }
+  __syncthreads();
+  const float* sw = reinterpret_cast<const float*>(smem4);
+  const float* sM = sw + L * (W * W + W);
+  const float* su = sM + W * W;
+  // this thread's rows: act'(z_k) at dk0 + k T R, its s_dz0 sums at acc
+  constexpr int R = k7_row(W);
+  float* dk0 = reinterpret_cast<float*>(smem4 + n_w4) + threadIdx.x * R;
+  float* acc = dk0 + L * T * R;
+
+  const int n_iblk = (n + T - 1) / T;
+  const int iblk = blockIdx.x % n_iblk;
+  const int t = (blockIdx.x / n_iblk) % nt;
+  const int split = blockIdx.x / (n_iblk * nt);
+  const int i = iblk * T + threadIdx.x;
+  if (i >= n) return;
+  const int j_begin = split * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const size_t ti = static_cast<size_t>(t) * n + i;
+  const float* __restrict__ axi = ax + ti * w0;
+  const float* __restrict__ avi = av + ti * w0;
+  const float* __restrict__ art = ar + static_cast<size_t>(t) * m * w0;
+
+  float val = 0.0f, hess = 0.0f;
+#pragma unroll
+  for (int f = 0; f < W; f += 4) st4(acc + f, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+
+#pragma unroll 1
+  for (int j = j_begin; j < j_end; ++j) {
+    const float mk = __ldg(mask + j);
+    if (mk == 0.0f) continue;  // block-uniform
+    const float* __restrict__ arj = art + static_cast<size_t>(j) * w0;
+    float z[W], p[W], q[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      z[f] = f < w0 ? __ldg(axi + f) - __ldg(arj + f) : 0.0f;
+      p[f] = f < w0 ? __ldg(avi + f) : 0.0f;
+      q[f] = 0.0f;
+    }
+#pragma unroll 1
+    for (int k = 0; k < L; ++k) k7_layer<W, ACT>(sw + k * (W * W + W), dk0 + k * T * R, z, p, q);
+
+    // head: g = act(z_L) and its streams; M g and M gp
+    float g[W], gp[W], gq[W], d1[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      float a0, a1, a2, a3;
+      act_d<ACT>(z[f], a0, a1, a2, a3);
+      g[f] = a0;
+      d1[f] = a1;
+      gp[f] = a1 * p[f];
+      gq[f] = a2 * p[f] * p[f] + a1 * q[f];
+    }
+    float Mg[W], Mgp[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) Mg[f] = Mgp[f] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+#pragma unroll
+      for (int c = 0; c < W; c += 4) {
+        const float4 w = ld4(sM + r * W + c);
+        Mg[c] = fmaf(g[r], w.x, Mg[c]);
+        Mg[c + 1] = fmaf(g[r], w.y, Mg[c + 1]);
+        Mg[c + 2] = fmaf(g[r], w.z, Mg[c + 2]);
+        Mg[c + 3] = fmaf(g[r], w.w, Mg[c + 3]);
+        Mgp[c] = fmaf(gp[r], w.x, Mgp[c]);
+        Mgp[c + 1] = fmaf(gp[r], w.y, Mgp[c + 1]);
+        Mgp[c + 2] = fmaf(gp[r], w.z, Mgp[c + 2]);
+        Mgp[c + 3] = fmaf(gp[r], w.w, Mgp[c + 3]);
+      }
+    }
+    float sv = 0.0f, sh = 0.0f, delta[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      const float two = 2.0f * Mg[f] + su[f];
+      sv += g[f] * (Mg[f] + su[f]);
+      sh += 2.0f * gp[f] * Mgp[f] + gq[f] * two;
+      delta[f] = two * d1[f];  // dPhi/dz_L
+    }
+    val += mk * sv;
+    hess += mk * sh;
+
+    // reverse sweep: delta_k = (delta_{k+1} W_k^T) * act'(z_k)
+#pragma unroll 1
+    for (int k = L - 1; k >= 0; --k) {
+      const float* __restrict__ Wk = sw + k * (W * W + W);
+      const float* dk = dk0 + k * T * R;
+      float nd[W];
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < W; c += 4) {
+          const float4 w = ld4(Wk + r * W + c);
+          s = fmaf(delta[c], w.x, s);
+          s = fmaf(delta[c + 1], w.y, s);
+          s = fmaf(delta[c + 2], w.z, s);
+          s = fmaf(delta[c + 3], w.w, s);
+        }
+        nd[r] = s;
+      }
+#pragma unroll
+      for (int f = 0; f < W; f += 4) {
+        const float4 d = ld4(dk + f);
+        delta[f] = nd[f] * d.x;
+        delta[f + 1] = nd[f + 1] * d.y;
+        delta[f + 2] = nd[f + 2] * d.z;
+        delta[f + 3] = nd[f + 3] * d.w;
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < W; f += 4) {
+      float4 a = ld4(acc + f);
+      a.x += mk * delta[f];
+      a.y += mk * delta[f + 1];
+      a.z += mk * delta[f + 2];
+      a.w += mk * delta[f + 3];
+      st4(acc + f, a);
+    }
+  }
+
+  // this split's sums: value | hess | s_dz0, each [nt, n(, w0)]
+  const size_t tn = static_cast<size_t>(nt) * n;
+  float* out = partials + static_cast<size_t>(split) * tn * (2 + w0);
+  out[ti] = val;
+  out[tn + ti] = hess;
+  float* o = out + 2 * tn + ti * w0;
+#pragma unroll
+  for (int f = 0; f < W; ++f) {
+    if (f < w0) o[f] = acc[f];
+  }
+}
+
+// f(k7_kernel<W, act>) for the width and activation; other values return
+// cudaErrorInvalidValue
+template <int W, typename F>
+cudaError_t k7_with_act(int act, F&& f) {
+  switch (act) {
+    case kTanh: return f(k7_kernel<W, kTanh>);
+    case kSilu: return f(k7_kernel<W, kSilu>);
+    case kSoftplus: return f(k7_kernel<W, kSoftplus>);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+cudaError_t k7_with_kernel(int width, int act, F&& f) {
+  switch (width) {
+    case 8: return k7_with_act<8>(act, f);
+    case 16: return k7_with_act<16>(act, f);
+    case 20: return k7_with_act<20>(act, f);
+    case 24: return k7_with_act<24>(act, f);
+    case 32: return k7_with_act<32>(act, f);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -752,6 +1028,17 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
     }                                                                          \
   } while (0)
 
+// the same for K5's forward kernel, pw_fwd_kernel<act>
+#define PW_FWD_DISPATCH(act, ...)                                              \
+  do {                                                                         \
+    switch (act) {                                                             \
+      case kTanh: { auto kern = pw_fwd_kernel<kTanh>; __VA_ARGS__; } break;    \
+      case kSilu: { auto kern = pw_fwd_kernel<kSilu>; __VA_ARGS__; } break;    \
+      case kSoftplus: { auto kern = pw_fwd_kernel<kSoftplus>; __VA_ARGS__; } break; \
+      default: return static_cast<int>(cudaErrorInvalidValue);                 \
+    }                                                                          \
+  } while (0)
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on `stream` and
@@ -762,11 +1049,14 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
 // packs W_k^T.  Arrays: ax, av [nt, n, w0], ar [nt, m, w0], mask [m],
 // g_val, g_hess [nt, n], g_dz0 [nt, n, w0], u [w] (collapsed head only).
 
-// Resident blocks per SM of the forward (bwd = 0) or backward kernel.
+// Resident blocks per SM of K5's forward kernel (bwd = 0, head = kSquare)
+// or of the backward kernel (K6, K8).
 extern "C" int pw_max_blocks(int device, int act, int head, int bwd, int n_mid, const int* widths,
                              int* blocks) {
   Net net;
-  if (make_net(n_mid, widths, &net) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (make_net(n_mid, widths, &net) < 0 || (!bwd && head != kSquare)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bwd) {
@@ -774,17 +1064,17 @@ extern "C" int pw_max_blocks(int device, int act, int head, int bwd, int n_mid, 
     PW_DISPATCH(pw_bwd_kernel, act, head, err = blocks_per_sm(kern, smem, blocks));
   } else {
     const size_t smem = shared_bytes(net, 3);
-    PW_DISPATCH(pw_fwd_kernel, act, head, err = blocks_per_sm(kern, smem, blocks));
+    PW_FWD_DISPATCH(act, err = blocks_per_sm(kern, smem, blocks));
   }
   return static_cast<int>(err);
 }
 
-// partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n * (2 + w0)]
-// = value [nt, n] | hess [nt, n] | s_dz0 [nt, n, w0].
-extern "C" int pw_sums(int device, int act, int head, int n_mid, const int* widths, int nt, int n,
-                       int m, int n_split, const float* ax, const float* av, const float* ar,
+// K5.  partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n *
+// (2 + w0)] = value [nt, n] | hess [nt, n] | s_dz0 [nt, n, w0].
+extern "C" int pw_sums(int device, int act, int n_mid, const int* widths, int nt, int n, int m,
+                       int n_split, const float* ax, const float* av, const float* ar,
                        const float* mask, const float* params, const float* params_t,
-                       const float* u, float* partials, float* out, void* stream) {
+                       float* partials, float* out, void* stream) {
   Net net;
   if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || make_net(n_mid, widths, &net) < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -796,15 +1086,69 @@ extern "C" int pw_sums(int device, int act, int head, int n_mid, const int* widt
   const int n_iblk = (n + kTile - 1) / kTile;
   const dim3 grid(n_split * nt * n_iblk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PW_DISPATCH(pw_fwd_kernel, act, head, {
+  PW_FWD_DISPATCH(act, {
     err = allow_shared(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, params, params_t, u,
+    kern<<<grid, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, params, params_t,
                                        partials);
   });
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int w0 = net.w[0];
+  return static_cast<int>(
+      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
+}
+
+// K7's dynamic shared memory for width w, `threads` points a block and
+// n_layers hidden layers (bytes; the wrapper's plan computes the same).
+extern "C" long long k7_shared_bytes_c(int width, int threads, int n_layers) {
+  return static_cast<long long>(k7_shared_bytes(width, threads, n_layers));
+}
+
+// Resident K7 blocks per SM for the width instantiation, activation,
+// `threads` points a block and n_layers hidden layers.
+extern "C" int k7_max_blocks(int device, int act, int width, int threads, int n_layers,
+                             int* blocks) {
+  if (threads < 1 || threads > kK7MaxThreads || n_layers < 0 || n_layers > kMaxMid - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k7_shared_bytes(width, threads, n_layers);
+  return static_cast<int>(k7_with_kernel(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+  }));
+}
+
+// K7: weights [L x (W_k [W, W], b_k [W]), M [W, W], u [W]], zero-padded to
+// `width` (16-byte aligned); ax, av [nt, n, w0] and ar [nt, m, w0] with
+// w0 <= width; partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n *
+// (2 + w0)] = value [nt, n] (without c) | hess [nt, n] | s_dz0 [nt, n, w0].
+extern "C" int k7_sums(int device, int act, int width, int threads, int n_layers, int w0, int nt,
+                       int n, int m, int n_split, const float* ax, const float* av, const float* ar,
+                       const float* mask, const float* weights, float* partials, float* out,
+                       void* stream) {
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width || threads < 1 ||
+      threads > kK7MaxThreads || n_layers < 0 || n_layers > kMaxMid - 1 ||
+      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k7_shared_bytes(width, threads, n_layers);
+  const int chunk = (m + n_split - 1) / n_split;
+  const dim3 grid(n_split * nt * ((n + threads - 1) / threads));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = k7_with_kernel(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, threads, smem, st>>>(n_layers, w0, nt, n, m, chunk, ax, av, ar, mask, weights,
+                                      partials);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
 }

@@ -41,7 +41,7 @@ All arithmetic is float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -58,6 +58,8 @@ _TILE = 32  # points per tile, csrc/pairwise.cu kTile
 _ROW = _TILE + 4  # floats per feature row of a tile in shared memory
 _MAX_SHARED_BYTES = 227 * 1024  # a block's opt-in maximum on Hopper
 _WAVES = 4  # aim for this many waves of resident blocks when splitting the refs
+K7_WIDTHS = (8, 16, 20, 24, 32)  # k7_kernel's width instantiations
+K7_THREADS = (128, 64, 32)  # points per K7 block: the most whose shared memory fits
 
 
 # -- plain versions ----------------------------------------------------------------
@@ -238,17 +240,20 @@ def mlp_pairwise_sums_packed_bwd_plain(mids_m: Layers, M, u, act_name: str, ax, 
 def _library() -> ctypes.CDLL:
     lib = build.load("pairwise")
     if lib.pw_sums.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        common = [ci, ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci]
-        lib.pw_sums.argtypes = common + [vp] * 10
-        lib.pw_sums_bwd.argtypes = common + [vp] * 17
-        lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        lib.pw_sums.argtypes = [ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 9
+        lib.pw_sums_bwd.argtypes = [ci, ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 17
+        lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, ci, pi, pi]
+        lib.k7_sums.argtypes = [ci] * 10 + [vp] * 8
+        lib.k7_max_blocks.argtypes = [ci] * 5 + [pi]
+        lib.k7_shared_bytes_c.argtypes = [ci] * 3
         lib.s1_pair_rows.argtypes = [ci, ci, ci, ci] + [vp] * 6
         lib.s1_m_layer.argtypes = [ci, ci, ci] + [vp] * 4
         lib.pw_sum_rows.argtypes = [ci, vp, vp, ci, ctypes.c_longlong, vp]
-        for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.s1_pair_rows, lib.s1_m_layer,
-                   lib.pw_sum_rows):
+        for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k7_sums, lib.k7_max_blocks,
+                   lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
             fn.restype = ci
+        lib.k7_shared_bytes_c.restype = ctypes.c_longlong
     return lib
 
 
@@ -261,13 +266,79 @@ def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
     return (n_streams * (rows + tmp_rows) + 5 * widths[0] + 4) * _ROW * 4
 
 
+class K7Plan(NamedTuple):
+    """How K7 runs a chain: every layer, M and u zero-padded to `width`
+    (a k7_kernel instantiation), `threads` points a block, `shared_bytes`
+    of dynamic shared memory a block."""
+
+    width: int
+    threads: int
+    shared_bytes: int
+
+
+def k7_shared_bytes(width: int, threads: int, n_layers: int) -> int:
+    """K7's shared memory a block (csrc/pairwise.cu): the padded weights,
+    n_layers x (W_k, b_k) then M and u, and for each of the block's points
+    act'(z_k) of every hidden layer and the s_dz0 sums, in rows of width
+    floats (width + 4 where width is a multiple of 8)."""
+    weights = n_layers * (width * width + width) + width * width + width
+    row = width + 4 if width % 8 == 0 else width
+    return 4 * (weights + (n_layers + 1) * threads * row)
+
+
+def k7_plan(widths: Sequence[int]) -> K7Plan:
+    """K7's plan for the chain `widths` = [w0, the hidden layers' output
+    widths..., M's width]: the least instantiated width that holds every
+    one of them, and the most points a block whose shared memory fits."""
+    n_layers = len(widths) - 2
+    if n_layers < 0 or min(widths) < 1:
+        raise ValueError(f"K7: widths {list(widths)} are not a chain ending with M's width")
+    width = next((w for w in K7_WIDTHS if w >= max(widths)), None)
+    if width is None:
+        raise ValueError(f"K7 takes widths <= {K7_WIDTHS[-1]}, got {list(widths)}")
+    for threads in K7_THREADS:
+        smem = k7_shared_bytes(width, threads, n_layers)
+        if smem <= _MAX_SHARED_BYTES:
+            return K7Plan(width, threads, smem)
+    raise ValueError(f"K7: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+
+
+def k7_splits(nt: int, n: int, m: int, threads: int, resident: int) -> int:
+    """Ref splits of K7: the fewest that minimise the wave-rounded work,
+    ceil(splits x blocks / resident) x ceil(m / splits), where blocks =
+    nt x ceil(n / threads) point blocks and `resident` blocks run at once;
+    at most one split per ref and about 2 x _WAVES waves."""
+    blocks = nt * -(-n // threads)
+    best, best_cost = 1, None
+    for splits in range(1, max(1, min(m, -(-2 * _WAVES * resident // blocks))) + 1):
+        cost = -(-splits * blocks // resident) * -(-m // splits)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = splits, cost
+    return best
+
+
+def pad_collapsed(mids_m: Layers, M, u, width: int):
+    """The hidden layers, M and u zero-padded to `width`, as views into one
+    flat buffer in K7's weight layout: (flat, [(W_k [width, width],
+    b_k [width])], M [width, width], u [width])."""
+    pieces = [x for W, b in mids_m for x in (W, b)] + [M, u]
+    flat = torch.zeros(sum(width ** t.ndim for t in pieces), dtype=M.dtype, device=M.device)
+    views, off = [], 0
+    for t in pieces:
+        view = flat[off: off + width ** t.ndim].view((width,) * t.ndim)
+        view[tuple(slice(0, k) for k in t.shape)] = t
+        views.append(view)
+        off += width ** t.ndim
+    return flat, list(zip(views[:-2:2], views[1:-2:2])), views[-2], views[-1]
+
+
 def _raise(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 class _Launch:
-    """Validated inputs of one launch: widths, packed layers, device."""
+    """Validated inputs of one launch: widths, layers, device, stream."""
 
     def __init__(self, name, layers, act_name, ax, av, ar, mask, extra=(), head=None):
         if not supported_activation(act_name):
@@ -296,13 +367,16 @@ class _Launch:
         if not (1 <= self.n and 1 <= self.m and self.nt * self.n * (2 + w0) < 2**31
                 and -(-self.n // _TILE) * self.nt * self.m * w0 < 2**31):
             raise ValueError(f"{name}: sizes nt={self.nt}, n={self.n}, m={self.m} out of range")
-        self.name, self.widths, self.dev = name, widths, dev
+        self.name, self.layers, self.widths, self.dev = name, layers, widths, dev
         self.act, self.head = _ACTS[act_name], _SQUARE if head is None else _COLLAPSED
-        self.params = torch.cat([x for W, b in layers for x in (W.reshape(-1), b)])
-        self.params_t = torch.cat([W.t().reshape(-1) for W, _ in layers]).contiguous()
         self.device = dev.index if dev.index is not None else torch.cuda.current_device()
         self.c_widths = (ctypes.c_int * len(widths))(*widths)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def params(self):
+        """(params, params_t): [W_k, b_k] and [W_k^T] of every layer, packed."""
+        return (torch.cat([x for W, b in self.layers for x in (W.reshape(-1), b)]),
+                torch.cat([W.t().reshape(-1) for W, _ in self.layers]).contiguous())
 
     def splits(self, lib, bwd: bool) -> int:
         """Ref splits: enough blocks for about _WAVES waves of resident
@@ -314,11 +388,15 @@ class _Launch:
         per_sm = ctypes.c_int(0)
         _raise(lib.pw_max_blocks(self.device, self.act, self.head, int(bwd), len(self.widths) - 1,
                                  self.c_widths, ctypes.byref(per_sm)), f"{self.name} occupancy query")
-        if per_sm.value < 1:
-            raise RuntimeError(f"{self.name}: no block fits on an SM at widths {self.widths}")
-        resident = per_sm.value * torch.cuda.get_device_properties(self.dev).multi_processor_count
+        resident = self.resident(per_sm.value)
         base = self.nt * -(-self.n // _TILE)
         return max(1, min(self.m, -(-_WAVES * resident // base)))
+
+    def resident(self, blocks_per_sm: int) -> int:
+        """Blocks the card runs at once, from the blocks an SM holds."""
+        if blocks_per_sm < 1:
+            raise RuntimeError(f"{self.name}: no block fits on an SM at widths {self.widths}")
+        return blocks_per_sm * torch.cuda.get_device_properties(self.dev).multi_processor_count
 
     def empty(self, *shape):
         return torch.empty(shape, dtype=torch.float32, device=self.dev)
@@ -333,24 +411,57 @@ def _grads_of(grads: torch.Tensor, layers: Layers):
     return out
 
 
-def _fwd_launch(name, layers, act_name, ax, av, ar, mask, u=None, head=None,
-                n_split=None) -> Dict[str, torch.Tensor]:
-    L = _Launch(name, layers, act_name, ax, av, ar, mask, () if u is None else (u,), head)
+def _sums_out(L: _Launch, out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    tn = L.nt * L.n
+    return {"value": out[:tn].view(L.nt, L.n), "hess": out[tn: 2 * tn].view(L.nt, L.n),
+            "s_dz0": out[2 * tn:].view(L.nt, L.n, L.widths[0])}
+
+
+def _fwd_launch(name, layers, act_name, ax, av, ar, mask) -> Dict[str, torch.Tensor]:
+    """K5."""
+    L = _Launch(name, layers, act_name, ax, av, ar, mask)
     ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
     lib = _library()
-    n_split = L.splits(lib, bwd=False) if n_split is None else n_split
+    n_split = L.splits(lib, bwd=False)
     w0 = L.widths[0]
     tn = L.nt * L.n
     partials = L.empty(n_split, tn * (2 + w0))
     out = L.empty(tn * (2 + w0))
+    params, params_t = L.params()
     _raise(lib.pw_sums(
-        L.device, L.act, L.head, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), L.params.data_ptr(),
-        L.params_t.data_ptr(), None if u is None else u.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), L.stream,
+        L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), params.data_ptr(),
+        params_t.data_ptr(), partials.data_ptr(), out.data_ptr(), L.stream,
     ), name)
-    return {"value": out[:tn].view(L.nt, L.n), "hess": out[tn: 2 * tn].view(L.nt, L.n),
-            "s_dz0": out[2 * tn:].view(L.nt, L.n, w0)}
+    return _sums_out(L, out)
+
+
+def _k7_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, n_split=None) -> Dict[str, torch.Tensor]:
+    """K7: the chain padded to its plan's width, the refs split by
+    ``k7_splits`` unless `n_split` is given."""
+    if tuple(u.shape) != (M.shape[0],):
+        raise ValueError(f"{name}: u must be [{M.shape[0]}], got {tuple(u.shape)}")
+    L = _Launch(name, _with_m_layer(mids_m, M), act_name, ax, av, ar, mask, (u,), head=(M, u))
+    plan = k7_plan(L.widths)
+    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
+    lib = _library()
+    n_layers = len(mids_m)
+    if n_split is None:
+        per_sm = ctypes.c_int(0)
+        _raise(lib.k7_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers,
+                                 ctypes.byref(per_sm)), f"{name} occupancy query")
+        n_split = k7_splits(L.nt, L.n, L.m, plan.threads, L.resident(per_sm.value))
+    weights = pad_collapsed(mids_m, M, u, plan.width)[0]
+    w0 = L.widths[0]
+    tn = L.nt * L.n
+    partials = L.empty(n_split, tn * (2 + w0))
+    out = L.empty(tn * (2 + w0))
+    _raise(lib.k7_sums(
+        L.device, L.act, plan.width, plan.threads, n_layers, w0, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), L.stream,
+    ), name)
+    return _sums_out(L, out)
 
 
 def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, u=None, head=None,
@@ -366,7 +477,8 @@ def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, 
     n_split = L.splits(lib, bwd=True) if n_split is None else n_split
     w0 = L.widths[0]
     n_blk = -(-L.n // _TILE)
-    n_params = L.params.numel()
+    params, params_t = L.params()
+    n_params = params.numel()
     w_partials = L.empty(n_split * L.nt * n_blk, n_params)
     grads = L.empty(n_params)
     x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
@@ -376,7 +488,7 @@ def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, 
     _raise(lib.pw_sums_bwd(
         L.device, L.act, L.head, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
-        g_hess.data_ptr(), g_dz0.data_ptr(), L.params.data_ptr(), L.params_t.data_ptr(),
+        g_hess.data_ptr(), g_dz0.data_ptr(), params.data_ptr(), params_t.data_ptr(),
         None if u is None else u.data_ptr(), w_partials.data_ptr(), grads.data_ptr(),
         x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr(),
         L.stream,
@@ -427,10 +539,7 @@ def mlp_pairwise_sums_packed(mids_m: Layers, M, u, act_name: str, ax, av, ar, ma
     tensors: ``mlp_pairwise_sums_packed_plain``."""
     if not _on_cuda("K7", ax):
         return mlp_pairwise_sums_packed_plain(mids_m, M, u, act_name, ax, av, ar, mask)
-    if tuple(u.shape) != (M.shape[0],):
-        raise ValueError(f"K7: u must be [{M.shape[0]}], got {tuple(u.shape)}")
-    out = _fwd_launch("K7", _with_m_layer(mids_m, M), act_name, ax, av, ar, mask,
-                      u=u.contiguous(), head=(M, u))
+    out = _k7_launch("K7", mids_m, M, u, act_name, ax, av, ar, mask)
     mlp_pairwise_sums_packed.launches += 1
     return out
 
@@ -549,12 +658,11 @@ def sum_rows(part):
 
 
 def s1_packed_sums(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask):
-    """K7 with one block per stamp (the refs unsplit): S1's full-kernel
-    check.  CPU tensors: ``mlp_pairwise_sums_packed_plain``."""
+    """K7 with the refs unsplit (one split): S1's full-kernel check.  CPU
+    tensors: ``mlp_pairwise_sums_packed_plain``."""
     if not _on_cuda("S1", ax):
         return mlp_pairwise_sums_packed_plain(mids_m, M, u, act_name, ax, av, ar, mask)
-    out = _fwd_launch("S1 K7", _with_m_layer(mids_m, M), act_name, ax, av, ar, mask,
-                      u=u.contiguous(), head=(M, u), n_split=1)
+    out = _k7_launch("S1 K7", mids_m, M, u, act_name, ax, av, ar, mask, n_split=1)
     s1_packed_sums.launches += 1
     return out
 

@@ -19,9 +19,10 @@ The means mu_k are drawn from the port's own generator, so the same
 ``seed`` gives a different ground truth than the JAX package.  To run both
 on one ground truth, pass ``configuration={"mus": <numpy [k, d]>}``, and
 ``"dataset": {name: numpy array}`` to train on a dataset made elsewhere.
-A persisted dataset records the means it was generated with; loading one
-recorded for other means, or with no record (a store of the JAX package),
-raises.
+A persisted dataset records what it was generated with: the means, the
+``pde_instance`` fields of RECORD_FIELDS and its key.  Loading one recorded
+for anything else, or with no record (a store of the JAX package, or of an
+older port), raises.
 """
 
 from __future__ import annotations
@@ -44,7 +45,10 @@ from pde_inverse_torch.potentials import GMMPotential
 from pde_inverse_torch.problems.base import ProblemInstance
 from pde_inverse_torch.utils.data import ArrayStoreWriter, load_array_store, store_bytes
 
-GROUND_TRUTH_FILE = "ground_truth.json"  # beside a store's manifest: the means it was made with
+GROUND_TRUTH_FILE = "ground_truth.json"  # beside a store's manifest: what it was generated with
+# the pde_instance fields that decide an offline dataset, recorded beside it
+RECORD_FIELDS = ("integrator", "total_evolving_time", "n_steps_terminal", "n_steps_0T",
+                 "sample_initial_size", "sample_terminal_size", "sample_0T_size")
 
 
 def make_configuration(
@@ -243,23 +247,41 @@ class KineticFokkerPlanckGMM(ProblemInstance):
     def _mus_numpy(self) -> np.ndarray:
         return self.configuration["mus"].cpu().numpy()
 
-    def _check_ground_truth(self, path: str, mus) -> None:
-        """Raise unless `mus` (the means a persisted dataset records) are this
-        instance's: the port never trains silently against another ground
-        truth, such as a store the JAX package generated at the same path."""
-        if mus is None:
+    def _record(self, key: int) -> dict:
+        """What a persisted dataset generated here with `key` records."""
+        p = self.cfg.pde_instance
+        return {"mus": self._mus_numpy().tolist(), **{f: getattr(p, f) for f in RECORD_FIELDS},
+                "key": int(key)}
+
+    def _check_record(self, path: str, record: Optional[dict], key: int) -> None:
+        """Raise unless `record` (what a persisted dataset was generated with)
+        is what this instance would generate with `key`: the port never
+        trains silently on another ground truth or another simulation, such
+        as a store the JAX package generated at the same path, or one made
+        with another integrator."""
+        elsewhere = "Remove it or set pde_instance.dataset_path elsewhere"
+        if record is None or "mus" not in record:
             raise ValueError(
                 f"the offline dataset at {path!r} holds no record of the GMM means it was "
                 "generated with (a store of the JAX package, or of an older port?): it may "
-                "hold another ground truth. Remove it or set pde_instance.dataset_path elsewhere"
+                f"hold another ground truth. {elsewhere}"
             )
-        mus = np.asarray(mus, np.float32)
+        mus = np.asarray(record["mus"], np.float32)
         if mus.shape != self._mus_numpy().shape or not np.array_equal(mus, self._mus_numpy()):
             raise ValueError(
                 f"the offline dataset at {path!r} was generated for other GMM means "
-                f"({mus.tolist()}) than this instance's ({self._mus_numpy().tolist()}). Remove "
-                "it or set pde_instance.dataset_path elsewhere"
+                f"({mus.tolist()}) than this instance's ({self._mus_numpy().tolist()}). {elsewhere}"
             )
+        want = self._record(key)
+        missing = [f for f in want if f not in record]
+        if missing:
+            raise ValueError(f"the offline dataset at {path!r} does not record {missing} (a store of "
+                             f"an older port?): it may hold another simulation. {elsewhere}")
+        other = [f"{f}={record[f]!r} (this run: {want[f]!r})" for f in want
+                 if f != "mus" and record[f] != want[f]]
+        if other:
+            raise ValueError(f"the offline dataset at {path!r} was generated with other settings: "
+                             f"{', '.join(other)}. {elsewhere}")
 
     def _load_or_generate_dataset(self, key: int) -> dict:
         """The offline dataset: generated in memory without a dataset_path;
@@ -280,20 +302,24 @@ class KineticFokkerPlanckGMM(ProblemInstance):
             if os.path.exists(path):
                 with np.load(path) as z:
                     arrays = {k: z[k] for k in z.files}
-                self._check_ground_truth(path, arrays.pop("mus", None))
+                mus, settings = arrays.pop("mus", None), arrays.pop("generated_with", None)
+                record = None if mus is None else {
+                    "mus": mus, **({} if settings is None else json.loads(str(settings)))}
+                self._check_record(path, record, key)
                 return self._to_device(arrays)
             dataset = self.generate_ground_truth_dataset(key)
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            np.savez(path, mus=self._mus_numpy(), **{k: v.cpu().numpy() for k, v in dataset.items()})
+            settings = {k: v for k, v in self._record(key).items() if k != "mus"}
+            np.savez(path, mus=self._mus_numpy(), generated_with=np.array(json.dumps(settings)),
+                     **{k: v.cpu().numpy() for k, v in dataset.items()})
             return dataset
         if not os.path.exists(os.path.join(path, "manifest.json")):
             self._generate_dataset_to_store(path, key)
-        record = os.path.join(path, GROUND_TRUTH_FILE)
-        mus = None
-        if os.path.exists(record):
-            with open(record) as f:
-                mus = json.load(f)["mus"]
-        self._check_ground_truth(path, mus)
+        record = None
+        if os.path.exists(os.path.join(path, GROUND_TRUTH_FILE)):
+            with open(os.path.join(path, GROUND_TRUTH_FILE)) as f:
+                record = json.load(f)
+        self._check_record(path, record, key)
         store = load_array_store(path)
         if p.offline_streaming:
             self.dataset_stream = {k: store[k] for k in ("0T", "tau_0T") if k in store}
@@ -309,8 +335,8 @@ class KineticFokkerPlanckGMM(ProblemInstance):
         at most _STORE_SHARD_ELEMENTS floats: exact initial draws, simulated
         terminal particles and simulated 0T trajectories with their stamps.
         Each shard goes device -> pinned host buffer -> memmap once, as it
-        lands.  The means go beside the manifest (GROUND_TRUTH_FILE), and the
-        manifest last.  Seconds per part and bytes are in data_timing."""
+        lands.  The record (means, settings, key) goes beside the manifest
+        (GROUND_TRUTH_FILE), and the manifest last.  Seconds per part and bytes are in data_timing."""
         p = self.cfg.pde_instance
         d2 = 2 * self.dim
         writer = ArrayStoreWriter(path)
@@ -364,7 +390,7 @@ class KineticFokkerPlanckGMM(ProblemInstance):
                    [writer.create("0T", (p.sample_0T_size, p.n_steps_0T, d2), np.float32),
                     writer.create("tau_0T", (p.sample_0T_size, p.n_steps_0T), np.float32)], k_0T)
         with open(os.path.join(path, GROUND_TRUTH_FILE), "w") as f:
-            json.dump({"mus": self._mus_numpy().tolist()}, f)
+            json.dump(self._record(key), f)
         writer.finalize()
         timing["bytes"] = store_bytes(path)
         self.data_timing = timing

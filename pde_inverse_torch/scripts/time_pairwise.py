@@ -1,0 +1,84 @@
+"""Time the collapsed-head pairwise kernels K7 and K8 on the card at the KMV
+MLP configuration's full width with CUDA events, and print one JSON line.
+
+Shape: 7 stamps x 2,000 points x 2,000 refs (28 million pairs), the
+PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
+(hidden 20 x 7 layers, M = W_F W_F^T, u = 2 W_F b_F), inputs from a seed.
+Only ``csrc/pairwise.cu`` is built, so a call takes seconds, not the
+minutes of the whole build.
+
+    python -m pde_inverse_torch.scripts.time_pairwise [--reps 5] [--kernels K7 K8]
+
+To compare two versions of the kernels on one card, run this file in turns
+(A, B, B, A) with PYTHONPATH pointing at each checkout's root, giving the
+file's path rather than ``-m``: the package found first on the path is the
+one timed, and each checkout builds its own library.  For example, with
+the other checkout unpacked at ``.scratch/parent``:
+
+    for c in .scratch/parent . . .scratch/parent; do
+      PYTHONPATH=$c python pde_inverse_torch/scripts/time_pairwise.py; done
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+
+NT, N, WIDTHS = 7, 2_000, (20,) * 8 + (128,)
+
+
+def _inputs(dev, seed: int = 10):
+    """(mids_m, M, u, ax, av, ar, mask, cotangents) at the full width."""
+    gen = torch.Generator().manual_seed(seed)
+    mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
+            for a, b in zip(WIDTHS, WIDTHS[1:])]
+    w0 = WIDTHS[0]
+    ax, av, ar = (torch.randn((NT, N, w0), generator=gen) * s for s in (1.0, 0.7, 1.0))
+    cot = [torch.randn((NT, N), generator=gen), torch.randn((NT, N), generator=gen),
+           torch.randn((NT, N, w0), generator=gen)]
+    WF, bF = mids[-1]
+    to = lambda t: t.to(dev)
+    return ([(to(W), to(b)) for W, b in mids[:-1]], to(WF @ WF.T), to(2.0 * (WF @ bF)),
+            to(ax), to(av), to(ar), to(torch.ones(N)), [to(c) for c in cot])
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K7", "K8"])
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_pairwise: needs a CUDA device")
+    import pde_inverse_torch
+    from pde_inverse_torch.ops.cuda import pairwise as pw
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mids_m, M, u, ax, av, ar, mask, cot = _inputs(dev)
+    calls = {"K7": lambda: pw.mlp_pairwise_sums_packed(mids_m, M, u, "tanh", ax, av, ar, mask),
+             "K8": lambda: pw.mlp_pairwise_sums_packed_bwd(mids_m, M, u, "tanh", ax, av, ar, mask, *cot)}
+    times = {}
+    for kid in args.kernels:
+        fn = calls[kid]
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[kid] = start.elapsed_time(end) / args.reps
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    print(json.dumps({"package": pde_inverse_torch.__file__, "card": smi[0] if smi else None,
+                      "shape": f"{NT}x{N}x{N}", "reps": args.reps, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

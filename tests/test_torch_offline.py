@@ -2,7 +2,7 @@
 array store in both directions, the offline subsample policy, whole offline
 steps on a dataset the JAX package generated, the streaming loader and
 trainer, sharded store generation and the refusal of a store made for
-another ground truth."""
+another ground truth or with other settings."""
 
 import json
 
@@ -18,6 +18,7 @@ from pde_inverse_tpu.utils import data as jax_data
 from pde_inverse_torch import config as config_lib
 from pde_inverse_torch.convert import from_flax_params
 from pde_inverse_torch.methods import ConsistencyBased, functional_forward, offline_batch
+from pde_inverse_torch.problems import kfp_gmm
 from pde_inverse_torch.problems.kfp_gmm import GROUND_TRUTH_FILE, KineticFokkerPlanckGMM
 from pde_inverse_torch.training.trainer import Trainer
 from pde_inverse_torch.utils import data as torch_data
@@ -240,6 +241,52 @@ def test_store_of_another_ground_truth_is_refused(tmp_path):
     assert all(torch.equal(first[k], again[k]) for k in first)
     with pytest.raises(ValueError, match="other GMM means"):
         KineticFokkerPlanckGMM(cfg_npz, 2, "cpu")
+
+
+@pytest.mark.parametrize("kind", ["store", "npz"])
+@pytest.mark.parametrize("override", ["pde_instance.integrator=baoab", "pde_instance.total_evolving_time=5.0",
+                                      "pde_instance.n_steps_terminal=30", "pde_instance.n_steps_0T=30",
+                                      "pde_instance.sample_initial_size=200",
+                                      "pde_instance.sample_terminal_size=100",
+                                      "pde_instance.sample_0T_size=20"])
+def test_dataset_made_with_other_settings_is_refused(tmp_path, kind, override):
+    """A persisted dataset records every setting it was generated with
+    beside the means; loading it under another one raises, naming it."""
+    path = str(tmp_path / ("d.npz" if kind == "npz" else "s"))
+    cfg = config_lib.preset("KGMM-offline", SMALL + [f"pde_instance.dataset_path={path}"])
+    first = KineticFokkerPlanckGMM(cfg, 0, "cpu").dataset
+    again = KineticFokkerPlanckGMM(cfg, 0, "cpu").dataset  # the same settings reload
+    assert all(torch.equal(first[k], again[k]) for k in first)
+    field = override.split("=")[0].split(".")[1]
+    with pytest.raises(ValueError, match=f"other settings: {field}="):
+        KineticFokkerPlanckGMM(config_lib.preset("KGMM-offline", SMALL + [f"pde_instance.dataset_path={path}",
+                                                                          override]), 0, "cpu")
+
+
+def test_dataset_without_the_settings_record_is_refused(tmp_path):
+    """A store that records its means alone (as older versions of the port
+    wrote them) or an .npz without ``generated_with`` may hold another
+    simulation: refused."""
+    path = str(tmp_path / "s")
+    cfg = config_lib.preset("KGMM-offline", SMALL + [f"pde_instance.dataset_path={path}"])
+    KineticFokkerPlanckGMM(cfg, 0, "cpu")
+    record = tmp_path / "s" / GROUND_TRUTH_FILE
+    full = json.loads(record.read_text())
+    assert set(full) == {"mus", "key", *kfp_gmm.RECORD_FIELDS}
+    record.write_text(json.dumps({"mus": full["mus"]}))
+    with pytest.raises(ValueError, match="does not record"):
+        KineticFokkerPlanckGMM(cfg, 0, "cpu")
+    record.write_text(json.dumps({**full, "key": full["key"] + 1}))
+    with pytest.raises(ValueError, match="other settings: key="):
+        KineticFokkerPlanckGMM(cfg, 0, "cpu")
+    npz = str(tmp_path / "d.npz")
+    cfg_npz = config_lib.preset("KGMM-offline", SMALL + [f"pde_instance.dataset_path={npz}"])
+    KineticFokkerPlanckGMM(cfg_npz, 0, "cpu")
+    with np.load(npz) as z:
+        arrays = {k: z[k] for k in z.files if k != "generated_with"}
+    np.savez(npz, **arrays)
+    with pytest.raises(ValueError, match="does not record"):
+        KineticFokkerPlanckGMM(cfg_npz, 0, "cpu")
 
 
 def test_offline_refusals():

@@ -1,6 +1,6 @@
 """K5-K8, the CUDA pairwise kernels, against their plain PyTorch versions on
-the card, with ragged n and m and masks.  The gates repeat
-``chip_smoke.py``'s.
+the card, with ragged n and m and masks, and K7 at each of its width
+instantiations and paddings.  The gates repeat ``chip_smoke.py``'s.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -9,6 +9,8 @@ Without a CUDA device every test skips.  On the card:
 This file imports neither JAX nor the JAX package; where JAX is not
 installed, add ``--noconftest`` (the conftest imports JAX).
 """
+
+import ctypes
 
 import pytest
 import torch
@@ -117,6 +119,52 @@ def test_backward_kernels_are_bitwise_repeatable(cuda, packed):
     kernel = pk.mlp_pairwise_sums_packed_bwd if packed else pk.mlp_pairwise_sums_bwd
     a, b = _flat(bwd(kernel)), _flat(bwd(kernel))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# K7's width instantiations and padding: (widths incl. the feature layer,
+# nt, n, m, masked refs).  n = 300 and 129 are not multiples of a block's 128
+# points; m = 5 is fewer refs than the splits the plan would take, m = 1
+# one; (20, 48) has no hidden layer after the first; w0 = 12 is padded to 20
+# in registers; 20 -> 32 -> 8 -> 20 is padded to 32.
+K7_CASES = [((8,) * 5 + (48,), 2, 300, 97, (3,)), ((16,) * 5 + (48,), 2, 300, 97, (3,)),
+            (FULL, 2, 300, 97, (3,)), ((24,) * 5 + (48,), 2, 300, 97, (3,)),
+            ((32,) * 5 + (48,), 2, 300, 97, (3,)), ((20, 32, 8, 20, 48), 2, 300, 97, (3, 50)),
+            ((20,) * 4 + (48,), 3, 130, 5, ()), ((20,) * 4 + (48,), 2, 129, 1, ()),
+            ((20, 48), 2, 50, 9, (2,)), ((12, 20, 20, 48), 2, 70, 33, ())]
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("widths,nt,n,m,zero_refs", K7_CASES)
+def test_k7_widths_and_padding_match_the_f64_plain_version(cuda, act, widths, nt, n, m, zero_refs):
+    mids, ax, av, ar, mask, _ = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs)
+    mids64, ax64, av64, ar64, mask64, _ = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs,
+                                                  dtype=torch.float64)
+    args, args64 = _collapse(mids), _collapse(mids64)
+    _gate(pk.mlp_pairwise_sums_packed(*args, act, ax, av, ar, mask),
+          pk.mlp_pairwise_sums_packed_plain(*args, act, ax, av, ar, mask),
+          pk.mlp_pairwise_sums_packed_plain(*args64, act, ax64, av64, ar64, mask64))
+
+
+def test_k7_forward_is_bitwise_repeatable(cuda):
+    mids, ax, av, ar, mask, _ = _inputs(cuda, FULL, 3, 500, 400, zero_refs=(5,))
+    fwd, _ = _calls(True, mids, "tanh", ax, av, ar, mask, [])
+    a, b = _flat(fwd(pk.mlp_pairwise_sums_packed)), _flat(fwd(pk.mlp_pairwise_sums_packed))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_k7_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's, and two blocks of
+    the main path's plan fit on an SM (the kernel's header comment)."""
+    lib = pk._library()
+    for width in pk.K7_WIDTHS:
+        for threads, n_layers in ((128, 7), (64, 16), (32, 0)):
+            assert lib.k7_shared_bytes_c(width, threads, n_layers) == \
+                pk.k7_shared_bytes(width, threads, n_layers)
+    plan = pk.k7_plan([20] * 9)
+    per_sm = ctypes.c_int(0)
+    assert lib.k7_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
+                             ctypes.byref(per_sm)) == 0
+    assert per_sm.value >= 2
 
 
 def test_masked_refs_add_exactly_zero(cuda):
