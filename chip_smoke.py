@@ -11,7 +11,7 @@ Phases, each printing its own line:
 2. build: compiles K1/K2 (``pde_inverse_torch/csrc/langevin.cu``), K3/K4
    (``csrc/pointwise.cu``), K5-K8 and S1 (``csrc/pairwise.cu``) and S2/S3
    (``csrc/mma_tf32.cu``) with nvcc, one process per source, together, and
-   prints registers, the Langevin kernels that spill and every K7
+   prints registers, the Langevin kernels that spill and every K7 and K8
    instantiation's registers and spill;
 3. K1 and K2 (pack=2) against their plain PyTorch version on the card, at
    the KGMM main path's shapes (d=4; GMM with k=3 and a Quadratic
@@ -26,7 +26,8 @@ Phases, each printing its own line:
    K5-K8 against their plain versions, held the same way, at the KMV main
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
-   and K7 also at width 32 and on a chain 20 -> 32 -> 8 -> 20 padded to 32;
+   and K7 and K8 also at width 32 and on a chain 20 -> 32 -> 8 -> 20 padded
+   to 32;
    K6's, K7's and K8's outputs bitwise equal on two calls;
 5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM (K1), on
    preset KGMM with langevin_pack=2 (K2), then on preset
@@ -222,9 +223,10 @@ def spills(lib_path) -> dict:
     return {k: v for k, v in resources(lib_path).items() if v[1]}
 
 
-def k7_name(mangled: str):
-    """'k7_kernel<W, ACT>' as 'W=20 tanh', or None for another kernel."""
-    m = re.search(r"k7_kernelILi(\d+)ELi(\d)E", mangled)
+def k7_name(mangled: str, kernel: str = "k7_kernel"):
+    """'k7_kernel<W, ACT>' (or k8_kernel's) as 'W=20 tanh', or None for
+    another kernel."""
+    m = re.search(kernel + r"ILi(\d+)ELi(\d)E", mangled)
     return None if m is None else f"W={m.group(1)} {('tanh', 'silu', 'softplus')[int(m.group(2))]}"
 
 
@@ -342,11 +344,12 @@ def main() -> None:
                                      or "none"), flush=True)
     other = {lib.name: len(spills(lib)) for lib in (lib_pw, lib_pair, lib_mma)}
     print(f"[build] kernels that spill in the other sources: {other}", flush=True)
-    k7_res = {k7_name(k): v for k, v in resources(lib_pair).items() if k7_name(k)}
-    check(len(k7_res) == 15, f"K7 instantiations in the build report: {sorted(k7_res)}")
-    print("[build] K7 instantiations (registers, spill-store bytes): " + "; ".join(
-        f"{k}: {r}, {b}" for k, (r, b) in sorted(k7_res.items(), key=lambda kv: (int(kv[0][2:4]), kv[0]))),
-        flush=True)
+    for kid, kernel in (("K7", "k7_kernel"), ("K8", "k8_kernel")):
+        res = {k7_name(k, kernel): v for k, v in resources(lib_pair).items() if k7_name(k, kernel)}
+        check(len(res) == 15, f"{kid} instantiations in the build report: {sorted(res)}")
+        print(f"[build] {kid} instantiations (registers, spill-store bytes): " + "; ".join(
+            f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items(), key=lambda kv: (int(kv[0][2:4]), kv[0]))),
+            flush=True)
 
     # -- 3. K1 against its plain version -----------------------------------------
     gen = torch.Generator().manual_seed(20261016)
@@ -505,13 +508,13 @@ def main() -> None:
     pair_cases = (("tanh", KMV_NT, KMV_N, KMV_N, (), KMV_WIDTHS),
                   ("tanh", KMV_NT, 1_999, 1_013, (0, 7, 500, 1_012), KMV_WIDTHS),
                   ("silu", 2, 300, 257, (3,), KMV_WIDTHS), ("softplus", 2, 300, 257, (3,), KMV_WIDTHS))
-    # K7 also at its widest instantiation and on an unequal chain padded to it
+    # K7 and K8 also at their widest instantiation and on an unequal chain padded to it
     k7_cases = (("tanh", 2, 300, 257, (3,), (32,) * 8 + (128,)),
                 ("silu", 2, 300, 257, (3,), (20, 32, 8, 20, 128)))
     pair_err = {kid: 0.0 for kid in kernels}
     for kid, (kernel, plain) in kernels.items():
         rows = []
-        for act, nt_, n_, m_, zeros, widths in pair_cases + (k7_cases if kid == "K7" else ()):
+        for act, nt_, n_, m_, zeros, widths in pair_cases + (k7_cases if kid in ("K7", "K8") else ()):
             mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, widths)
             mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, widths)
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))

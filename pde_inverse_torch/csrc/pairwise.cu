@@ -10,7 +10,8 @@
 // for the cotangents (g_val, g_hess [nt, n], g_dz0 [nt, n, w0]).
 //
 // Two heads:
-// * kSquare (K5 forward, K6 backward) replaces
+// * the square head (K5 forward pw_fwd_kernel, K6 backward pw_bwd_kernel)
+//   replaces
 //   pde_inverse_tpu/ops/pallas/pairwise_kernel.py::_kernel and ::_bwd_kernel:
 //   the layers end with the feature layer and Phi = |z_L|^2;
 // * the collapsed head (K7 forward, K8 backward) replaces
@@ -19,17 +20,15 @@
 //   Phi = g.(M g) + u.g with g = act(z_L) (the constant |b_F|^2 is the
 //   caller's).  M is assumed symmetric, as in the TPU kernel.  The TPU
 //   kernel's lane packing of several refs per 128-lane register is layout
-//   only and is not carried over.  K8 is pw_bwd_kernel<ACT, kCollapsed>: the
-//   wrapper appends M as one more layer with a zero bias, so (M g, M gp,
-//   M gq, M gs) are that layer's streams and its bias slot carries u's
-//   gradient.  K7 is k7_kernel, a design of its own (below).
+//   only and is not carried over.  K7 is k7_kernel and K8 is k8_kernel,
+//   each a design of its own (below).
 //
 // Streams: the forward kernels propagate (z, p = d_v z, q = d_v^2 z), the
 // backward kernels also r = d_g z with r0 = g_dz0[t, i]; the backward is one
 // 4-stream forward pass and one reverse sweep (the TPU kernels' formulation,
 // and K4's in csrc/pointwise.cu).
 //
-// Design of K5, K6 and K8.  A block owns (ref split s, stamp t, block of
+// Design of K5 and K6.  A block owns (ref split s, stamp t, block of
 // kTile points) and walks the refs j of its split in order; a tile is its
 // kTile points against one ref.  Every layer's streams of the tile live in
 // shared memory, feature-major with the points minor (rows of kRow floats),
@@ -57,7 +56,7 @@
 // feature 128) K5 does about 21,000 FMAs a pair (three forward streams and
 // one reverse), 1.2 TFLOP a call, and K6 about three times that; K7/K8 skip
 // the 128-wide layer and do a little over half as much.  The inputs are a
-// few MB.  This design keeps one float4 shared-memory read per four FMAs
+// few MB.  K5/K6's design keeps one float4 shared-memory read per four FMAs
 // and, at width 20, only 160 of a block's 256 threads busy in the products.
 //
 // K7: one thread per point, the refs walked in registers (k7_kernel).  K7's
@@ -114,12 +113,92 @@
 //   + 2 x 400 through M + 7 x 400 in the reverse sweep = 12,000, and 160
 //   tanhf.
 //
+// K8: four lanes a pair, each with every fourth feature of the four streams;
+// the weight gradients summed in the block (k8_kernel).  K8 is the VJP of K7
+// with respect to (W_k, b_k, M, u, ax, av, ar): one forward pass of four
+// streams (z, p, q and r = d_g z with r0 = g_dz0[t, i]) and one reverse sweep
+// that needs every layer's four streams of the pair.  Saved, they are 4 W
+// floats a layer and pair, so an SM's shared memory holds about 80 pairs at
+// once: K7's thread per point does not carry over, and several lanes share a
+// pair.  What bounds the products on this card is not the FMAs but the
+// operands: shared memory returns 128 B a clock and SM, one 4-byte operand a
+// lane, while the SM starts four warp FMAs a clock, so a loaded weight must
+// feed four FMAs of its lane (K7's time is that of its broadcast float4 loads
+// at 4 clocks each).  Hence:
+// * work split: the four lanes of a quad own one pair, lane s the features
+//   4 e + s (e < G = W / 4) of all four streams.  A warp holds 8 pairs and a
+//   block of `threads` lanes threads / 4 consecutive points of one stamp (256
+//   lanes, 64 points, where the shared memory below fits; 192 .. 32
+//   otherwise) against the refs j of its split, one ref at a time.  Blocks
+//   are (ref split, stamp, point block), the splits from k7_splits;
+// * the activation needs no exchange: (z, p, q, r) of a feature sit in one
+//   lane, which computes tanhf once and act', act'', act''' as polynomials of
+//   it, then h = act z | act' p | act'' p^2 + act' q | act' r; the step back
+//   through the activation is as local;
+// * products: the quad writes its activated streams as four rows [stream][W]
+//   of the row set H (scalar stores), and every lane reads them back as
+//   float4s and builds its G outputs of all four streams, out_s[e] += h_s[i]
+//   W_k[i][4 e + s]: one scalar weight load per four FMAs and one float4 of
+//   activations per 4 G.  The reverse products hbar_s[e] = sum_j sbar_s[j]
+//   W_k[4 e + s][j] read W_k's rows as float4s, each used for the four
+//   streams, and the cotangent rows out of the set S that the weight
+//   gradients need anyway.  The same routine gives (M g, M gp, M gq, M gs).
+//   The weights' layout is K7's (zero-padded to W in {8, 16, 20, 24, 32},
+//   loaded once a block).  No block barrier in the forward;
+// * saved streams: a lane keeps its 4 G = W raw values of layer k = 1 ..
+//   L - 1 (tanh(z) in the place of z) in its own row of that layer's row set;
+//   layer 0's are recomputed from ax, av, ar and g_dz0.  A row set holds a
+//   pair's four rows of R = k7_row(W) floats in 4 R + 4 floats, so that the 8
+//   pairs of a warp start 20 banks apart and their scalar accesses hit 32
+//   different banks;
+// * weight gradients are the one reduction over pairs: Wbar_k = sum over the
+//   block's rows (pair, stream) of h_s^T sbar_s, a [W, threads] x [threads, W]
+//   product a layer and ref.  The quads write h_s over their saved rows (set
+//   H for layer 0 and for the head) and sbar_s into one of two sets S, the
+//   block passes one barrier, and every thread sums a 4 x 4 block of Wbar_k
+//   over one of S slices of the pairs (two float4 loads per 16 FMAs; at W =
+//   20, 25 blocks x 8 slices = 200 of 256 threads); the slices are added by
+//   shuffles in a fixed order and one lane adds the block's sum to the
+//   accumulators of the whole chain in shared memory, which it alone owns.
+//   The bias gradients ride along (the sum of the z stream's sbar rows), and
+//   the head is one more such product with rows H = L1 | 2 gh gp | 0 | 0 and
+//   S = g | gp | u's cotangent | 0, giving Mbar and ubar.  A block writes its
+//   accumulators once, at its end, as one row of w_partials, which sum_rows
+//   adds in a fixed order: no atomics, two calls are bitwise equal.  The
+//   product on the tensor cores (mma m16n8k8, 3xTF32) was counted and not
+//   built: splitting each fragment into its big and small parts costs 18
+//   instructions for 3 mma a k-step, as many instructions a warp as the FMA
+//   version, and pre-split rows would double the sets H and S;
+// * barriers a 64-pair tile: one a layer, one for the head and one at the
+//   tile's end (L + 2), with max(L, 1) + 2 row sets: the two sets S
+//   alternate between layers, so a layer's cotangents are written while
+//   other warps still read the layer above;
+// * ax and av cotangents stay in registers over the block's refs; the ref's
+//   row is summed over the warp's 8 pairs by shuffles, over the warps through
+//   shared memory, and each (point block, t, j) writes its ar row exactly once
+//   (zeros for a masked ref, which is otherwise skipped);
+// * shared memory at the KMV main path (W = 20, L = 7, 256 lanes): 26,880 B of
+//   weights and accumulators + 193,536 B of rows + 640 B of ref-row partials =
+//   221,056 B, so one block (8 warps) an SM; with 7 x 32 point blocks on 132
+//   resident blocks the wrapper takes 4 splits (896 blocks, 6.79 waves).
+//   Where the rows would not fit (many layers at width 32) the block shrinks;
+// * f32 throughout with the precise tanhf / expf / log1pf; padding is exact
+//   as for K7, and the wrapper drops the padded entries' gradients; lanes of
+//   points past n run with zero inputs and a zero mask factor, so that they
+//   add exactly 0.0 and the block's barriers and shuffles stay whole.
+//   FMAs a pair at width 20 and L = 7: 4 streams x (7 + 1) x 400 forward,
+//   4 x 7 x 400 in the reverse products, 4 x 7 x 400 + 2 x 400 in the weight
+//   gradients = 36,000, and 160 tanhf.  What bounds it: operations (the
+//   inputs are a few MB), and under them the shared-memory operands: the
+//   weight-gradient product still loads one float per two FMAs.
+//
 // S1, the checks of scripts/diag_packed_onchip.py (replacing its Pallas
 // kernels, which checked the TPU kernels' lane-packing constructs), are the
 // s1_* entry points at the end: single-block kernels built from the very
-// device functions above (pair_rows, forward_product on the collapsed
-// head's M layer, sum_rows), so that they test what K5, K6 and K8 run; of
-// K7's constructs they cover sum_rows only.
+// device functions above (pair_rows, forward_product on an M layer,
+// sum_rows), so that they test what K5 and K6 run; of K7's and K8's
+// constructs they cover sum_rows only (the wrappers s1_packed_sums and
+// s1_packed_sums_bwd run the whole K7 and K8 with one ref split).
 
 #include <cstdint>
 
@@ -136,8 +215,6 @@ constexpr int kMaxMid = 17;        // 16 layers after the first, plus M
 constexpr int kTanh = 0;
 constexpr int kSilu = 1;
 constexpr int kSoftplus = 2;
-constexpr int kSquare = 0;
-constexpr int kCollapsed = 1;
 
 struct Net {
   int n_mid;
@@ -641,29 +718,529 @@ __global__ void __launch_bounds__(kK7MaxThreads)
   }
 }
 
-// f(k7_kernel<W, act>) for the width and activation; other values return
-// cudaErrorInvalidValue
-template <int W, typename F>
-cudaError_t k7_with_act(int act, F&& f) {
+struct K7Kernel {
+  template <int W, int ACT>
+  static constexpr auto get() { return &k7_kernel<W, ACT>; }
+};
+
+// f(K::get<W, act>()) for the width and activation, K being K7Kernel or
+// K8Kernel; other values return cudaErrorInvalidValue
+template <typename K, int W, typename F>
+cudaError_t with_act(int act, F&& f) {
   switch (act) {
-    case kTanh: return f(k7_kernel<W, kTanh>);
-    case kSilu: return f(k7_kernel<W, kSilu>);
-    case kSoftplus: return f(k7_kernel<W, kSoftplus>);
+    case kTanh: return f(K::template get<W, kTanh>());
+    case kSilu: return f(K::template get<W, kSilu>());
+    case kSoftplus: return f(K::template get<W, kSoftplus>());
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename F>
-cudaError_t k7_with_kernel(int width, int act, F&& f) {
+template <typename K, typename F>
+cudaError_t with_kernel(int width, int act, F&& f) {
   switch (width) {
-    case 8: return k7_with_act<8>(act, f);
-    case 16: return k7_with_act<16>(act, f);
-    case 20: return k7_with_act<20>(act, f);
-    case 24: return k7_with_act<24>(act, f);
-    case 32: return k7_with_act<32>(act, f);
+    case 8: return with_act<K, 8>(act, f);
+    case 16: return with_act<K, 16>(act, f);
+    case 20: return with_act<K, 20>(act, f);
+    case 24: return with_act<K, 24>(act, f);
+    case 32: return with_act<K, 32>(act, f);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// -- K8 ------------------------------------------------------------------------
+
+constexpr int kK8MaxThreads = 256;  // lanes per block, at most: 64 pairs x 4 lanes
+
+// row sets of a K8 block: the saved streams of the layers k = 1 .. L - 1, the
+// set H and the two sets S
+__host__ __device__ constexpr int k8_rows(int n_layers) { return (n_layers > 1 ? n_layers : 1) + 2; }
+
+// floats of one pair's four rows in a row set: 4 k7_row(W) + 4, so that the
+// pairs of a warp start 20 banks apart and their scalar accesses do not collide
+__host__ __device__ constexpr int k8_quad(int w) { return 4 * k7_row(w) + 4; }
+
+size_t k8_shared_bytes(int w, int threads, int n_layers) {
+  return sizeof(float) * (2 * static_cast<size_t>(k7_weight_floats(w, n_layers)) +
+                          static_cast<size_t>(k8_rows(n_layers)) * (threads / 4) * k8_quad(w) +
+                          static_cast<size_t>(threads / 32) * w);
+}
+
+// the activation's core: tanh(z) for tanh, of which every derivative is a
+// polynomial, else z itself
+template <int ACT>
+__device__ __forceinline__ float act_core(float z) {
+  if constexpr (ACT == kTanh) {
+    return tanhf(z);
+  } else {
+    return z;
+  }
+}
+
+// (act, act', act'', act''') from the core
+template <int ACT>
+__device__ __forceinline__ void act_of_core(float c, float& a0, float& a1, float& a2, float& a3) {
+  if constexpr (ACT == kTanh) {
+    const float d1 = 1.0f - c * c;
+    a0 = c;
+    a1 = d1;
+    a2 = -2.0f * c * d1;
+    a3 = d1 * (4.0f * c * c - 2.0f * d1);
+  } else {
+    act_d<ACT>(c, a0, a1, a2, a3);
+  }
+}
+
+// A lane's values v[stream][e] of the features 4 e + s into the pair's four
+// rows (qrow: the pair's rows of a row set), and the lane's own row (row s,
+// as G values a stream) to and from registers.
+template <int W>
+__device__ __forceinline__ void k8_to_rows(float* qrow, int s, const float (&v)[4][W / 4]) {
+  constexpr int R = k7_row(W);
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+#pragma unroll
+    for (int e = 0; e < W / 4; ++e) qrow[st * R + 4 * e + s] = v[st][e];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void k8_save(float* own, const float (&v)[4][W / 4]) {
+  constexpr int G = W / 4;
+#pragma unroll
+  for (int f = 0; f < W; f += 4) {
+    st4(own + f, make_float4(v[f / G][f % G], v[(f + 1) / G][(f + 1) % G], v[(f + 2) / G][(f + 2) % G],
+                             v[(f + 3) / G][(f + 3) % G]));
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void k8_restore(const float* own, float (&v)[4][W / 4]) {
+  constexpr int G = W / 4;
+#pragma unroll
+  for (int f = 0; f < W; f += 4) {
+    const float4 x = ld4(own + f);
+    v[f / G][f % G] = x.x;
+    v[(f + 1) / G][(f + 1) % G] = x.y;
+    v[(f + 2) / G][(f + 2) % G] = x.z;
+    v[(f + 3) / G][(f + 3) % G] = x.w;
+  }
+}
+
+// out[stream][e] = sum_i h_stream[i] Wk[i][4 e + s]: the pair's four
+// activated rows read as float4s, each weight used for the four streams
+template <int W>
+__device__ __forceinline__ void k8_product(const float* __restrict__ Wk, const float* qrow, int s,
+                                           float (&out)[4][W / 4]) {
+  constexpr int R = k7_row(W);
+  constexpr int G = W / 4;
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+#pragma unroll
+    for (int e = 0; e < G; ++e) out[st][e] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < W; i += 4) {
+    float h[4][4];
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      const float4 v = ld4(qrow + st * R + i);
+      h[st][0] = v.x;
+      h[st][1] = v.y;
+      h[st][2] = v.z;
+      h[st][3] = v.w;
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        const float w = Wk[(i + ii) * W + 4 * e + s];
+#pragma unroll
+        for (int st = 0; st < 4; ++st) out[st][e] = fmaf(h[st][ii], w, out[st][e]);
+      }
+    }
+  }
+}
+
+// out[stream][e] = sum_j c_stream[j] Wk[4 e + s][j]: the product with W_k^T
+// from W_k's rows, the pair's four cotangent rows read as float4s
+template <int W>
+__device__ __forceinline__ void k8_product_t(const float* __restrict__ Wk, const float* qrow, int s,
+                                             float (&out)[4][W / 4]) {
+  constexpr int R = k7_row(W);
+  constexpr int G = W / 4;
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+#pragma unroll
+    for (int e = 0; e < G; ++e) out[st][e] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < W; j += 4) {
+    float4 c[4];
+#pragma unroll
+    for (int st = 0; st < 4; ++st) c[st] = ld4(qrow + st * R + j);
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      const float4 w = ld4(Wk + (4 * e + s) * W + j);
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        out[st][e] = fmaf(c[st].x, w.x, out[st][e]);
+        out[st][e] = fmaf(c[st].y, w.y, out[st][e]);
+        out[st][e] = fmaf(c[st].z, w.z, out[st][e]);
+        out[st][e] = fmaf(c[st].w, w.w, out[st][e]);
+      }
+    }
+  }
+}
+
+// The activated streams (h, hp, hq, hr) of one feature from its core and
+// raw streams (p, q, r).
+__device__ __forceinline__ void k8_mix(float a0, float a1, float a2, float p, float q, float r,
+                                       float (&h)[4]) {
+  h[0] = a0;
+  h[1] = a1 * p;
+  h[2] = a2 * p * p + a1 * q;
+  h[3] = a1 * r;
+}
+
+// The step back through an activation for one feature: from the cotangents y
+// of the activated streams, the cotangents of the raw streams (z, p, q, r).
+__device__ __forceinline__ void k8_back(float a1, float a2, float a3, float p, float q, float r,
+                                        const float (&y)[4], float (&cot)[4]) {
+  cot[0] = y[0] * a1 + y[1] * (a2 * p) + y[3] * (a2 * r) + y[2] * (a3 * p * p + a2 * q);
+  cot[1] = y[1] * a1 + y[2] * (2.0f * a2 * p);
+  cot[2] = y[2] * a1;
+  cot[3] = y[3] * a1;
+}
+
+// The block's weight gradients of one layer, added to its accumulators gW
+// ([W, W], then the bias's [W]): gW[i][j] += sum over the block's rows (pair,
+// stream) of hset[row][i] sset[row][j], and the bias += the sum of sset over
+// the rows of stream `bias_stream`; only the first n_prod streams have
+// hset rows other than zero.  A thread owns a 4 x 4 block of gW and
+// one of S slices of the pairs (S a power of two, S lanes side by side); the
+// slices are summed by shuffles in a fixed order and lane 0 of the slices
+// adds to the accumulators, which no other thread touches.
+template <int W>
+__device__ __forceinline__ void k8_weight_grads(const float* __restrict__ hset,
+                                                const float* __restrict__ sset, float* gW,
+                                                int bias_stream, int n_prod, int T, int S) {
+  constexpr int R = k7_row(W);
+  constexpr int Q = k8_quad(W);
+  constexpr int NB1 = W / 4;
+  constexpr int NB = NB1 * NB1;
+  const int slice = threadIdx.x & (S - 1);
+  const int groups = T / S;
+  const int P = T / 4;
+  for (int b0 = 0; b0 < NB; b0 += groups) {
+    const int blk = b0 + threadIdx.x / S;
+    const bool active = blk < NB;
+    const int ib = blk / NB1;
+    const int jb = blk - ib * NB1;
+    float acc[4][4], bacc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      bacc[a] = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+    }
+    if (active) {
+#pragma unroll 1
+      for (int st = 0; st < 4; ++st) {
+        const float* hp = hset + st * R + 4 * ib;
+        const float* sp = sset + st * R + 4 * jb;
+        const bool bias = ib == 0 && st == bias_stream;
+        if (st >= n_prod && !bias) continue;
+#pragma unroll 4
+        for (int q = slice; q < P; q += S) {
+          const float4 h4 = ld4(hp + q * Q), c4 = ld4(sp + q * Q);
+          const float h[4] = {h4.x, h4.y, h4.z, h4.w};
+          const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(h[a], c[b], acc[a][b]);
+          }
+          if (bias) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) bacc[b] += c[b];
+          }
+        }
+      }
+    }
+    for (int o = S >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        bacc[a] += __shfl_xor_sync(0xffffffffu, bacc[a], o);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] += __shfl_xor_sync(0xffffffffu, acc[a][b], o);
+      }
+    }
+    if (active && slice == 0) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        float* g = gW + (4 * ib + a) * W + 4 * jb;
+        float4 v = ld4(g);
+        v.x += acc[a][0];
+        v.y += acc[a][1];
+        v.z += acc[a][2];
+        v.w += acc[a][3];
+        st4(g, v);
+      }
+      if (ib == 0) {
+        float* g = gW + W * W + 4 * jb;
+        float4 v = ld4(g);
+        v.x += bacc[0];
+        v.y += bacc[1];
+        v.z += bacc[2];
+        v.w += bacc[3];
+        st4(g, v);
+      }
+    }
+  }
+}
+
+// K8: the VJP of K7 (see the header).  weights: K7's zero-padded buffer;
+// w_partials: one row of the same layout per block; x_partials: [n_split, 2,
+// nt, n, w0]; ar_partials: [ceil(n / (threads / 4)), nt, m, w0].
+template <int W, int ACT>
+__global__ void __launch_bounds__(kK8MaxThreads)
+    k8_kernel(int n_layers, int w0, int nt, int n, int m, int chunk, const float* __restrict__ ax,
+              const float* __restrict__ av, const float* __restrict__ ar,
+              const float* __restrict__ mask, const float* __restrict__ g_val,
+              const float* __restrict__ g_hess, const float* __restrict__ g_dz0,
+              const float* __restrict__ weights, float* __restrict__ w_partials,
+              float* __restrict__ x_partials, float* __restrict__ ar_partials) {
+  extern __shared__ float4 smem4[];
+  constexpr int R = k7_row(W);
+  constexpr int Q = k8_quad(W);
+  constexpr int G = W / 4;       // features per lane: 4 e + s
+  constexpr int LW = W * W + W;  // floats of one layer's weights and bias
+  const int L = n_layers;
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int P = T / 4;  // pairs (points) per block
+  const int n_wf = k7_weight_floats(W, L);
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* gacc = sw + n_wf;
+  float* sets = gacc + n_wf;
+  const int n_sets = k8_rows(L);
+  float* arw = sets + n_sets * P * Q;
+  for (int idx = tid; idx < n_wf / 4; idx += T) {
+    smem4[idx] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
+    smem4[n_wf / 4 + idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const float* sM = sw + L * LW;
+  const float* su = sM + W * W;
+  // row sets: saved layer k at k - 1 (k = 1 .. L - 1), then H, S[0], S[1]
+  float* setH = sets + (n_sets - 3) * P * Q;
+  float* setS = sets + (n_sets - 2) * P * Q;  // S[b] at setS + b P Q
+  int S = 1;  // pair slices of the weight-gradient product
+  while (2 * S <= 32 && 2 * S * (W / 4) * (W / 4) <= T) S *= 2;
+
+  const int lane = tid & 31;
+  const int s = tid & 3;             // this lane's features: 4 e + s
+  const int qoff = (tid >> 2) * Q;   // the pair's rows in a row set
+  const int own = qoff + s * R;      // the lane's own row there
+  const int n_iblk = (n + P - 1) / P;
+  const int iblk = blockIdx.x % n_iblk;
+  const int t = (blockIdx.x / n_iblk) % nt;
+  const int split = blockIdx.x / (n_iblk * nt);
+  const int i = iblk * P + (tid >> 2);
+  const bool valid = i < n;
+  const int j_begin = split * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const size_t ti = static_cast<size_t>(t) * n + (valid ? i : 0);
+  const float* __restrict__ art = ar + static_cast<size_t>(t) * m * w0;
+
+  // the point's layer-0 streams at the lane's features, and its sums
+  float bz[G], bp[G], br[G], sumz[G], sump[G];
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    const int f = 4 * e + s;
+    const bool in = valid && f < w0;
+    bz[e] = in ? __ldg(ax + ti * w0 + f) : 0.0f;
+    bp[e] = in ? __ldg(av + ti * w0 + f) : 0.0f;
+    br[e] = in ? __ldg(g_dz0 + ti * w0 + f) : 0.0f;
+    sumz[e] = sump[e] = 0.0f;
+  }
+  const float gv = valid ? __ldg(g_val + ti) : 0.0f;
+  const float gh = valid ? __ldg(g_hess + ti) : 0.0f;
+  __syncthreads();
+
+#pragma unroll 1
+  for (int j = j_begin; j < j_end; ++j) {
+    const float mk = __ldg(mask + j);
+    float* __restrict__ ar_row = ar_partials + ((static_cast<size_t>(iblk) * nt + t) * m + j) * w0;
+    if (mk == 0.0f) {  // block-uniform: this ref adds nothing
+      if (tid < w0) ar_row[tid] = 0.0f;
+      continue;
+    }
+    const float cm = valid ? mk : 0.0f;
+    const float* __restrict__ arj = art + static_cast<size_t>(j) * w0;
+    float x[4][G];  // the raw streams z, p, q, r
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      x[0][e] = bz[e] - (4 * e + s < w0 ? __ldg(arj + 4 * e + s) : 0.0f);
+      x[1][e] = bp[e];
+      x[2][e] = 0.0f;
+      x[3][e] = br[e];
+    }
+
+    // forward; layer k's raw inputs are saved for k >= 1 (the core for z)
+#pragma unroll 1
+    for (int k = 0; k < L; ++k) {
+      float h[4][G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        x[0][e] = act_core<ACT>(x[0][e]);
+        float a0, a1, a2, a3, he[4];
+        act_of_core<ACT>(x[0][e], a0, a1, a2, a3);
+        k8_mix(a0, a1, a2, x[1][e], x[2][e], x[3][e], he);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) h[st][e] = he[st];
+      }
+      if (k > 0) k8_save<W>(sets + (k - 1) * P * Q + own, x);
+      __syncwarp();  // the pair's lanes have read H for the layer before
+      k8_to_rows<W>(setH + qoff, s, h);
+      __syncwarp();
+      const float* Wk = sw + k * LW;
+      k8_product<W>(Wk, setH + qoff, s, x);
+#pragma unroll
+      for (int e = 0; e < G; ++e) x[0][e] += Wk[W * W + 4 * e + s];
+    }
+
+    // head: g's streams, their products with M, the cotangents of z_L and
+    // the rows of M's and u's gradients (H: L1 | 2 gh gp | 0 | 0, S: g | gp |
+    // u's | 0)
+    float cot[4][G];
+    {
+      float hs[4][G], core[G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        core[e] = act_core<ACT>(x[0][e]);
+        float a0, a1, a2, a3, he[4];
+        act_of_core<ACT>(core[e], a0, a1, a2, a3);
+        k8_mix(a0, a1, a2, x[1][e], x[2][e], x[3][e], he);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) hs[st][e] = he[st];
+      }
+      __syncwarp();
+      k8_to_rows<W>(setH + qoff, s, hs);
+      __syncwarp();
+      float Mh[4][G];
+      k8_product<W>(sM, setH + qoff, s, Mh);
+      float hr[4][G], sr[4][G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        const float two = 2.0f * Mh[0][e] + su[4 * e + s];
+        const float y[4] = {cm * (gv * two + 2.0f * gh * Mh[2][e] + 2.0f * Mh[3][e]),
+                            cm * (4.0f * gh * Mh[1][e]), cm * (gh * two), cm * two};
+        const float A = gv * hs[0][e];
+        const float B = gh * hs[2][e] + hs[3][e];
+        hr[0][e] = cm * (A + 2.0f * B);
+        hr[1][e] = cm * (2.0f * gh * hs[1][e]);
+        hr[2][e] = hr[3][e] = 0.0f;
+        sr[0][e] = hs[0][e];
+        sr[1][e] = hs[1][e];
+        sr[2][e] = cm * (A + B);
+        sr[3][e] = 0.0f;
+        float a0, a1, a2, a3, ce[4];
+        act_of_core<ACT>(core[e], a0, a1, a2, a3);
+        k8_back(a1, a2, a3, x[1][e], x[2][e], x[3][e], y, ce);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) cot[st][e] = ce[st];
+      }
+      float* st_set = setS + (L & 1) * P * Q;
+      __syncwarp();  // the pair's lanes have read H
+      k8_to_rows<W>(setH + qoff, s, hr);
+      k8_to_rows<W>(st_set + qoff, s, sr);
+      __syncthreads();
+      k8_weight_grads<W>(setH, st_set, gacc + L * LW, 2, 2, T, S);
+    }
+
+    // reverse sweep: cot is the cotangent of layer k's outputs
+#pragma unroll 1
+    for (int k = L - 1; k >= 0; --k) {
+      if (k == 0 && L < 2) __syncthreads();  // the head's product still reads H
+      float* sk = setS + (k & 1) * P * Q;
+      k8_to_rows<W>(sk + qoff, s, cot);
+      __syncwarp();
+      float hb[4][G];
+      k8_product_t<W>(sw + k * LW, sk + qoff, s, hb);
+      float* hk = k == 0 ? setH : sets + (k - 1) * P * Q;
+      if (k == 0) {  // layer 0's inputs are not saved
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+          x[0][e] = act_core<ACT>(bz[e] - (4 * e + s < w0 ? __ldg(arj + 4 * e + s) : 0.0f));
+          x[1][e] = bp[e];
+          x[2][e] = 0.0f;
+          x[3][e] = br[e];
+        }
+      } else {
+        k8_restore<W>(hk + own, x);
+      }
+      float h[4][G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        float a0, a1, a2, a3, he[4], ce[4];
+        act_of_core<ACT>(x[0][e], a0, a1, a2, a3);
+        const float y[4] = {hb[0][e], hb[1][e], hb[2][e], hb[3][e]};
+        k8_back(a1, a2, a3, x[1][e], x[2][e], x[3][e], y, ce);
+        k8_mix(a0, a1, a2, x[1][e], x[2][e], x[3][e], he);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+          cot[st][e] = ce[st];
+          h[st][e] = he[st];
+        }
+      }
+      __syncwarp();  // the pair's lanes have read their saved rows
+      k8_to_rows<W>(hk + qoff, s, h);
+      __syncthreads();
+      k8_weight_grads<W>(hk, sk, gacc + k * LW, 0, 4, T, S);
+    }
+
+    // cot is (z0bar | p0bar | q0bar | r0bar): the point's sums, and the ref's
+    // row summed over the block's points
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      sumz[e] += cot[0][e];
+      sump[e] += cot[1][e];
+      float v = cot[0][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) arw[(tid >> 5) * W + 4 * e + s] = v;
+    }
+    __syncthreads();
+    if (tid < w0) {
+      float v = 0.0f;
+      for (int w = 0; w < T / 32; ++w) v += arw[w * W + tid];
+      ar_row[tid] = -v;
+    }
+  }
+
+  // this split's ax and av cotangents, each [nt, n, w0], and the block's row
+  // of weight gradients
+  if (valid) {
+    const size_t tnw = static_cast<size_t>(nt) * n * w0;
+    float* o = x_partials + static_cast<size_t>(split) * 2 * tnw + ti * w0;
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      if (4 * e + s < w0) {
+        o[4 * e + s] = sumz[e];
+        o[tnw + 4 * e + s] = sump[e];
+      }
+    }
+  }
+  __syncthreads();
+  float* __restrict__ part = w_partials + static_cast<size_t>(blockIdx.x) * n_wf;
+  for (int e = tid; e < n_wf; e += T) part[e] = gacc[e];
+}
+
+struct K8Kernel {
+  template <int W, int ACT>
+  static constexpr auto get() { return &k8_kernel<W, ACT>; }
+};
 
 // New cotangents of layer k's inputs for one point, from the products
 // hbar_s = sbar_s W^T and the saved streams (z, p, q, r), written in place.
@@ -681,11 +1258,9 @@ __device__ __forceinline__ void input_cotangents(float hb, float hpb, float hqb,
 }
 
 // Weight gradients of layer k into the block's partial row: Wbar[i][j] +=
-// sum over the first NSW streams s and the points of h_s(i) sbar_s(j), and
-// the bias slot += sum over points of stream `bias_stream`'s cotangent.
-template <int NSW>
-__device__ void weight_grads(const Smem& S, const Net& net, int k, int bias_stream,
-                             float* __restrict__ part) {
+// sum over the four streams s and the points of h_s(i) sbar_s(j), and the
+// bias slot += sum over points of the z stream's cotangent.
+__device__ void weight_grads(const Smem& S, const Net& net, int k, float* __restrict__ part) {
   const int win = net.w[k];
   const int wout = net.w[k + 1];
   float* __restrict__ gW = part + net.p_off[k];
@@ -695,7 +1270,7 @@ __device__ void weight_grads(const Smem& S, const Net& net, int k, int bias_stre
     const int j = item - ig * wout;
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int s = 0; s < NSW; ++s) {
+    for (int s = 0; s < 4; ++s) {
 #pragma unroll
       for (int g = 0; g < kGroups; ++g) {
         const float4 c = ld4(srow(S, net, s, k + 1, j) + g * kGroup);
@@ -717,7 +1292,7 @@ __device__ void weight_grads(const Smem& S, const Net& net, int k, int bias_stre
     }
   }
   for (int j = threadIdx.x; j < wout; j += kThreads) {
-    const float* zb = srow(S, net, bias_stream, k + 1, j);
+    const float* zb = srow(S, net, 0, k + 1, j);
     float s = 0.0f;
     for (int p = 0; p < kTile; ++p) s += zb[p];
     gW[win * wout + j] += s;
@@ -734,7 +1309,7 @@ __device__ void reverse_step(const Smem& S, const Net& net, int k, const float* 
   const int wout = net.w[k + 1];
   activate<4, ACT>(S, net, k);
   __syncthreads();
-  weight_grads<4>(S, net, k, 0, part);
+  weight_grads(S, net, k, part);
   const float* __restrict__ Wt = params_t + net.t_off[k];
   for (int item = threadIdx.x; item < kGroups * win; item += kThreads) {
     const int g = item / win;
@@ -764,14 +1339,15 @@ __device__ void reverse_step(const Smem& S, const Net& net, int k, const float* 
   __syncthreads();
 }
 
-template <int ACT, int HEAD>
+// K6: the square head's VJP.
+template <int ACT>
 __global__ void __launch_bounds__(kThreads)
     pw_bwd_kernel(Net net, int nt, int n, int m, int chunk, const float* __restrict__ ax,
                   const float* __restrict__ av, const float* __restrict__ ar,
                   const float* __restrict__ mask, const float* __restrict__ g_val,
                   const float* __restrict__ g_hess, const float* __restrict__ g_dz0,
                   const float* __restrict__ params, const float* __restrict__ params_t,
-                  const float* __restrict__ u, float* __restrict__ w_partials, int n_params,
+                  float* __restrict__ w_partials, int n_params,
                   float* __restrict__ x_partials, float* __restrict__ ar_partials) {
   extern __shared__ float4 smem4[];
   const Smem S = carve(reinterpret_cast<float*>(smem4), net, 4);
@@ -813,59 +1389,22 @@ __global__ void __launch_bounds__(kThreads)
 
     // head cotangents of S = mk (gv Phi + gh vHv + <g_dz0, dPhi/dz0>), zero
     // past n
-    if constexpr (HEAD == kSquare) {
-      for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
-        const int f = idx / kTile;
-        const int p = idx - f * kTile;
-        const float c = i0 + p < n ? mk : 0.0f;
-        float* zr = srow(S, net, 0, L, f) + p;
-        float* pr = srow(S, net, 1, L, f) + p;
-        float* qr = srow(S, net, 2, L, f) + p;
-        float* rr = srow(S, net, 3, L, f) + p;
-        const float z = *zr, pp = *pr, q = *qr, r = *rr;
-        *zr = c * (2.0f * gv[p] * z + 2.0f * gh[p] * q + 2.0f * r);
-        *pr = c * (4.0f * gh[p] * pp);
-        *qr = c * (2.0f * gh[p] * z);
-        *rr = c * (2.0f * z);
-      }
-      __syncthreads();
-      for (int k = L - 1; k >= 0; --k) reverse_step<ACT>(S, net, k, params_t, part);
-    } else {
-      // g-level cotangents from the M layer's streams (M g, M gp, M gq, M gs),
-      // then through act at z_{L-1}; the M layer's rows become the
-      // cotangents of (M g, M gp) and, in the bias row, u's
-      for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
-        const int f = idx / kTile;
-        const int p = idx - f * kTile;
-        const float c = i0 + p < n ? mk : 0.0f;
-        const float g = trow(S, net, 0, f)[p];
-        const float gp = trow(S, net, 1, f)[p];
-        const float gq = trow(S, net, 2, f)[p];
-        const float gs = trow(S, net, 3, f)[p];
-        float* Zr = srow(S, net, 0, L, f) + p;
-        float* Pr = srow(S, net, 1, L, f) + p;
-        float* Qr = srow(S, net, 2, L, f) + p;
-        float* Rr = srow(S, net, 3, L, f) + p;
-        const float two = 2.0f * *Zr + __ldg(u + f);
-        const float gbar = c * (gv[p] * two + 2.0f * gh[p] * *Qr + 2.0f * *Rr);
-        const float gpbar = c * (4.0f * gh[p] * *Pr);
-        const float gqbar = c * (gh[p] * two);
-        const float gsbar = c * two;
-        *Zr = c * (gv[p] * g + 2.0f * gh[p] * gq + 2.0f * gs);
-        *Pr = c * (2.0f * gh[p] * gp);
-        *Qr = c * (gv[p] * g + gh[p] * gq + gs);
-        *Rr = 0.0f;
-        float* zp = srow(S, net, 0, L - 1, f) + p;
-        float* pp = srow(S, net, 1, L - 1, f) + p;
-        float* qp = srow(S, net, 2, L - 1, f) + p;
-        float* rp = srow(S, net, 3, L - 1, f) + p;
-        input_cotangents<ACT>(gbar, gpbar, gqbar, gsbar, *zp, *pp, *qp, *rp);
-      }
-      __syncthreads();
-      weight_grads<2>(S, net, L - 1, 2, part);
-      __syncthreads();
-      for (int k = L - 2; k >= 0; --k) reverse_step<ACT>(S, net, k, params_t, part);
+    for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
+      const int f = idx / kTile;
+      const int p = idx - f * kTile;
+      const float c = i0 + p < n ? mk : 0.0f;
+      float* zr = srow(S, net, 0, L, f) + p;
+      float* pr = srow(S, net, 1, L, f) + p;
+      float* qr = srow(S, net, 2, L, f) + p;
+      float* rr = srow(S, net, 3, L, f) + p;
+      const float z = *zr, pp = *pr, q = *qr, r = *rr;
+      *zr = c * (2.0f * gv[p] * z + 2.0f * gh[p] * q + 2.0f * r);
+      *pr = c * (4.0f * gh[p] * pp);
+      *qr = c * (2.0f * gh[p] * z);
+      *rr = c * (2.0f * z);
     }
+    __syncthreads();
+    for (int k = L - 1; k >= 0; --k) reverse_step<ACT>(S, net, k, params_t, part);
 
     // layer 0 now holds (z0bar, p0bar, q0bar, r0bar)
     for (int idx = threadIdx.x; idx < w0 * kTile; idx += kThreads) {
@@ -1005,36 +1544,14 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
 }
 
-// run the statements after `head` with `kern` bound to KERNEL<act, head>;
-// an unknown act or head returns cudaErrorInvalidValue
-#define PW_DISPATCH(KERNEL, act, head, ...)                                    \
-  do {                                                                         \
-    if ((head) == kSquare) {                                                   \
-      switch (act) {                                                           \
-        case kTanh: { auto kern = KERNEL<kTanh, kSquare>; __VA_ARGS__; } break;       \
-        case kSilu: { auto kern = KERNEL<kSilu, kSquare>; __VA_ARGS__; } break;       \
-        case kSoftplus: { auto kern = KERNEL<kSoftplus, kSquare>; __VA_ARGS__; } break; \
-        default: return static_cast<int>(cudaErrorInvalidValue);               \
-      }                                                                        \
-    } else if ((head) == kCollapsed) {                                         \
-      switch (act) {                                                           \
-        case kTanh: { auto kern = KERNEL<kTanh, kCollapsed>; __VA_ARGS__; } break;    \
-        case kSilu: { auto kern = KERNEL<kSilu, kCollapsed>; __VA_ARGS__; } break;    \
-        case kSoftplus: { auto kern = KERNEL<kSoftplus, kCollapsed>; __VA_ARGS__; } break; \
-        default: return static_cast<int>(cudaErrorInvalidValue);               \
-      }                                                                        \
-    } else {                                                                   \
-      return static_cast<int>(cudaErrorInvalidValue);                          \
-    }                                                                          \
-  } while (0)
-
-// the same for K5's forward kernel, pw_fwd_kernel<act>
-#define PW_FWD_DISPATCH(act, ...)                                              \
+// run the statements after `act` with `kern` bound to KERNEL<act>; an
+// unknown act returns cudaErrorInvalidValue
+#define PW_DISPATCH(KERNEL, act, ...)                                          \
   do {                                                                         \
     switch (act) {                                                             \
-      case kTanh: { auto kern = pw_fwd_kernel<kTanh>; __VA_ARGS__; } break;    \
-      case kSilu: { auto kern = pw_fwd_kernel<kSilu>; __VA_ARGS__; } break;    \
-      case kSoftplus: { auto kern = pw_fwd_kernel<kSoftplus>; __VA_ARGS__; } break; \
+      case kTanh: { auto kern = KERNEL<kTanh>; __VA_ARGS__; } break;           \
+      case kSilu: { auto kern = KERNEL<kSilu>; __VA_ARGS__; } break;           \
+      case kSoftplus: { auto kern = KERNEL<kSoftplus>; __VA_ARGS__; } break;   \
       default: return static_cast<int>(cudaErrorInvalidValue);                 \
     }                                                                          \
   } while (0)
@@ -1044,27 +1561,24 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
 // Plain C entry points, bound with ctypes.  Each launches on `stream` and
 // returns a CUDA error code (0 on success); validation of shapes, dtypes and
 // devices is the Python wrapper's job.  `widths` is a host array of n_mid + 1
-// ints; params packs [W_k (row-major [w_k, w_{k+1}]), b_k] for every layer
-// (for the collapsed head the last layer is M with a zero bias), params_t
+// ints; params packs [W_k (row-major [w_k, w_{k+1}]), b_k] for every layer, params_t
 // packs W_k^T.  Arrays: ax, av [nt, n, w0], ar [nt, m, w0], mask [m],
-// g_val, g_hess [nt, n], g_dz0 [nt, n, w0], u [w] (collapsed head only).
+// g_val, g_hess [nt, n], g_dz0 [nt, n, w0].
 
-// Resident blocks per SM of K5's forward kernel (bwd = 0, head = kSquare)
-// or of the backward kernel (K6, K8).
-extern "C" int pw_max_blocks(int device, int act, int head, int bwd, int n_mid, const int* widths,
+// Resident blocks per SM of K5's forward kernel (bwd = 0) or of K6's
+// backward kernel.
+extern "C" int pw_max_blocks(int device, int act, int bwd, int n_mid, const int* widths,
                              int* blocks) {
   Net net;
-  if (make_net(n_mid, widths, &net) < 0 || (!bwd && head != kSquare)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (make_net(n_mid, widths, &net) < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bwd) {
     const size_t smem = shared_bytes(net, 4);
-    PW_DISPATCH(pw_bwd_kernel, act, head, err = blocks_per_sm(kern, smem, blocks));
+    PW_DISPATCH(pw_bwd_kernel, act, err = blocks_per_sm(kern, smem, blocks));
   } else {
     const size_t smem = shared_bytes(net, 3);
-    PW_FWD_DISPATCH(act, err = blocks_per_sm(kern, smem, blocks));
+    PW_DISPATCH(pw_fwd_kernel, act, err = blocks_per_sm(kern, smem, blocks));
   }
   return static_cast<int>(err);
 }
@@ -1086,7 +1600,7 @@ extern "C" int pw_sums(int device, int act, int n_mid, const int* widths, int nt
   const int n_iblk = (n + kTile - 1) / kTile;
   const dim3 grid(n_split * nt * n_iblk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PW_FWD_DISPATCH(act, {
+  PW_DISPATCH(pw_fwd_kernel, act, {
     err = allow_shared(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<grid, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, params, params_t,
@@ -1115,7 +1629,7 @@ extern "C" int k7_max_blocks(int device, int act, int width, int threads, int n_
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = k7_shared_bytes(width, threads, n_layers);
-  return static_cast<int>(k7_with_kernel(width, act, [&](auto kern) {
+  return static_cast<int>(with_kernel<K7Kernel>(width, act, [&](auto kern) {
     cudaError_t e = allow_shared(kern, smem);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
@@ -1141,7 +1655,7 @@ extern "C" int k7_sums(int device, int act, int width, int threads, int n_layers
   const int chunk = (m + n_split - 1) / n_split;
   const dim3 grid(n_split * nt * ((n + threads - 1) / threads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = k7_with_kernel(width, act, [&](auto kern) {
+  err = with_kernel<K7Kernel>(width, act, [&](auto kern) {
     cudaError_t e = allow_shared(kern, smem);
     if (e != cudaSuccess) return e;
     kern<<<grid, threads, smem, st>>>(n_layers, w0, nt, n, m, chunk, ax, av, ar, mask, weights,
@@ -1153,16 +1667,81 @@ extern "C" int k7_sums(int device, int act, int width, int threads, int n_layers
       launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
 }
 
-// w_partials: [n_split * nt * n_blk, n_params]; x_partials: [n_split, 2, nt,
-// n, w0]; ar_partials: [n_blk, nt, m, w0] (n_blk = ceil(n / 32)) scratch.
-// grads: [n_params] in the params layout (for the collapsed head the M
-// layer's slot holds the transposed M gradient and its bias slot u's);
-// axv_bar: [2, nt, n, w0] = ax_bar | av_bar; ar_bar: [nt, m, w0].
-extern "C" int pw_sums_bwd(int device, int act, int head, int n_mid, const int* widths, int nt,
+// K8's dynamic shared memory for width w, `threads` lanes a block and
+// n_layers hidden layers (bytes; the wrapper's plan computes the same).
+extern "C" long long k8_shared_bytes_c(int width, int threads, int n_layers) {
+  return static_cast<long long>(k8_shared_bytes(width, threads, n_layers));
+}
+
+static bool k8_valid(int threads, int n_layers) {
+  return threads >= 32 && threads <= kK8MaxThreads && threads % 32 == 0 && n_layers >= 0 &&
+         n_layers <= kMaxMid - 1;
+}
+
+// Resident K8 blocks per SM for the width instantiation, activation,
+// `threads` lanes a block and n_layers hidden layers.
+extern "C" int k8_max_blocks(int device, int act, int width, int threads, int n_layers,
+                             int* blocks) {
+  if (!k8_valid(threads, n_layers)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k8_shared_bytes(width, threads, n_layers);
+  return static_cast<int>(with_kernel<K8Kernel>(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+  }));
+}
+
+// K8: weights as K7's; `threads` lanes a block, threads / 4 points.  Scratch:
+// w_partials [n_split * nt * n_blk, n_w] (n_w the floats of `weights`,
+// n_blk = ceil(n / (threads / 4))), x_partials [n_split, 2, nt, n, w0],
+// ar_partials [n_blk, nt, m, w0].  grads: [n_w] in the layout of `weights`
+// (every W_k, b_k, M and u gradient, zero-padded); axv_bar: [2, nt, n, w0] =
+// ax_bar | av_bar; ar_bar: [nt, m, w0].
+extern "C" int k8_sums_bwd(int device, int act, int width, int threads, int n_layers, int w0, int nt,
+                           int n, int m, int n_split, const float* ax, const float* av,
+                           const float* ar, const float* mask, const float* g_val,
+                           const float* g_hess, const float* g_dz0, const float* weights,
+                           float* w_partials, float* grads, float* x_partials, float* axv_bar,
+                           float* ar_partials, float* ar_bar, void* stream) {
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width ||
+      !k8_valid(threads, n_layers) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k8_shared_bytes(width, threads, n_layers);
+  const int chunk = (m + n_split - 1) / n_split;
+  const int n_iblk = (n + threads / 4 - 1) / (threads / 4);
+  const int blocks = n_split * nt * n_iblk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = with_kernel<K8Kernel>(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<blocks, threads, smem, st>>>(n_layers, w0, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess,
+                                        g_dz0, weights, w_partials, x_partials, ar_partials);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(w_partials, grads, blocks,
+                        static_cast<size_t>(k7_weight_floats(width, n_layers)), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * w0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
+}
+
+// K6.  w_partials: [n_split * nt * n_blk, n_params]; x_partials: [n_split, 2,
+// nt, n, w0]; ar_partials: [n_blk, nt, m, w0] (n_blk = ceil(n / 32)) scratch.
+// grads: [n_params] in the params layout; axv_bar: [2, nt, n, w0] = ax_bar |
+// av_bar; ar_bar: [nt, m, w0].
+extern "C" int pw_sums_bwd(int device, int act, int n_mid, const int* widths, int nt,
                            int n, int m, int n_split, const float* ax, const float* av,
                            const float* ar, const float* mask, const float* g_val,
                            const float* g_hess, const float* g_dz0, const float* params,
-                           const float* params_t, const float* u, float* w_partials, float* grads,
+                           const float* params_t, float* w_partials, float* grads,
                            float* x_partials, float* axv_bar, float* ar_partials, float* ar_bar,
                            void* stream) {
   Net net;
@@ -1177,11 +1756,11 @@ extern "C" int pw_sums_bwd(int device, int act, int head, int n_mid, const int* 
   const int n_iblk = (n + kTile - 1) / kTile;
   const int blocks = n_split * nt * n_iblk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PW_DISPATCH(pw_bwd_kernel, act, head, {
+  PW_DISPATCH(pw_bwd_kernel, act, {
     err = allow_shared(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<blocks, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess, g_dz0,
-                                         params, params_t, u, w_partials, n_params, x_partials,
+                                         params, params_t, w_partials, n_params, x_partials,
                                          ar_partials);
   });
   err = cudaGetLastError();

@@ -28,7 +28,7 @@ S1, the checks of the constructs these kernels run
 (``pde_inverse_torch/scripts/diag_packed_onchip.py``), has its wrappers at the
 end: ``s1_pair_rows``, ``s1_m_layer``, ``sum_rows`` (the fixed-order row sum
 that finishes K5-K8's partial rows; S2's ``sum`` mode too) and
-``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8 with one block per stamp).
+``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8 with the refs unsplit).
 
 For a CUDA tensor each wrapper launches its kernel on the current stream
 and raises if the build or the launch fails; for a CPU tensor it runs its
@@ -53,13 +53,13 @@ Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 ROWS_PER_CHUNK = 1 << 20  # pairs per chunk of the plain versions
 MAX_MID = 16  # layers after the first that the kernels take
 _ACTS = {"tanh": 0, "silu": 1, "softplus": 2}
-_SQUARE, _COLLAPSED = 0, 1
 _TILE = 32  # points per tile, csrc/pairwise.cu kTile
 _ROW = _TILE + 4  # floats per feature row of a tile in shared memory
 _MAX_SHARED_BYTES = 227 * 1024  # a block's opt-in maximum on Hopper
 _WAVES = 4  # aim for this many waves of resident blocks when splitting the refs
 K7_WIDTHS = (8, 16, 20, 24, 32)  # k7_kernel's width instantiations
 K7_THREADS = (128, 64, 32)  # points per K7 block: the most whose shared memory fits
+K8_THREADS = (256, 192, 128, 96, 64, 32)  # lanes per K8 block (4 a point), likewise
 
 
 # -- plain versions ----------------------------------------------------------------
@@ -242,18 +242,21 @@ def _library() -> ctypes.CDLL:
     if lib.pw_sums.argtypes is None:
         vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         lib.pw_sums.argtypes = [ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 9
-        lib.pw_sums_bwd.argtypes = [ci, ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 17
-        lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, ci, pi, pi]
+        lib.pw_sums_bwd.argtypes = [ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 16
+        lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, pi, pi]
         lib.k7_sums.argtypes = [ci] * 10 + [vp] * 8
-        lib.k7_max_blocks.argtypes = [ci] * 5 + [pi]
-        lib.k7_shared_bytes_c.argtypes = [ci] * 3
+        lib.k8_sums_bwd.argtypes = [ci] * 10 + [vp] * 15
+        for fn in (lib.k7_max_blocks, lib.k8_max_blocks):
+            fn.argtypes = [ci] * 5 + [pi]
+        for fn in (lib.k7_shared_bytes_c, lib.k8_shared_bytes_c):
+            fn.argtypes = [ci] * 3
+            fn.restype = ctypes.c_longlong
         lib.s1_pair_rows.argtypes = [ci, ci, ci, ci] + [vp] * 6
         lib.s1_m_layer.argtypes = [ci, ci, ci] + [vp] * 4
         lib.pw_sum_rows.argtypes = [ci, vp, vp, ci, ctypes.c_longlong, vp]
         for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k7_sums, lib.k7_max_blocks,
-                   lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
+                   lib.k8_sums_bwd, lib.k8_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
             fn.restype = ci
-        lib.k7_shared_bytes_c.restype = ctypes.c_longlong
     return lib
 
 
@@ -267,9 +270,9 @@ def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
 
 
 class K7Plan(NamedTuple):
-    """How K7 runs a chain: every layer, M and u zero-padded to `width`
-    (a k7_kernel instantiation), `threads` points a block, `shared_bytes`
-    of dynamic shared memory a block."""
+    """How K7 or K8 runs a chain: every layer, M and u zero-padded to `width`
+    (a k7_kernel / k8_kernel instantiation), `threads` a block (K7: one a
+    point; K8: four), `shared_bytes` of dynamic shared memory a block."""
 
     width: int
     threads: int
@@ -286,21 +289,47 @@ def k7_shared_bytes(width: int, threads: int, n_layers: int) -> int:
     return 4 * (weights + (n_layers + 1) * threads * row)
 
 
+def _plan(name: str, widths: Sequence[int], candidates: Sequence[int], shared_bytes_of) -> K7Plan:
+    n_layers = len(widths) - 2
+    if n_layers < 0 or min(widths) < 1:
+        raise ValueError(f"{name}: widths {list(widths)} are not a chain ending with M's width")
+    width = next((w for w in K7_WIDTHS if w >= max(widths)), None)
+    if width is None:
+        raise ValueError(f"{name} takes widths <= {K7_WIDTHS[-1]}, got {list(widths)}")
+    for threads in candidates:
+        smem = shared_bytes_of(width, threads, n_layers)
+        if smem <= _MAX_SHARED_BYTES:
+            return K7Plan(width, threads, smem)
+    raise ValueError(f"{name}: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+
+
 def k7_plan(widths: Sequence[int]) -> K7Plan:
     """K7's plan for the chain `widths` = [w0, the hidden layers' output
     widths..., M's width]: the least instantiated width that holds every
     one of them, and the most points a block whose shared memory fits."""
-    n_layers = len(widths) - 2
-    if n_layers < 0 or min(widths) < 1:
-        raise ValueError(f"K7: widths {list(widths)} are not a chain ending with M's width")
-    width = next((w for w in K7_WIDTHS if w >= max(widths)), None)
-    if width is None:
-        raise ValueError(f"K7 takes widths <= {K7_WIDTHS[-1]}, got {list(widths)}")
-    for threads in K7_THREADS:
-        smem = k7_shared_bytes(width, threads, n_layers)
-        if smem <= _MAX_SHARED_BYTES:
-            return K7Plan(width, threads, smem)
-    raise ValueError(f"K7: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+    return _plan("K7", widths, K7_THREADS, k7_shared_bytes)
+
+
+def k8_rows(n_layers: int) -> int:
+    """Row sets of a K8 block in shared memory: the saved inputs of the
+    layers 1 .. n_layers - 1, the set H and the two sets S."""
+    return max(n_layers, 1) + 2
+
+
+def k8_shared_bytes(width: int, threads: int, n_layers: int) -> int:
+    """K8's shared memory a block (csrc/pairwise.cu): the padded weights as
+    K7's, as many gradient accumulators, ``k8_rows`` row sets of four rows
+    (width floats, width + 4 where width is a multiple of 8) and 4 floats
+    of padding a pair, and one ref-row partial a warp."""
+    weights = n_layers * (width * width + width) + width * width + width
+    row = width + 4 if width % 8 == 0 else width
+    return 4 * (2 * weights + k8_rows(n_layers) * (threads // 4) * (4 * row + 4) + threads // 32 * width)
+
+
+def k8_plan(widths: Sequence[int]) -> K7Plan:
+    """K8's plan for the chain `widths` (as ``k7_plan``): K7's width, and
+    the most lanes a block (four a point) whose shared memory fits."""
+    return _plan("K8", widths, K8_THREADS, k8_shared_bytes)
 
 
 def k7_splits(nt: int, n: int, m: int, threads: int, resident: int) -> int:
@@ -330,6 +359,18 @@ def pad_collapsed(mids_m: Layers, M, u, width: int):
         views.append(view)
         off += width ** t.ndim
     return flat, list(zip(views[:-2:2], views[1:-2:2])), views[-2], views[-1]
+
+
+def unpad_collapsed(flat, mids_m: Layers, M, width: int):
+    """The gradients of the unpadded chain out of a flat buffer in the
+    layout of ``pad_collapsed`` at `width`: ([(Wbar, bbar)], M_bar, u_bar),
+    the padded entries dropped."""
+    out, off = [], 0
+    for t in [x for W, b in mids_m for x in (W, b)] + [M, M[0]]:
+        view = flat[off: off + width ** t.ndim].view((width,) * t.ndim)
+        out.append(view[tuple(slice(0, k) for k in t.shape)])
+        off += width ** t.ndim
+    return list(zip(out[:-2:2], out[1:-2:2])), out[-2], out[-1]
 
 
 def _raise(err: int, name: str) -> None:
@@ -368,7 +409,7 @@ class _Launch:
                 and -(-self.n // _TILE) * self.nt * self.m * w0 < 2**31):
             raise ValueError(f"{name}: sizes nt={self.nt}, n={self.n}, m={self.m} out of range")
         self.name, self.layers, self.widths, self.dev = name, layers, widths, dev
-        self.act, self.head = _ACTS[act_name], _SQUARE if head is None else _COLLAPSED
+        self.act = _ACTS[act_name]
         self.device = dev.index if dev.index is not None else torch.cuda.current_device()
         self.c_widths = (ctypes.c_int * len(widths))(*widths)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
@@ -386,7 +427,7 @@ class _Launch:
             raise ValueError(f"{self.name}: widths {self.widths} need {smem} B of shared memory "
                              f"per block, more than {_MAX_SHARED_BYTES}")
         per_sm = ctypes.c_int(0)
-        _raise(lib.pw_max_blocks(self.device, self.act, self.head, int(bwd), len(self.widths) - 1,
+        _raise(lib.pw_max_blocks(self.device, self.act, int(bwd), len(self.widths) - 1,
                                  self.c_widths, ctypes.byref(per_sm)), f"{self.name} occupancy query")
         resident = self.resident(per_sm.value)
         base = self.nt * -(-self.n // _TILE)
@@ -464,17 +505,20 @@ def _k7_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, n_split=None) -> 
     return _sums_out(L, out)
 
 
-def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, u=None, head=None,
-                n_split=None):
-    extra = (g_val, g_hess, g_dz0) + (() if u is None else (u,))
-    L = _Launch(name, layers, act_name, ax, av, ar, mask, extra, head)
+def _check_cotangents(L: _Launch, ax, g_val, g_hess, g_dz0) -> None:
     if tuple(g_val.shape) != (L.nt, L.n) or tuple(g_hess.shape) != (L.nt, L.n) \
             or tuple(g_dz0.shape) != tuple(ax.shape):
-        raise ValueError(f"{name}: cotangents must be [{L.nt}, {L.n}] and {tuple(ax.shape)}")
+        raise ValueError(f"{L.name}: cotangents must be [{L.nt}, {L.n}] and {tuple(ax.shape)}")
+
+
+def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
+    """K6."""
+    L = _Launch(name, layers, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
+    _check_cotangents(L, ax, g_val, g_hess, g_dz0)
     ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
     g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
     lib = _library()
-    n_split = L.splits(lib, bwd=True) if n_split is None else n_split
+    n_split = L.splits(lib, bwd=True)
     w0 = L.widths[0]
     n_blk = -(-L.n // _TILE)
     params, params_t = L.params()
@@ -486,10 +530,10 @@ def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, 
     ar_partials = L.empty(n_blk, L.nt * L.m * w0)
     ar_bar = L.empty(L.nt, L.m, w0)
     _raise(lib.pw_sums_bwd(
-        L.device, L.act, L.head, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
+        L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
         g_hess.data_ptr(), g_dz0.data_ptr(), params.data_ptr(), params_t.data_ptr(),
-        None if u is None else u.data_ptr(), w_partials.data_ptr(), grads.data_ptr(),
+        w_partials.data_ptr(), grads.data_ptr(),
         x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr(),
         L.stream,
     ), name)
@@ -544,17 +588,42 @@ def mlp_pairwise_sums_packed(mids_m: Layers, M, u, act_name: str, ax, av, ar, ma
     return out
 
 
-def _packed_bwd_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0,
-                       n_split=None):
+def _k8_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, n_split=None):
+    """K8: the chain padded to its plan's width, the refs split by
+    ``k7_splits`` over the plan's points a block unless `n_split` is given;
+    the gradients of the padded entries are dropped."""
     if tuple(u.shape) != (M.shape[0],):
         raise ValueError(f"{name}: u must be [{M.shape[0]}], got {tuple(u.shape)}")
-    grads, ax_bar, av_bar, ar_bar = _bwd_launch(
-        name, _with_m_layer(mids_m, M), act_name, ax, av, ar, mask, g_val, g_hess, g_dz0,
-        u=u.contiguous(), head=(M, u), n_split=n_split)
-    # the kernel accumulates the M layer's weight gradient transposed and
-    # u's gradient in that layer's bias slot
-    Mt_bar, u_bar = grads[-1]
-    return grads[:-1], Mt_bar.t(), u_bar, ax_bar, av_bar, ar_bar
+    L = _Launch(name, _with_m_layer(mids_m, M), act_name, ax, av, ar, mask, (u, g_val, g_hess, g_dz0),
+                head=(M, u))
+    _check_cotangents(L, ax, g_val, g_hess, g_dz0)
+    plan = k8_plan(L.widths)
+    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
+    g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
+    lib = _library()
+    n_layers, points = len(mids_m), plan.threads // 4
+    if n_split is None:
+        per_sm = ctypes.c_int(0)
+        _raise(lib.k8_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers,
+                                 ctypes.byref(per_sm)), f"{name} occupancy query")
+        n_split = k7_splits(L.nt, L.n, L.m, points, L.resident(per_sm.value))
+    weights = pad_collapsed(mids_m, M, u, plan.width)[0]
+    w0 = L.widths[0]
+    n_blk = -(-L.n // points)
+    w_partials = L.empty(n_split * L.nt * n_blk, weights.numel())
+    grads = L.empty(weights.numel())
+    x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
+    axv_bar = L.empty(2, L.nt, L.n, w0)
+    ar_partials = L.empty(n_blk, L.nt * L.m * w0)
+    ar_bar = L.empty(L.nt, L.m, w0)
+    _raise(lib.k8_sums_bwd(
+        L.device, L.act, plan.width, plan.threads, n_layers, w0, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
+        g_hess.data_ptr(), g_dz0.data_ptr(), weights.data_ptr(), w_partials.data_ptr(),
+        grads.data_ptr(), x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(),
+        ar_bar.data_ptr(), L.stream,
+    ), name)
+    return (*unpad_collapsed(grads, mids_m, M, plan.width), axv_bar[0], axv_bar[1], ar_bar)
 
 
 def mlp_pairwise_sums_packed_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask,
@@ -565,12 +634,12 @@ def mlp_pairwise_sums_packed_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar
     if not _on_cuda("K8", ax):
         return mlp_pairwise_sums_packed_bwd_plain(mids_m, M, u, act_name, ax, av, ar, mask,
                                                   g_val, g_hess, g_dz0)
-    out = _packed_bwd_launch("K8", mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
+    out = _k8_launch("K8", mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
     mlp_pairwise_sums_packed_bwd.launches += 1
     return out
 
 
-# -- S1: single-block checks of the constructs K5-K8 run ----------------------------
+# -- S1: single-block checks of the constructs K5/K6 run; K7/K8 unsplit --------------
 
 
 def s1_pair_rows_plain(ax, av, ar):
@@ -592,7 +661,7 @@ def _checked(name: str, *tensors: torch.Tensor):
 
 def s1_pair_rows(ax, av, ar):
     """S1's pair rows of n <= 32 points ax, av [n, w0] against refs ar
-    [m, w0] in one block, through K5-K8's ``pair_rows``: (z, dz) [m, n, w0].
+    [m, w0] in one block, through K5/K6's ``pair_rows``: (z, dz) [m, n, w0].
     CPU tensors: ``s1_pair_rows_plain``."""
     if not _on_cuda("S1", ax):
         return s1_pair_rows_plain(ax, av, ar)
@@ -615,7 +684,7 @@ def s1_m_layer_plain(g3, M):
 
 def s1_m_layer(g3, M):
     """S1's M layer on (g, gp, gq) [3, n <= 32, w] in one block, through
-    K7/K8's ``forward_product`` with M's zero bias: [3, n, w].  CPU tensors:
+    K5/K6's ``forward_product`` with M's zero bias: [3, n, w].  CPU tensors:
     ``s1_m_layer_plain``."""
     if not _on_cuda("S1", g3):
         return s1_m_layer_plain(g3, M)
@@ -668,13 +737,12 @@ def s1_packed_sums(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask):
 
 
 def s1_packed_sums_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K8 with one block per stamp: S1's full-kernel check of the VJP.  CPU
-    tensors: ``mlp_pairwise_sums_packed_bwd_plain``."""
+    """K8 with the refs unsplit (one split): S1's full-kernel check of the
+    VJP.  CPU tensors: ``mlp_pairwise_sums_packed_bwd_plain``."""
     if not _on_cuda("S1", ax):
         return mlp_pairwise_sums_packed_bwd_plain(mids_m, M, u, act_name, ax, av, ar, mask,
                                                   g_val, g_hess, g_dz0)
-    out = _packed_bwd_launch("S1 K8", mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0,
-                             n_split=1)
+    out = _k8_launch("S1 K8", mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, n_split=1)
     s1_packed_sums_bwd.launches += 1
     return out
 

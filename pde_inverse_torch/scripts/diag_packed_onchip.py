@@ -2,21 +2,22 @@
 (counterpart of scripts/diag_packed_onchip.py).
 
 The JAX script checked, one single-cell Pallas kernel each, the TPU lane
-packing of the packed pairwise kernels K7/K8.  The port's K7/K8 have no
-lane packing: a block walks its refs one 32-pair tile at a time with every
-layer's streams in shared memory.  So this script checks the constructs
-they do have, each in a single-block kernel built from the very device
-functions of ``csrc/pairwise.cu``, against numpy float64 (tolerance 1e-5,
-relative to the largest value):
+packing of the packed pairwise kernels K7/K8.  The port's kernels have no
+lane packing.  So this script checks the constructs they do have: steps 1
+to 4 in single-block kernels built from the very device functions of K5
+and K6 in ``csrc/pairwise.cu`` (a block walks its refs one 32-pair tile at
+a time with every layer's streams in shared memory; of K7's and K8's
+constructs they cover the row sum), step 5 K7 and K8 whole; all against
+numpy float64 (tolerance 1e-5, relative to the largest value):
 
   1. pair rows: z = ax_i - ar_j and dz = av_i (``pair_rows``);
   2. the ref mask: a masked ref adds exactly 0.0 (on the card the masked
      sums equal, bit for bit, the sums over the unmasked refs alone);
-  3. the collapsed head's M layer: M g for the tile's three streams
-     (``forward_product`` with M = W_F W_F^T and a zero bias);
+  3. an M layer: M g for the tile's three streams (K5/K6's
+     ``forward_product`` with M = W_F W_F^T and a zero bias);
   4. the fixed-order row sum that finishes the kernels' partial rows
      (``sum_rows``);
-  5. K7 and K8 with one block per stamp (nt=2) against their plain versions
+  5. K7 and K8 with the refs unsplit (nt=2) against their plain versions
      (tolerance 1e-4), with tanh: the JAX script used gelu, which neither
      package's derivative tables cover, so its steps 6/7 raise before they
      compare anything; tanh is the KMV MLP's activation.
@@ -134,7 +135,7 @@ def run(device=None) -> dict:
     check("fixed-order row sum", rows, part.astype(np.float64).sum(0))
     vs_plain([rows], [pw.sum_rows_plain(to(part))])
 
-    # 5. K7 and K8, one block per stamp, against their plain versions
+    # 5. K7 and K8, the refs unsplit, against their plain versions
     args = (tm, to(M), to(u), "tanh", to(axs), to(avs), to(ars), to(mask))
     fwd = _flat(pw.s1_packed_sums(*args))
     fwd_plain = _flat(pw.mlp_pairwise_sums_packed_plain(*args))

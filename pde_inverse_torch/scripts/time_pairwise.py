@@ -1,11 +1,13 @@
-"""Time the collapsed-head pairwise kernels K7 and K8 on the card at the KMV
-MLP configuration's full width with CUDA events, and print one JSON line.
+"""Time the pairwise kernels on the card at the KMV MLP configuration's full
+width with CUDA events, and print one JSON line: the collapsed-head K7 and
+K8 by default, the square-head K5 and K6 on request.
 
 Shape: 7 stamps x 2,000 points x 2,000 refs (28 million pairs), the
 PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
-(hidden 20 x 7 layers, M = W_F W_F^T, u = 2 W_F b_F), inputs from a seed.
-Only ``csrc/pairwise.cu`` is built, so a call takes seconds, not the
-minutes of the whole build.
+(K7/K8: hidden 20 x 7 layers, M = W_F W_F^T, u = 2 W_F b_F; K5/K6: the
+layers with the feature layer last), inputs from a seed.  Only
+``csrc/pairwise.cu`` is built (about a minute: 15 instantiations each of
+K7 and K8), not the minutes of the whole build.
 
     python -m pde_inverse_torch.scripts.time_pairwise [--reps 5] [--kernels K7 K8]
 
@@ -32,7 +34,7 @@ NT, N, WIDTHS = 7, 2_000, (20,) * 8 + (128,)
 
 
 def _inputs(dev, seed: int = 10):
-    """(mids_m, M, u, ax, av, ar, mask, cotangents) at the full width."""
+    """(mids, mids_m, M, u, ax, av, ar, mask, cotangents) at the full width."""
     gen = torch.Generator().manual_seed(seed)
     mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
             for a, b in zip(WIDTHS, WIDTHS[1:])]
@@ -42,14 +44,15 @@ def _inputs(dev, seed: int = 10):
            torch.randn((NT, N, w0), generator=gen)]
     WF, bF = mids[-1]
     to = lambda t: t.to(dev)
-    return ([(to(W), to(b)) for W, b in mids[:-1]], to(WF @ WF.T), to(2.0 * (WF @ bF)),
+    mids = [(to(W), to(b)) for W, b in mids]
+    return (mids, mids[:-1], to(WF @ WF.T), to(2.0 * (WF @ bF)),
             to(ax), to(av), to(ar), to(torch.ones(N)), [to(c) for c in cot])
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K7", "K8"])
+    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K5", "K6", "K7", "K8"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_pairwise: needs a CUDA device")
@@ -58,8 +61,10 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    mids_m, M, u, ax, av, ar, mask, cot = _inputs(dev)
-    calls = {"K7": lambda: pw.mlp_pairwise_sums_packed(mids_m, M, u, "tanh", ax, av, ar, mask),
+    mids, mids_m, M, u, ax, av, ar, mask, cot = _inputs(dev)
+    calls = {"K5": lambda: pw.mlp_pairwise_sums(mids, "tanh", ax, av, ar, mask),
+             "K6": lambda: pw.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot),
+             "K7": lambda: pw.mlp_pairwise_sums_packed(mids_m, M, u, "tanh", ax, av, ar, mask),
              "K8": lambda: pw.mlp_pairwise_sums_packed_bwd(mids_m, M, u, "tanh", ax, av, ar, mask, *cot)}
     times = {}
     for kid in args.kernels:

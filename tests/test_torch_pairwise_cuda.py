@@ -1,6 +1,6 @@
 """K5-K8, the CUDA pairwise kernels, against their plain PyTorch versions on
-the card, with ragged n and m and masks, and K7 at each of its width
-instantiations and paddings.  The gates repeat ``chip_smoke.py``'s.
+the card, with ragged n and m and masks, and K7 and K8 at each of their
+width instantiations and paddings.  The gates repeat ``chip_smoke.py``'s.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -165,6 +165,52 @@ def test_k7_plan_matches_the_kernel(cuda):
     assert lib.k7_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
                              ctypes.byref(per_sm)) == 0
     assert per_sm.value >= 2
+
+
+# K8's width instantiations and padding, as K7_CASES: n = 300 and 129 are not
+# multiples of a block's 64 points (at these depths); the other cases as above,
+# and one hidden layer, where the head's and layer 0's rows share a row set.
+K8_CASES = K7_CASES + [((20, 20, 48), 2, 70, 33, (1,))]
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("widths,nt,n,m,zero_refs", K8_CASES)
+def test_k8_widths_and_padding_match_the_f64_plain_version(cuda, act, widths, nt, n, m, zero_refs):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs)
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs,
+                                                      dtype=torch.float64)
+    args, args64 = _collapse(mids), _collapse(mids64)
+    kernel = pk.mlp_pairwise_sums_packed_bwd(*args, act, ax, av, ar, mask, *cot)
+    assert all(g.shape == t.shape for pair, layer in zip(kernel[0], args[0]) for g, t in zip(pair, layer))
+    _gate(kernel, pk.mlp_pairwise_sums_packed_bwd_plain(*args, act, ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_packed_bwd_plain(*args64, act, ax64, av64, ar64, mask64, *cot64))
+
+
+def test_k8_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's, and the main
+    path's plan (256 lanes, 64 points a block) fits on an SM."""
+    lib = pk._library()
+    for width in pk.K7_WIDTHS:
+        for threads, n_layers in ((256, 7), (128, 7), (64, 16), (32, 16), (96, 1), (192, 0)):
+            assert lib.k8_shared_bytes_c(width, threads, n_layers) == \
+                pk.k8_shared_bytes(width, threads, n_layers)
+    plan = pk.k8_plan([20] * 9)
+    per_sm = ctypes.c_int(0)
+    assert lib.k8_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
+                             ctypes.byref(per_sm)) == 0
+    assert per_sm.value >= 1
+
+
+def test_s1_packed_sums_bwd_runs_k8_with_one_split(cuda):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, FULL, 2, 70, 33, zero_refs=(4,))
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, FULL, 2, 70, 33, zero_refs=(4,),
+                                                      dtype=torch.float64)
+    args, args64 = _collapse(mids), _collapse(mids64)
+    before = pk.s1_packed_sums_bwd.launches
+    out = pk.s1_packed_sums_bwd(*args, "tanh", ax, av, ar, mask, *cot)
+    assert pk.s1_packed_sums_bwd.launches == before + 1
+    _gate(out, pk.mlp_pairwise_sums_packed_bwd_plain(*args, "tanh", ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_packed_bwd_plain(*args64, "tanh", ax64, av64, ar64, mask64, *cot64))
 
 
 def test_masked_refs_add_exactly_zero(cuda):

@@ -1,13 +1,15 @@
-"""K7's plan (``pde_inverse_torch.ops.cuda.pairwise``) on the CPU: the width
-instantiation, the points a block, the shared memory and the ref splits
-that the kernel's header comment (``csrc/pairwise.cu``) states, and the
-zero-padding of the hidden layers, M and u to each instantiated width,
-which must leave the collapsed-head sums unchanged.
+"""K7's and K8's plans (``pde_inverse_torch.ops.cuda.pairwise``) on the CPU:
+the width instantiation, the points a block, the shared memory and the ref
+splits that the kernels' header comment (``csrc/pairwise.cu``) states, and
+the zero-padding of the hidden layers, M and u to each instantiated width,
+which must leave the collapsed-head sums and their VJP unchanged.
 
 The padding is held against the JAX package's independent collapsed-head
 composition (tests/test_pallas_packed.py::_jnp_packed_composition) on the
-unpadded layers, with the tolerance tests/test_torch_pairwise.py uses for
-the sums (rtol 2e-4 / atol 1e-4, the JAX package's gate).
+unpadded layers, with the tolerances tests/test_torch_pairwise.py uses: for
+the sums rtol 2e-4 / atol 1e-4 (the JAX package's gate), for the VJP 3e-4
+of each gradient's max-abs against ``jax.vjp`` (both sides are float32
+sums in different orders).
 """
 
 import re
@@ -27,6 +29,7 @@ from tests.test_pallas_pairwise import _kernel_inputs, _setup
 torch.set_num_threads(1)
 
 SUM_RTOL, SUM_ATOL = 2e-4, 1e-4
+GRAD_REL = 3e-4
 T = lambda a: torch.from_numpy(np.array(a, np.float32))
 # the kernel's source with its comment lines joined
 HEADER = re.sub(r"\s*\n//\s*", " ", (Path(pk.__file__).resolve().parents[2] / "csrc" / "pairwise.cu").read_text())
@@ -118,3 +121,98 @@ def test_splits_round_the_grid_to_whole_waves(nt, n, m, resident, want):
     blocks = nt * -(-n // 128)
     cost = lambda s: -(-s * blocks // resident) * -(-m // s)
     assert all(cost(splits) <= cost(s) for s in range(1, min(m, -(-8 * resident // blocks)) + 1))
+
+
+# -- K8 ------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_layers", [0, 7, 16])
+@pytest.mark.parametrize("width", pk.K7_WIDTHS)
+def test_k8_plan_fits_shared_memory(width, n_layers):
+    """K8's plan at every width instantiation and depth: K7's width, the
+    most lanes a block (of K8_THREADS) whose shared memory fits 227 KB: the
+    weights twice (values and gradient accumulators), max(L, 1) + 2 row sets
+    of 4 rows + 4 floats a pair and one ref-row partial a warp."""
+    plan = pk.k8_plan([width] * (n_layers + 2))
+    assert plan.width == width and plan.threads in pk.K8_THREADS and plan.threads % 32 == 0
+    row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
+    weights = n_layers * (width * width + width) + width * width + width
+    want = 4 * (2 * weights + (max(n_layers, 1) + 2) * (plan.threads // 4) * (4 * row + 4)
+                + plan.threads // 32 * width)
+    assert plan.shared_bytes == want == pk.k8_shared_bytes(width, plan.threads, n_layers)
+    assert plan.shared_bytes <= 227 * 1024
+    larger = [t for t in pk.K8_THREADS if t > plan.threads]
+    assert all(pk.k8_shared_bytes(width, t, n_layers) > 227 * 1024 for t in larger)
+
+
+def test_k8_plan_and_splits_are_the_header_comments():
+    """The KMV main path (w0 = 20, seven 20 x 20 layers, M [20, 20]): 256
+    lanes (64 points) a block and 221,056 B (26,880 of weights and
+    accumulators, 193,536 of rows, 640 of ref-row partials), one block an
+    SM, and 4 ref splits for 132 resident blocks on 7 x 32 point blocks."""
+    plan = pk.k8_plan([20] * 9)
+    assert plan == pk.K7Plan(20, 256, 221_056)
+    assert 2 * 4 * (7 * 420 + 420) == 26_880 and 4 * 9 * 64 * 84 == 193_536 and 4 * 8 * 20 == 640
+    assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
+    assert pk.k7_splits(7, 2_000, 2_000, plan.threads // 4, 132) == 4
+    assert pk.k8_rows(7) == 9 and pk.k8_rows(1) == 3 and pk.k8_rows(0) == 3
+    for text in ("26,880 B of weights and accumulators + 193,536 B of rows + 640 B of ref-row partials = "
+                 "221,056 B", "4 splits", "(896 blocks, 6.79 waves)", "max(L, 1) + 2 row sets",
+                 "4 R + 4 floats"):
+        assert text in HEADER, text
+
+
+def test_k8_plan_shrinks_the_block_and_refuses_widths_past_32():
+    """16 layers at width 32 leave room for 32 lanes (8 points) a block."""
+    plan = pk.k8_plan([32] * 18)
+    assert plan == pk.K7Plan(32, 32, pk.k8_shared_bytes(32, 32, 16))
+    assert pk.k8_shared_bytes(32, 64, 16) > 227 * 1024 >= plan.shared_bytes
+    with pytest.raises(ValueError, match="widths <= 32"):
+        pk.k8_plan([20, 33, 20])
+    with pytest.raises(ValueError, match="chain"):
+        pk.k8_plan([20])
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("hidden,width", [((16, 16), 16), ((16, 16), 24), ((8, 8, 8), 20),
+                                          ((20, 32, 8, 20), 32)])
+def test_zero_padding_leaves_the_vjp_unchanged(act, hidden, width):
+    """The plain K8 version on the chain padded to `width` gives, after the
+    wrapper's slicing (``unpad_collapsed``), ``jax.vjp`` of the JAX
+    composition on the unpadded chain, within GRAD_REL of each gradient's
+    max-abs; the padded entries' gradients of ax, av and ar are exactly 0."""
+    net, params, x, v, refs = _setup(jax.random.PRNGKey(11), n=9, m=7, act=act, hidden=hidden)
+    mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
+    mids_m, M, u, _ = _collapse(mids)
+    M = 0.5 * (M + M.T)
+    mask = jnp.asarray([1, 0, 1, 1, 1, 0, 1], jnp.float32)
+    f = lambda mm, M_, u_, ax_, av_, ar_: _jnp_packed_composition(_ACTIVATIONS[act], mm, M_, u_, ax_, av_,
+                                                                  ar_, mask)
+    rs = np.random.default_rng(17)
+    w0 = ax.shape[-1]
+    g = [rs.normal(size=s).astype(np.float32) for s in (ax.shape[:2], ax.shape[:2], ax.shape)]
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(f, mids_m, M, u, ax, av, ar)
+        want_mids, want_M, want_u, *want_x = vjp({"value": jnp.asarray(g[0]), "hess": jnp.asarray(g[1]),
+                                                  "s_dz0": jnp.asarray(g[2])})
+    unpadded = [(T(W), T(b)) for W, b in mids_m]
+    _, layers, Mp, up = pk.pad_collapsed(unpadded, T(M), T(u), width)
+    pad = lambda a: torch.nn.functional.pad(T(a), (0, width - w0))
+    got_mids, got_M, got_u, *got_x = pk.mlp_pairwise_sums_packed_bwd_plain(
+        layers, Mp, up, act, pad(ax), pad(av), pad(ar), T(mask), T(g[0]), T(g[1]), pad(g[2]))
+    flat = torch.cat([t.reshape(-1) for pair in got_mids for t in pair] + [got_M.reshape(-1), got_u])
+    got_mids, got_M, got_u = pk.unpad_collapsed(flat, unpadded, T(M), width)
+
+    def close(got, want, what):
+        got, want = got.numpy(), np.asarray(want)
+        assert got.shape == want.shape, what
+        assert np.abs(got - want).max() <= GRAD_REL * max(np.abs(want).max(), 1e-30), what
+
+    close(got_M + got_M.T, want_M + want_M.T, "M")
+    close(got_u, want_u, "u")
+    for (gw, gb), (ww, wb) in zip(got_mids, want_mids):
+        close(gw, ww, "W")
+        close(gb, wb, "b")
+    for got, want, what in zip(got_x, want_x, ("ax", "av", "ar")):
+        close(got[..., :w0], want, what)
+        assert not bool(got[..., w0:].any()), what
