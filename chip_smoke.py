@@ -11,7 +11,7 @@ Phases, each printing its own line:
 2. build: compiles K1/K2 (``pde_inverse_torch/csrc/langevin.cu``), K3/K4
    (``csrc/pointwise.cu``), K5-K8 and S1 (``csrc/pairwise.cu``) and S2/S3
    (``csrc/mma_tf32.cu``) with nvcc, one process per source, together, and
-   prints registers, the Langevin kernels that spill and every K7 and K8
+   prints registers, the Langevin kernels that spill and every K4, K7 and K8
    instantiation's registers and spill;
 3. K1 and K2 (pack=2) against their plain PyTorch version on the card, at
    the KGMM main path's shapes (d=4; GMM with k=3 and a Quadratic
@@ -21,8 +21,9 @@ Phases, each printing its own line:
    and both antithetic signs, and K2's OU law;
 4. K3 and K4 against their plain versions, both held against a float64
    run of the plain version, at the non-parametric main path's shape
-   (250,000 path points, layers 64->64->256, tanh), a ragged n, and silu
-   and softplus; K4's outputs bitwise equal on two calls;
+   (250,000 path points, layers 64->64->256, tanh), a ragged n, silu and
+   softplus, and at the offline preset's shape (320,000 points, layers
+   32->32->128) with a ragged n; K4's outputs bitwise equal on two calls;
    K5-K8 against their plain versions, held the same way, at the KMV main
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
@@ -49,8 +50,9 @@ Phases, each printing its own line:
 6. the diagnostics S1-S3 (``pde_inverse_torch/scripts/``), each with its
    counts read the same way;
 7. timing of every kernel against its plain version with CUDA events, K2
-   against K1 at the offline shapes, and S1-S3 beside one PyTorch call
-   that computes the same function.
+   against K1 at the offline shapes, K3 and K4 also at the XL and offline
+   steps' shapes, and S1-S3 beside one PyTorch call that computes the same
+   function.
 
 The line before the last is a JSON object describing each kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -120,6 +122,12 @@ N_PATH, N_TERMINAL = 2_500, 75_000
 # KGMM-nonparametric-online: 2,500 trajectories x 200 steps at stride 2; the
 # PotentialMLP's first layer is 4 + 2 x 64 -> 64, then 64 -> 64 -> 256
 N_POINTS, WIDTHS = 250_000, (64, 64, 256)
+# the other presets that run K3/K4: KGMM-nonparametric (320,000 path points a
+# step, layers 32 -> 32 -> 128) and KGMM-nonparametric-offline-XL (655,360
+# points a step at the full width)
+N_POINTS_OFFLINE, WIDTHS_OFFLINE = 320_000, (32, 32, 128)
+N_POINTS_XL = 655_360
+K4_PRODUCTS = 10  # layer products a point in K4: 4 forward, 3 weight-gradient, 3 input-cotangent
 # the KMV MLP configuration: 7 stamps x 2,000 samples (refs = the samples at
 # the same stamp), PotentialMLP 2 -> 20 x 8 -> 128, tanh
 KMV_NT, KMV_N, KMV_WIDTHS = 7, 2_000, (20,) * 8 + (128,)
@@ -344,6 +352,11 @@ def main() -> None:
                                      or "none"), flush=True)
     other = {lib.name: len(spills(lib)) for lib in (lib_pw, lib_pair, lib_mma)}
     print(f"[build] kernels that spill in the other sources: {other}", flush=True)
+    k4_res = {("tanh", "silu", "softplus")[int(m.group(1))]: v for k, v in resources(lib_pw).items()
+              if (m := re.search(r"k4_kernelILi(\d)E", k))}
+    check(len(k4_res) == 3, f"K4 instantiations in the build report: {sorted(k4_res)}")
+    print("[build] K4 instantiations (registers, spill-store bytes): "
+          + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(k4_res.items())), flush=True)
     for kid, kernel in (("K7", "k7_kernel"), ("K8", "k8_kernel")):
         res = {k7_name(k, kernel): v for k, v in resources(lib_pair).items() if k7_name(k, kernel)}
         check(len(res) == 15, f"{kid} instantiations in the build report: {sorted(res)}")
@@ -471,9 +484,12 @@ def main() -> None:
     for name, kernel, plain in (("K3", mlp_grad_quad, mlp_grad_quad_plain),
                                 ("K4", mlp_grad_quad_bwd, mlp_grad_quad_bwd_plain)):
         rows = []
-        for act, n in (("tanh", N_POINTS), ("tanh", 4_099), ("silu", 20_000), ("softplus", 20_000)):
-            mids, streams, cot = pointwise_inputs(dev, n, torch.float32, 5)
-            mids64, streams64, cot64 = pointwise_inputs(dev, n, torch.float64, 5)
+        for act, n, widths in (("tanh", N_POINTS, WIDTHS), ("tanh", 4_099, WIDTHS),
+                               ("silu", 20_000, WIDTHS), ("softplus", 20_000, WIDTHS),
+                               ("tanh", N_POINTS_OFFLINE, WIDTHS_OFFLINE),
+                               ("tanh", 20_011, WIDTHS_OFFLINE)):
+            mids, streams, cot = pointwise_inputs(dev, n, torch.float32, 5, widths)
+            mids64, streams64, cot64 = pointwise_inputs(dev, n, torch.float64, 5, widths)
             args, args64 = streams + (cot if name == "K4" else []), streams64 + (cot64 if name == "K4" else [])
             got, want = flat(kernel(mids, act, *args)), flat(plain(mids, act, *args))
             ref = flat(plain(mids64, act, *args64))
@@ -488,7 +504,8 @@ def main() -> None:
                       f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
                 worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
                 k34_err[name] = max(k34_err[name], float((k_ - p_).abs().max()))
-            rows.append(f"{act}/{n}: {worst_k:.2e} vs {worst_p:.2e}")
+            rows.append(f"{act}/{n}{'' if widths == WIDTHS else '/layers ' + '->'.join(map(str, widths))}: "
+                        f"{worst_k:.2e} vs {worst_p:.2e}")
             del got, want, ref
         print(f"[{name.lower()}-vs-plain] layers 64->64->256, worst output error relative to its "
               f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows)}; gate <= "
@@ -1063,6 +1080,16 @@ def main() -> None:
         print(f"[timing] {name} full width (n={N_POINTS}, layers 64->64->256, tanh): kernel "
               f"{times[name][0]:.4f} ms, plain torch {times[name][1]:.4f} ms (runs: plain "
               f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
+    del mids, streams, cot
+    for n, widths, what in ((N_POINTS_XL, WIDTHS, "XL"), (N_POINTS_OFFLINE, WIDTHS_OFFLINE, "offline")):
+        mids, streams, cot = pointwise_inputs(dev, n, torch.float32, 7, widths)
+        k3_ms = time_ms(lambda: mlp_grad_quad(mids, "tanh", *streams), 10)
+        k4_ms = time_ms(lambda: mlp_grad_quad_bwd(mids, "tanh", *streams, *cot), 10)
+        ops = 2.0 * n * mlp_products(widths)
+        print(f"[timing] K3, K4 at the {what} step's shape (n={n}, layers {'->'.join(map(str, widths))}, "
+              f"tanh): K3 {k3_ms:.4f} ms (bound {bound(0, 4 * ops)[0]:.4f}), K4 {k4_ms:.4f} ms (bound "
+              f"{bound(0, K4_PRODUCTS * ops)[0]:.4f})", flush=True)
+        del mids, streams, cot
 
     mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 10)
     for kid, (kernel, plain) in kernels.items():
@@ -1115,9 +1142,11 @@ def main() -> None:
     F = mlp_products(WIDTHS)
     pt_bytes = 4 * N_POINTS * (3 * WIDTHS[0] + 1 + WIDTHS[0])  # 3 streams in; quad, delta out
     bounds["K3"] = bound(pt_bytes, 2.0 * N_POINTS * 4 * F)  # 3 forward streams, 1 reverse
-    # K4: 3 streams and 2 cotangents in, 3 stream cotangents out
-    bounds["K4"] = bound(4 * N_POINTS * (7 * WIDTHS[0] + 1),
-                         2.0 * N_POINTS * 12 * F)  # 4 forward, 4 weight-gradient, 4 input products
+    # K4: 3 streams and 2 cotangents in, 3 stream cotangents out; 4 forward
+    # products, and 3 weight-gradient and 3 input products: qbar = g_quad rbar
+    # at every layer, so the q stream's two are not computed (the first
+    # design computed all 12: its bound was 12 / 10 of this one)
+    bounds["K4"] = bound(4 * N_POINTS * (7 * WIDTHS[0] + 1), 2.0 * N_POINTS * K4_PRODUCTS * F)
     pairs = float(KMV_NT * KMV_N * KMV_N)
     x_bytes = 4 * (3 * KMV_NT * KMV_N * KMV_WIDTHS[0] + KMV_N + 2 * KMV_NT * KMV_N
                    + KMV_NT * KMV_N * KMV_WIDTHS[0])  # ax, av, ar, mask in; value, hess, s_dz0 out
@@ -1133,7 +1162,9 @@ def main() -> None:
     bounds["S3"] = bound(4 * (2 * 2048 * 120 + 120 * 120), 2.0 * 2048 * 120 * 120, PEAK_TF32_FLOPS)
     print("[bounds] least time per kernel at the timed shapes (larger of bytes / 3.35 TB/s and "
           "operations / 67 TFLOP/s FP32 or 494.7 TFLOP/s TF32): "
-          + "; ".join(f"{k} {v[0]:.6f} ms ({v[1]})" for k, v in bounds.items()), flush=True)
+          + "; ".join(f"{k} {v[0]:.6f} ms ({v[1]})" for k, v in bounds.items())
+          + f"; K4 under the first design's count of 12 products {bounds['K4'][0] * 12 / K4_PRODUCTS:.6f} ms",
+          flush=True)
 
     check("jax" not in sys.modules, "JAX was imported")
 
@@ -1155,7 +1186,7 @@ def main() -> None:
     ]
     for kid, name, line in (
         ("K3", "K3 fused pointwise forward (second-order MLP streams, quad and delta)", 67),
-        ("K4", "K4 fused pointwise VJP (4-stream forward, reverse sweep, weight gradients)", 186),
+        ("K4", "K4 fused pointwise VJP (4-stream forward, 3-stream reverse sweep and weight gradients)", 186),
     ):
         rows_out.append(row(kid, name, "pde_inverse_torch/csrc/pointwise.cu",
                             f"pde_inverse_tpu/ops/pallas/pointwise_kernel.py:{line}", np_launches[kid],

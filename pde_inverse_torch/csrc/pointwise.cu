@@ -11,10 +11,9 @@
 // K4 replaces pointwise_kernel.py::_bwd_kernel (entry mlp_grad_quad_bwd):
 // the VJP of K3 for the cotangents (g_quad [n], g_delta [n, w0]).  It runs
 // four forward streams (z, p, q, r with r0 = g_delta), the head cotangents,
-// and one reverse sweep that needs act''' and accumulates the weight
-// gradients.
+// and one reverse sweep that needs act''' and sums the weight gradients.
 //
-// Design.  A block owns a tile of kTile points and keeps every layer's
+// K3's design.  A block owns a tile of kTile points and keeps every layer's
 // streams for the tile in shared memory, feature-major with the points
 // minor ([stream][feature][point], rows padded to kRow floats), so that
 // one float4 read gives a thread four points of one feature and reads of
@@ -26,27 +25,52 @@
 // through the read-only cache, and keeps the sums of all streams in
 // registers.  At the full width of the KGMM-nonparametric-online preset
 // (w0 = 64, layers 64->64 and 64->256) K3 holds 3 x 448 rows x 20 floats =
-// 105 KB and K4 4 x 448 x 20 = 140 KB per block, above the 48 KB default,
-// so the launch opts in to large dynamic shared memory
-// (cudaFuncAttributeMaxDynamicSharedMemorySize, up to 227 KB).
+// 105 KB per block, above the 48 KB default, so the launch opts in to large
+// dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize, up to
+// 227 KB).  It is FP32-FMA bound (about 41 GFLOP against 0.26 GB of device
+// traffic at n = 250,000), issues one shared-memory read per four FMAs and
+// reaches 18 % of the FP32 peak.
 //
-// Weight gradients.  The TPU grid runs in order and accumulates into one
-// output block; CUDA blocks run concurrently.  K4 therefore runs a fixed
-// grid of at most (resident blocks x SMs) blocks, each walking the tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ... in order and accumulating into
-// its own row of a partials buffer (each entry is owned by one thread, no
-// atomics); a second kernel sums the rows in block order.  The same n on
-// the same card gives bitwise-equal gradients on every call.  Points past
-// n (the ragged last tile) load zeros and get zero cotangents, so they add
-// exactly nothing.
+// K4's design (the same layout of rows, tile + 4 floats each).
+//  * Register-tiled products.  A pair of lanes (l and l + 16 of a warp, each
+//    reducing over half the rows and then exchanging sums) owns four points
+//    by four output features of all the streams, which share W_k: one float4
+//    of weights and one float4 a stream feed 64 FMAs (the first design: one
+//    weight and four float4s for 16).  The forward products and the products
+//    hbar_s = sbar_s W_k^T of the reverse sweep are this one routine.
+//  * Ten products, not twelve.  qbar = g_quad rbar holds at the head (2 g z_L
+//    = g 2 z_L) and the step back through an activation keeps the factor, so
+//    hqbar = g hrbar is no product of its own, and hq and hr enter the weight
+//    gradients as the one stream hr + g hq.
+//  * A 32-point tile with the last layer streamed (64 points where the rows
+//    fit, as at 32->32->128).  The last layer, the widest, is never held
+//    whole: 64 of its output features at a time are computed, turned into
+//    the head cotangents in registers, and consumed at once by the weight
+//    gradients of that chunk and by running hbar sums that the lane pair
+//    keeps in registers over the chunks.  At the full width a block holds 4
+//    streams x (128 saved + 64 activated + 64 of the chunk) rows x 36 floats
+//    = 144 KB.
+//  * Weight gradients summed in the block.  A warp owns 8 x 32 entries of
+//    Wbar_k, its quarters split the (stream, four points) steps of the tile,
+//    exchange their sums by shuffles and add them, once a tile, to the
+//    block's sums in shared memory (81 KB at the full width; in the block's
+//    row of the partials in device memory where they do not fit).  A block
+//    walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ... in order and
+//    writes its row of the partials once, at its end; k4_reduce adds the rows
+//    in block order.  No atomics: the same n on the same card gives
+//    bitwise-equal gradients on every call.  Points past n (the ragged last
+//    tile) load zeros and get zero cotangents, so they add exactly nothing.
+//  * Two act_d a feature, layer and point (forward and step back), not three.
 //
-// What bounds it on an H100.  Both kernels are FP32-FMA bound: at the full
-// width (n = 250,000) K3 does about 41 GFLOP against 0.26 GB of device
-// traffic and K4 about 123 GFLOP against 0.5 GB, far above the card's
-// FP32 ridge (~20 FLOP/byte).  This first design issues one shared-memory
-// read per four FMAs in the products and keeps 8 warps per SM (K4) or 16
-// (K3) resident; tensor cores (TF32/3xTF32 wgmma) and register tiling of
-// several features per thread are left to later work.
+// What bounds K4 on an H100.  FP32 FMAs: 10 products of 20,480 multiply-adds
+// a point at the full width, 102 GFLOP against 0.45 GB of device traffic at
+// n = 250,000.  One block of 8 warps fits an SM (226 registers a thread, 225
+// KB of shared memory), and with two warps a scheduler the FMA pipe stays
+// about half idle whatever is taken out of the loops (loads, shuffles and
+// the activation were ablated one by one): 4.56 ms on an H100 at 700 W against the first
+// design's 10.5 ms.  The same products on the tensor cores (3xTF32 mma.sync)
+// were tried for the weight gradients and lost to the cost of splitting the
+// fragments.
 
 #include <cstdint>
 
@@ -267,13 +291,147 @@ __global__ void __launch_bounds__(kThreads)
   store_tile(delta, srow(sm, net, 0, 0, 0), base, n, w0);
 }
 
-// New cotangents of layer k's inputs for one point, from the products
-// hbar_s = sbar_s W^T and the saved streams (z, p, q, r), written in place.
-template <int ACT>
-__device__ __forceinline__ void input_cotangents(float hb, float hpb, float hqb, float hrb,
-                                                 float& z, float& p, float& q, float& r) {
+// ---- K4 -------------------------------------------------------------------------
+//
+// The chain as K4 runs it: every width a multiple of 8 (the wrapper zero-pads),
+// a tile of `tile` points (64, 32, 16 or 8), the last layer's output features in
+// chunks of at most `chunk`.  Shared memory holds, for each of the four streams,
+// `rows` feature rows of tile + 4 floats: the saved inputs of every layer
+// (row0[k] ...), one activated copy (tmp_row ...) and one chunk of the last
+// layer (chunk_row ...); then g_quad of the tile and, with acc_shared, the
+// block's weight-gradient sums in the params layout.
+struct K4Net {
+  int n_mid;
+  int w[kMaxMid + 1];
+  int p_off[kMaxMid];
+  int t_off[kMaxMid];
+  int row0[kMaxMid];
+  int tmp_row;
+  int chunk_row;
+  int rows;
+  int tile;
+  int chunk;
+  int acc_shared;
+};
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// acc[s][c] (four points of output column c, stream s) += sum over `steps`
+// rows i (a multiple of 4) of X_s[i][four points] * W[i][c], from the rows W
+// and X point at: one float4 of weights (read-only cache) and one float4 a
+// stream (shared memory) feed 64 FMAs; with SKIPQ stream 2 is left out.  The
+// weights come from L2 more often than not (the block's shared memory leaves
+// little L1), so those of the next four rows are loaded while these four are
+// used.
+__device__ __forceinline__ void load_rows4(float4 (&w)[4], const float4* wp, int ldw4) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) w[u] = __ldg(wp + u * ldw4);
+}
+
+template <bool SKIPQ>
+__device__ __forceinline__ void fma_rows4(float4 (&acc)[4][4], const float4 (&w)[4], const float* X,
+                                          int sstride, int row) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (SKIPQ && s == 2) continue;
+      const float4 x = ld4(X + u * row + s * sstride);
+      fma4(acc[s][0], x, w[u].x);
+      fma4(acc[s][1], x, w[u].y);
+      fma4(acc[s][2], x, w[u].z);
+      fma4(acc[s][3], x, w[u].w);
+    }
+  }
+}
+
+template <bool SKIPQ>
+__device__ __forceinline__ void product4(float4 (&acc)[4][4], const float* __restrict__ W, int ldw,
+                                         const float* X, int sstride, int row, int steps) {
+  const float4* wp = reinterpret_cast<const float4*>(W);
+  const int ldw4 = ldw / 4;
+  float4 wa[4], wb[4];  // two sets of four rows, used in turns: no copy between them
+  load_rows4(wa, wp, ldw4);
+  for (int i = 0; i < steps; i += 8) {
+    const bool more = i + 4 < steps;
+    if (more) load_rows4(wb, wp + 4 * ldw4, ldw4);
+    fma_rows4<SKIPQ>(acc, wa, X, sstride, row);
+    wp += 8 * ldw4;
+    if (i + 8 < steps) load_rows4(wa, wp, ldw4);
+    if (more) fma_rows4<SKIPQ>(acc, wb, X + 4 * row, sstride, row);
+    X += 8 * row;
+  }
+}
+
+__device__ __forceinline__ void zero4(float4 (&acc)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[s][c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Both halves of the warp end with the sums of the two halves' reductions.
+template <bool SKIPQ>
+__device__ __forceinline__ void join_halves(float4 (&acc)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (SKIPQ && s == 2) continue;
+      acc[s][c].x += __shfl_xor_sync(kFull, acc[s][c].x, 16);
+      acc[s][c].y += __shfl_xor_sync(kFull, acc[s][c].y, 16);
+      acc[s][c].z += __shfl_xor_sync(kFull, acc[s][c].z, 16);
+      acc[s][c].w += __shfl_xor_sync(kFull, acc[s][c].w, 16);
+    }
+}
+
+__device__ __forceinline__ float4 pick(bool second, float4 a, float4 b) { return second ? b : a; }
+
+// tmp = the activated streams of layer k's inputs, as `activate`.  For the
+// last layer (LAST) also hr + g hq, the one stream that stands for hq and hr
+// in its weight gradients, into the rows at h3.
+template <int ACT, bool LAST>
+__device__ void k4_activate(float* sm, const K4Net& net, int sstride, int row, int k,
+                            const float* gq, float* h3) {
+  const int T = net.tile;
+  const int win = net.w[k];
+  for (int idx = threadIdx.x; idx < win * T; idx += kThreads) {
+    const int i = idx / T;
+    const int c = idx - i * T;
+    const float* src = sm + (net.row0[k] + i) * row + c;
+    float* dst = sm + (net.tmp_row + i) * row + c;
+    float a0, a1, a2, a3;
+    act_d<ACT>(src[0], a0, a1, a2, a3);
+    const float dp = src[sstride];
+    const float dq = src[2 * sstride];
+    const float hq = a2 * dp * dp + a1 * dq;
+    const float hr = a1 * src[3 * sstride];
+    dst[0] = a0;
+    dst[sstride] = a1 * dp;
+    dst[2 * sstride] = hq;
+    dst[3 * sstride] = hr;
+    if constexpr (LAST) h3[i * row + c] = fmaf(gq[c], hq, hr);
+  }
+}
+
+// One point of the step back through layer k's activation: from hbar_s =
+// sbar_s W^T and the saved (z, p, q, r) to the cotangents, in place.  qbar is
+// g rbar at every layer (at the head 2 g z_L = g 2 z_L, and the step back keeps
+// the factor), so hqb = g hrb is not a product of its own, and hq and hr
+// enter the weight gradients as hr + g hq: with TMP the activated streams
+// (h, hp, hr + g hq) for them.
+template <int ACT, bool TMP>
+__device__ __forceinline__ void step_back(float g, float hb, float hpb, float hrb, float& z,
+                                          float& p, float& q, float& r, float& h, float& hp,
+                                          float& hr) {
   float a0, a1, a2, a3;
   act_d<ACT>(z, a0, a1, a2, a3);
+  const float hqb = g * hrb;
+  if constexpr (TMP) {
+    h = a0;
+    hp = a1 * p;
+    hr = fmaf(g, a2 * p * p + a1 * q, a1 * r);
+  }
   const float zbar = hb * a1 + hpb * (a2 * p) + hrb * (a2 * r) + hqb * (a3 * p * p + a2 * q);
   const float pbar = hpb * a1 + hqb * (2.0f * a2 * p);
   z = zbar;
@@ -282,133 +440,356 @@ __device__ __forceinline__ void input_cotangents(float hb, float hpb, float hqb,
   r = hrb * a1;
 }
 
+// The step back for the item (four points at pg, four features at ig) whose
+// hbar sums (streams 0, 1, 3) both halves of the warp hold: each half takes
+// two features.
+template <int ACT, bool TMP>
+__device__ __forceinline__ void step_back_item(float* sm, const K4Net& net, int sstride, int row,
+                                               int k, int pg, int ig, bool second, const float* gq,
+                                               const float4 (&hb)[4][4]) {
+  const float4 g = ld4(gq + pg * 4);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int i = ig * 4 + (second ? 2 : 0) + t;
+    const float4 b0 = pick(second, hb[0][t], hb[0][2 + t]);
+    const float4 b1 = pick(second, hb[1][t], hb[1][2 + t]);
+    const float4 b3 = pick(second, hb[3][t], hb[3][2 + t]);
+    float* zp = sm + (net.row0[k] + i) * row + pg * 4;
+    float4 z = ld4(zp), p = ld4(zp + sstride), q = ld4(zp + 2 * sstride), r = ld4(zp + 3 * sstride);
+    float4 h, hp, hr;
+    step_back<ACT, TMP>(g.x, b0.x, b1.x, b3.x, z.x, p.x, q.x, r.x, h.x, hp.x, hr.x);
+    step_back<ACT, TMP>(g.y, b0.y, b1.y, b3.y, z.y, p.y, q.y, r.y, h.y, hp.y, hr.y);
+    step_back<ACT, TMP>(g.z, b0.z, b1.z, b3.z, z.z, p.z, q.z, r.z, h.z, hp.z, hr.z);
+    step_back<ACT, TMP>(g.w, b0.w, b1.w, b3.w, z.w, p.w, q.w, r.w, h.w, hp.w, hr.w);
+    st4(zp, z);
+    st4(zp + sstride, p);
+    st4(zp + 2 * sstride, q);
+    st4(zp + 3 * sstride, r);
+    if constexpr (TMP) {
+      float* tp = sm + (net.tmp_row + i) * row + pg * 4;
+      st4(tp, h);
+      st4(tp + sstride, hp);
+      st4(tp + 3 * sstride, hr);
+    }
+  }
+}
+
+// Weight gradients of layer k for the cn output columns from j0, whose
+// cotangents sbar_s lie in the rows from s_row: acc[W_k][i][j0 + j] += sum
+// over the points of h(i) zbar(j) + hp(i) pbar(j) + (hr + g hq)(i) rbar(j),
+// with h and hp in the activated copy and hr + g hq in the rows at h3; the
+// bias entries += the sum of zbar over the points.  A warp owns 8 rows i by
+// 32 columns j; its quarters split the 3 x tile / 4 steps (stream, four
+// points), a lane with the 4 columns jl, jl + 8, jl + 16, jl + 24 (rows of
+// neighbouring lanes: no bank conflict; 12 float4 loads feed 128 FMAs); the
+// quarters exchange their sums and each adds two of the rows.  Each entry
+// has one owner.
+__device__ void k4_weight_grads(float* sm, const K4Net& net, int sstride, int row, int k,
+                                int s_row, int j0, int cn, const float* h3, float* acc) {
+  constexpr int CC = 4;  // columns a lane; 8 measured slower (5.16 against 4.95 ms on an H100)
+  const int win = net.w[k];
+  const int wout = net.w[k + 1];
+  const int npg = net.tile / 4;
+  const int nib = win / 8;
+  const int nq = nib * ((cn + 8 * CC - 1) / (8 * CC));
+  const int lane = threadIdx.x & 31;
+  const int jl = lane & 7;
+  const int steps = 3 * npg;
+  const int per = (steps + 3) / 4;
+  const int st0 = (lane >> 3) * per;
+  const int st1 = min(st0 + per, steps);
+  float* gW = acc + net.p_off[k];
+  const float* H0 = sm + net.tmp_row * row;
+  const float* S0 = sm + s_row * row;
+  for (int q = threadIdx.x >> 5; q < nq; q += kThreads / 32) {
+    const int ib = q % nib;
+    const int i0 = ib * 8;
+    const int jr0 = (q / nib) * (8 * CC) + jl;
+    int so[CC];
+#pragma unroll
+    for (int cc = 0; cc < CC; ++cc) so[cc] = min(jr0 + 8 * cc, cn - 1) * row;
+    float a[8][CC];
+    float bs[CC];
+#pragma unroll
+    for (int cc = 0; cc < CC; ++cc) {
+      bs[cc] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) a[r][cc] = 0.0f;
+    }
+#pragma unroll 2
+    for (int st = st0; st < st1; ++st) {
+      const int si = st / npg;  // 0: (h, zbar), 1: (hp, pbar), 2: (hr + g hq, rbar)
+      const int po = (st - si * npg) * 4;
+      const float* Hq = (si == 0 ? H0 : si == 1 ? H0 + sstride : h3) + i0 * row + po;
+      const float* Sq = S0 + (si == 2 ? 3 : si) * sstride + po;
+      float4 c[CC];
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) c[cc] = ld4(Sq + so[cc]);
+      if (ib == 0 && si == 0) {  // zbar in the warps of the first rows: the bias sums
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc) bs[cc] += (c[cc].x + c[cc].y) + (c[cc].z + c[cc].w);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 h = ld4(Hq + r * row);
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc) {
+          a[r][cc] = fmaf(h.x, c[cc].x, a[r][cc]);
+          a[r][cc] = fmaf(h.y, c[cc].y, a[r][cc]);
+          a[r][cc] = fmaf(h.z, c[cc].z, a[r][cc]);
+          a[r][cc] = fmaf(h.w, c[cc].w, a[r][cc]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) {
+        a[r][cc] += __shfl_xor_sync(kFull, a[r][cc], 8);
+        a[r][cc] += __shfl_xor_sync(kFull, a[r][cc], 16);
+      }
+    const int part = lane >> 3;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int i = i0 + 2 * part + t;
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) {
+        const int j = jr0 + 8 * cc;
+        const float v = part == 0 ? a[t][cc] : part == 1 ? a[2 + t][cc] : part == 2 ? a[4 + t][cc] : a[6 + t][cc];
+        if (j < cn) gW[i * wout + j0 + j] += v;
+      }
+    }
+    if (ib == 0) {
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) {
+        bs[cc] += __shfl_xor_sync(kFull, bs[cc], 8);
+        bs[cc] += __shfl_xor_sync(kFull, bs[cc], 16);
+        const int j = jr0 + 8 * cc;
+        if (part == 0 && j < cn) gW[win * wout + j0 + j] += bs[cc];
+      }
+    }
+  }
+}
+
 template <int ACT>
-__global__ void __launch_bounds__(kThreads)
-    k4_kernel(Net net, int n, const float* __restrict__ z1, const float* __restrict__ dz1,
+__global__ void __launch_bounds__(kThreads, 1)
+    k4_kernel(K4Net net, int n, const float* __restrict__ z1, const float* __restrict__ dz1,
               const float* __restrict__ d2z1, const float* __restrict__ g_quad,
               const float* __restrict__ g_delta, const float* __restrict__ params,
               const float* __restrict__ params_t, float* __restrict__ partials, int n_params,
               float* __restrict__ z1bar, float* __restrict__ dz1bar,
               float* __restrict__ d2z1bar) {
   extern __shared__ float4 smem4[];
-  __shared__ float gq[kTile];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* tmp = sm + 4 * net.rows * kRow;
-  float* __restrict__ part = partials + static_cast<size_t>(blockIdx.x) * n_params;
+  const int T = net.tile;
+  const int row = T + 4;
+  const int npg = T / 4;
+  const int sstride = net.rows * row;  // floats between two streams
+  float* gq = sm + 4 * sstride;
+  // hr + g hq of the last layer's inputs: the chunk's rows of stream 2, which
+  // hold nothing else (qbar = g rbar is never stored)
+  float* h3_last = sm + 2 * sstride + net.chunk_row * row;
+  float* part = partials + static_cast<size_t>(blockIdx.x) * n_params;
+  float* acc = net.acc_shared ? gq + T : part;
   const int w0 = net.w[0];
   const int L = net.n_mid;
-  const int n_tiles = (n + kTile - 1) / kTile;
+  const int wl_in = net.w[L - 1];
+  const int wl = net.w[L];
+  const int n_tiles = (n + T - 1) / T;
+  const int lane = threadIdx.x & 31;
+  const bool second = lane >= 16;
+  // this thread's item of a pass: 16 items a warp, each held by lane l and l + 16
+  const int slot = (threadIdx.x >> 5) * 16 + (lane & 15);
 
-  for (int e = threadIdx.x; e < n_params; e += kThreads) part[e] = 0.0f;
+  for (int e = threadIdx.x; e < n_params; e += kThreads) acc[e] = 0.0f;
   __syncthreads();
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * kTile;
-    load_tile(srow(sm, net, 0, 0, 0), z1, base, n, w0);
-    load_tile(srow(sm, net, 1, 0, 0), dz1, base, n, w0);
-    load_tile(srow(sm, net, 2, 0, 0), d2z1, base, n, w0);
-    load_tile(srow(sm, net, 3, 0, 0), g_delta, base, n, w0);
-    if (threadIdx.x < kTile) gq[threadIdx.x] = base + threadIdx.x < n ? g_quad[base + threadIdx.x] : 0.0f;
-    __syncthreads();
-    forward<4, ACT>(sm, tmp, net, params);
-
-    // head cotangents of S = gq 2 sum(p_L^2 + z_L q_L) + <2 z_L, r_L>, zero
-    // past n
-    for (int idx = threadIdx.x; idx < net.w[L] * kTile; idx += kThreads) {
-      const int j = idx / kTile;
-      const int p = idx - j * kTile;
-      float* zr = srow(sm, net, 0, L, j) + p;
-      float* pr = srow(sm, net, 1, L, j) + p;
-      float* qr = srow(sm, net, 2, L, j) + p;
-      float* rr = srow(sm, net, 3, L, j) + p;
-      const bool valid = base + p < n;
-      const float g = gq[p];
-      const float z = *zr;
-      const float pp = *pr;
-      const float q = *qr;
-      const float r = *rr;
-      *zr = valid ? 2.0f * g * q + 2.0f * r : 0.0f;
-      *pr = valid ? 4.0f * g * pp : 0.0f;
-      *qr = valid ? 2.0f * g * z : 0.0f;
-      *rr = valid ? 2.0f * z : 0.0f;
-    }
-    __syncthreads();
-
-    for (int k = L - 1; k >= 0; --k) {
-      const int win = net.w[k];
-      const int wout = net.w[k + 1];
-      activate<4, ACT>(sm, tmp, net, k);
-      __syncthreads();
-
-      // weight gradients: Wbar[i][j] += sum_{s,p} h_s(p, i) sbar_s(p, j),
-      // a thread owning four rows i of one column j; bbar[j] += sum_p zbar
-      float* __restrict__ gW = part + net.p_off[k];
-      const int n_ig = (win + 3) / 4;
-      for (int item = threadIdx.x; item < n_ig * wout; item += kThreads) {
-        const int ig = item / wout;
-        const int j = item - ig * wout;
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int base = tile * T;
+    // the tile's rows of the four inputs, 16 loads a thread in flight
+    const float* src[4] = {z1, dz1, d2z1, g_delta};
+    const int live = min(T, n - base) * w0;  // floats of the tile that exist
+    for (int i0 = threadIdx.x; i0 < T * w0; i0 += 4 * kThreads) {
+      float v[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
-#pragma unroll
-          for (int g = 0; g < kGroups; ++g) {
-            const float4 c = ld4(srow(sm, net, s, k + 1, j) + g * kGroup);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float4 h = ld4(trow(tmp, net, s, 4 * ig + r) + g * kGroup);
-              acc[r] = fmaf(h.x, c.x, acc[r]);
-              acc[r] = fmaf(h.y, c.y, acc[r]);
-              acc[r] = fmaf(h.z, c.z, acc[r]);
-              acc[r] = fmaf(h.w, c.w, acc[r]);
-            }
-          }
+          const int idx = i0 + u * kThreads;
+          v[u][s] = idx < live ? src[s][static_cast<size_t>(base) * w0 + idx] : 0.0f;
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if (4 * ig + r < win) gW[static_cast<size_t>(4 * ig + r) * wout + j] += acc[r];
+      for (int u = 0; u < 4; ++u) {
+        const int idx = i0 + u * kThreads;
+        if (idx < T * w0) {
+          const int c = idx / w0;
+          const int i = idx - c * w0;
+          float* dst = sm + static_cast<size_t>(net.row0[0] + i) * row + c;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) dst[s * sstride] = v[u][s];
         }
       }
-      for (int j = threadIdx.x; j < wout; j += kThreads) {
-        const float* zb = srow(sm, net, 0, k + 1, j);
-        float s = 0.0f;
-        for (int p = 0; p < kTile; ++p) s += zb[p];
-        gW[win * wout + j] += s;
-      }
+    }
+    if (threadIdx.x < T) gq[threadIdx.x] = base + threadIdx.x < n ? g_quad[base + threadIdx.x] : 0.0f;
+    __syncthreads();
 
-      // input cotangents: hbar_s = sbar_s W^T, then the chain rule through
-      // the activation, over the saved streams of layer k
-      const float* __restrict__ Wt = params_t + net.t_off[k];
-      for (int item = threadIdx.x; item < kGroups * win; item += kThreads) {
-        const int g = item / win;
-        const int i = item - g * win;
-        float4 acc[4];
+    // forward through the layers before the last: saved_{k+1} = tmp W_k (+ b_k)
+    for (int k = 0; k + 1 < L; ++k) {
+      k4_activate<ACT, false>(sm, net, sstride, row, k, gq, nullptr);
+      __syncthreads();
+      const int win = net.w[k];
+      const int wout = net.w[k + 1];
+      const float* __restrict__ W = params + net.p_off[k];
+      const float* __restrict__ b = W + win * wout;
+      const int items = npg * (wout / 4);
+      const int mid = win / 2;
+      for (int ib = 0; ib < items; ib += kThreads / 2) {
+        const bool active = ib + slot < items;
+        const int item = active ? ib + slot : 0;
+        const int pg = item % npg;
+        const int jg = item / npg;
+        float4 o[4][4];
+        zero4(o);
+        product4<false>(o, W + (second ? mid : 0) * wout + jg * 4, wout,
+                 sm + (net.tmp_row + (second ? mid : 0)) * row + pg * 4, sstride, row, mid);
+        join_halves<false>(o);
+        if (!active) continue;
 #pragma unroll
-        for (int s = 0; s < 4; ++s) acc[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int j = 0; j < wout; ++j) {
-          const float w = __ldg(Wt + static_cast<size_t>(j) * win + i);
-#pragma unroll
-          for (int s = 0; s < 4; ++s) fma4(acc[s], ld4(srow(sm, net, s, k + 1, j) + g * kGroup), w);
+        for (int t = 0; t < 2; ++t) {
+          const int j = jg * 4 + (second ? 2 : 0) + t;
+          const float bj = __ldg(b + j);
+          float* out = sm + static_cast<size_t>(net.row0[k + 1] + j) * row + pg * 4;
+          float4 z = pick(second, o[0][t], o[0][2 + t]);
+          z.x += bj;
+          z.y += bj;
+          z.z += bj;
+          z.w += bj;
+          st4(out, z);
+          st4(out + sstride, pick(second, o[1][t], o[1][2 + t]));
+          st4(out + 2 * sstride, pick(second, o[2][t], o[2][2 + t]));
+          st4(out + 3 * sstride, pick(second, o[3][t], o[3][2 + t]));
         }
-        float* zp = srow(sm, net, 0, k, i) + g * kGroup;
-        float* pp = srow(sm, net, 1, k, i) + g * kGroup;
-        float* qp = srow(sm, net, 2, k, i) + g * kGroup;
-        float* rp = srow(sm, net, 3, k, i) + g * kGroup;
-        float4 z = ld4(zp), p = ld4(pp), q = ld4(qp), r = ld4(rp);
-        input_cotangents<ACT>(acc[0].x, acc[1].x, acc[2].x, acc[3].x, z.x, p.x, q.x, r.x);
-        input_cotangents<ACT>(acc[0].y, acc[1].y, acc[2].y, acc[3].y, z.y, p.y, q.y, r.y);
-        input_cotangents<ACT>(acc[0].z, acc[1].z, acc[2].z, acc[3].z, z.z, p.z, q.z, r.z);
-        input_cotangents<ACT>(acc[0].w, acc[1].w, acc[2].w, acc[3].w, z.w, p.w, q.w, r.w);
-        st4(zp, z);
-        st4(pp, p);
-        st4(qp, q);
-        st4(rp, r);
       }
       __syncthreads();
     }
-    store_tile(z1bar, srow(sm, net, 0, 0, 0), base, n, w0);
-    store_tile(dz1bar, srow(sm, net, 1, 0, 0), base, n, w0);
-    store_tile(d2z1bar, srow(sm, net, 2, 0, 0), base, n, w0);
+    k4_activate<ACT, true>(sm, net, sstride, row, L - 1, gq, h3_last);
     __syncthreads();
+
+    // the last layer, a chunk of its output features at a time: forward,
+    // head cotangents of S = gq 2 sum(p_L^2 + z_L q_L) + <2 z_L, r_L> (zero past
+    // n), its weight gradients, and the running sums hbar_s = sbar_s W^T of
+    // this thread's item (four points, four input features; one pass)
+    const float* __restrict__ WL = params + net.p_off[L - 1];
+    const float* __restrict__ bL = WL + wl_in * wl;
+    const float* __restrict__ WLt = params_t + net.t_off[L - 1];
+    const int items_b = npg * (wl_in / 4);
+    const bool active_b = slot < items_b;
+    const int item_b = active_b ? slot : 0;
+    const int pg_b = item_b % npg;
+    const int ig_b = item_b / npg;
+    float4 hb[4][4];
+    zero4(hb);
+    for (int j0 = 0; j0 < wl; j0 += net.chunk) {
+      const int cn = min(net.chunk, wl - j0);
+      const int items = npg * (cn / 4);
+      const int mid = wl_in / 2;
+      for (int ib = 0; ib < items; ib += kThreads / 2) {
+        const bool active = ib + slot < items;
+        const int item = active ? ib + slot : 0;
+        const int pg = item % npg;
+        const int jg = item / npg;
+        float4 o[4][4];
+        zero4(o);
+        product4<false>(o, WL + (second ? mid : 0) * wl + j0 + jg * 4, wl,
+                 sm + (net.tmp_row + (second ? mid : 0)) * row + pg * 4, sstride, row, mid);
+        join_halves<false>(o);
+        if (!active) continue;
+        const float4 g = ld4(gq + pg * 4);
+        const int pt = base + pg * 4;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int jc = jg * 4 + (second ? 2 : 0) + t;
+          const float bj = __ldg(bL + j0 + jc);
+          float4 z = pick(second, o[0][t], o[0][2 + t]);
+          const float4 p = pick(second, o[1][t], o[1][2 + t]);
+          const float4 q = pick(second, o[2][t], o[2][2 + t]);
+          const float4 r = pick(second, o[3][t], o[3][2 + t]);
+          z.x += bj;
+          z.y += bj;
+          z.z += bj;
+          z.w += bj;
+          float4 zb, pb, rb;
+#define K4_HEAD(e, off)                                  \
+  {                                                      \
+    const bool valid = pt + off < n;                     \
+    zb.e = valid ? 2.0f * g.e * q.e + 2.0f * r.e : 0.0f; \
+    pb.e = valid ? 4.0f * g.e * p.e : 0.0f;              \
+    rb.e = valid ? 2.0f * z.e : 0.0f;                    \
+  }
+          K4_HEAD(x, 0)
+          K4_HEAD(y, 1)
+          K4_HEAD(z, 2)
+          K4_HEAD(w, 3)
+#undef K4_HEAD
+          float* out = sm + static_cast<size_t>(net.chunk_row + jc) * row + pg * 4;
+          st4(out, zb);
+          st4(out + sstride, pb);
+          st4(out + 3 * sstride, rb);
+        }
+      }
+      __syncthreads();
+      {
+        const int midc = cn / 2;
+        product4<true>(hb, WLt + (j0 + (second ? midc : 0)) * wl_in + ig_b * 4, wl_in,
+                 sm + (net.chunk_row + (second ? midc : 0)) * row + pg_b * 4, sstride, row, midc);
+      }
+      k4_weight_grads(sm, net, sstride, row, L - 1, net.chunk_row, j0, cn, h3_last, acc);
+      __syncthreads();
+    }
+    join_halves<true>(hb);
+    if (active_b) step_back_item<ACT, false>(sm, net, sstride, row, L - 1, pg_b, ig_b, second, gq, hb);
+    __syncthreads();
+
+    // the layers before the last, in reverse: the cotangents of layer k + 1
+    // lie over its saved streams
+    for (int k = L - 2; k >= 0; --k) {
+      const int win = net.w[k];
+      const int wout = net.w[k + 1];
+      const float* __restrict__ Wt = params_t + net.t_off[k];
+      const int items = npg * (win / 4);
+      const int mid = wout / 2;
+      for (int ib = 0; ib < items; ib += kThreads / 2) {
+        const bool active = ib + slot < items;
+        const int item = active ? ib + slot : 0;
+        const int pg = item % npg;
+        const int ig = item / npg;
+        float4 o[4][4];
+        zero4(o);
+        product4<true>(o, Wt + (second ? mid : 0) * win + ig * 4, win,
+                 sm + (net.row0[k + 1] + (second ? mid : 0)) * row + pg * 4, sstride, row, mid);
+        join_halves<true>(o);
+        if (active) step_back_item<ACT, true>(sm, net, sstride, row, k, pg, ig, second, gq, o);
+      }
+      __syncthreads();
+      k4_weight_grads(sm, net, sstride, row, k, net.row0[k + 1], 0, wout,
+                      sm + 3 * sstride + net.tmp_row * row, acc);
+      __syncthreads();
+    }
+
+    float* dst[3] = {z1bar, dz1bar, d2z1bar};
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const float* from = sm + s * sstride + static_cast<size_t>(net.row0[0]) * row;
+      for (int idx = threadIdx.x; idx < T * w0; idx += kThreads) {
+        const int c = idx / w0;
+        const int i = idx - c * w0;
+        if (base + c < n) dst[s][static_cast<size_t>(base + c) * w0 + i] = from[i * row + c];
+      }
+    }
+    __syncthreads();
+  }
+  if (net.acc_shared) {
+    for (int e = threadIdx.x; e < n_params; e += kThreads) part[e] = acc[e];
   }
 }
 
@@ -447,6 +828,44 @@ int make_net(int n_mid, const int* widths, Net* net) {
 
 size_t shared_bytes(const Net& net, int n_streams) {
   return static_cast<size_t>(n_streams) * (net.rows + net.tmp_rows) * kRow * sizeof(float);
+}
+
+// K4's plan (tile, chunk, acc_shared) over the chain; returns the parameter
+// count, or -1 if the chain or the plan is not one the kernel takes: widths
+// in multiples of 8, a tile of 8, 16, 32 or 64 points, a chunk in multiples of 8,
+// and one pass (kThreads / 2 items of four points by four features) over the
+// last layer's inputs.
+int make_k4_net(int n_mid, const int* widths, int tile, int chunk, int acc_shared, K4Net* net) {
+  if (n_mid < 1 || n_mid > kMaxMid) return -1;
+  if ((tile != 8 && tile != 16 && tile != 32 && tile != 64) || chunk < 8 || chunk % 8 != 0) return -1;
+  net->n_mid = n_mid;
+  int p = 0, t = 0, row = 0, max_in = 0;
+  for (int k = 0; k <= n_mid; ++k) {
+    if (widths[k] < 8 || widths[k] % 8 != 0) return -1;
+    net->w[k] = widths[k];
+  }
+  for (int k = 0; k < n_mid; ++k) {
+    net->p_off[k] = p;
+    net->t_off[k] = t;
+    net->row0[k] = row;
+    row += widths[k];
+    p += widths[k] * widths[k + 1] + widths[k + 1];
+    t += widths[k] * widths[k + 1];
+    if (widths[k] > max_in) max_in = widths[k];
+  }
+  if ((tile / 4) * (widths[n_mid - 1] / 4) > kThreads / 2) return -1;
+  net->tmp_row = row;
+  net->chunk_row = row + max_in;
+  net->rows = row + max_in + (chunk > widths[n_mid - 1] ? chunk : widths[n_mid - 1]);
+  net->tile = tile;
+  net->chunk = chunk;
+  net->acc_shared = acc_shared != 0;
+  return p;
+}
+
+size_t k4_shared_bytes(const K4Net& net, int n_params) {
+  const size_t streams = static_cast<size_t>(4) * net.rows * (net.tile + 4);
+  return (streams + net.tile + (net.acc_shared ? n_params : 0)) * sizeof(float);
 }
 
 template <typename Kernel>
@@ -512,21 +931,32 @@ extern "C" int k4_max_blocks(int device, int act, int smem, int* blocks) {
   return static_cast<int>(err);
 }
 
-// partials: [blocks, n_params] scratch; grads: [n_params] weight and bias
-// gradients in the params layout.
+// Dynamic shared memory of a K4 block under the plan, or -1 for a chain or a
+// plan the kernel does not take; the wrapper's k4_plan computes the same.
+extern "C" long long k4_shared_bytes_c(int n_mid, const int* widths, int tile, int chunk,
+                                       int acc_shared) {
+  K4Net net;
+  const int n_params = make_k4_net(n_mid, widths, tile, chunk, acc_shared, &net);
+  return n_params < 0 ? -1 : static_cast<long long>(k4_shared_bytes(net, n_params));
+}
+
+// widths: the padded chain (multiples of 8); tile, chunk, acc_shared: the
+// wrapper's plan; partials: [blocks, n_params] scratch; grads: [n_params]
+// weight and bias gradients in the params layout.
 extern "C" int k4_mlp_grad_quad_bwd(int device, int act, int n_mid, const int* widths, int n,
-                                    int blocks, const float* z1, const float* dz1,
+                                    int blocks, int tile, int chunk, int acc_shared,
+                                    const float* z1, const float* dz1,
                                     const float* d2z1, const float* g_quad,
                                     const float* g_delta, const float* params,
                                     const float* params_t, float* partials, float* grads,
                                     float* z1bar, float* dz1bar, float* d2z1bar,
                                     void* stream) {
-  Net net;
-  const int n_params = make_net(n_mid, widths, &net);
+  K4Net net;
+  const int n_params = make_k4_net(n_mid, widths, tile, chunk, acc_shared, &net);
   if (n <= 0 || blocks <= 0 || n_params < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = shared_bytes(net, 4);
+  const size_t smem = k4_shared_bytes(net, n_params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (act) {
     case kTanh: err = allow_shared(k4_kernel<kTanh>, smem); break;

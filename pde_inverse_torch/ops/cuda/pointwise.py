@@ -16,7 +16,11 @@ VJP of K3 with respect to (mids, z1, dz1, d2z1) given the cotangents
 
 For a CUDA tensor each wrapper launches its kernel on the current stream
 and raises if the build or the launch fails; for a CPU tensor it runs its
-plain version.  ``mlp_grad_quad.launches`` and
+plain version.  K4 takes widths in multiples of 8: ``mlp_grad_quad_bwd``
+zero-pads any other chain (``pad_chain``) and drops the padded gradients
+(``unpad_grads``), which is exact; ``k4_plan`` chooses its tile of points,
+the chunk of the last layer's features and where the block keeps its
+weight-gradient sums.  ``mlp_grad_quad.launches`` and
 ``mlp_grad_quad_bwd.launches`` count kernel launches (CPU calls do not
 count).  All arithmetic is float32.
 """
@@ -24,7 +28,7 @@ count).  All arithmetic is float32.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -35,9 +39,12 @@ Mids = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 MAX_MID = 16  # layers after the first that the kernels take
 _ACTS = {"tanh": 0, "silu": 1, "softplus": 2}
-_TILE = 16  # points per tile, csrc/pointwise.cu kTile
-_ROW = _TILE + 4  # floats per feature row of a tile in shared memory
+_TILE = 16  # points per K3 tile, csrc/pointwise.cu kTile
+_ROW = _TILE + 4  # floats per feature row of a K3 tile in shared memory
 _MAX_SHARED_BYTES = 227 * 1024  # a block's opt-in maximum on Hopper
+K4_THREADS = 256  # csrc/pointwise.cu kThreads
+K4_TILES = (64, 32, 16, 8)  # points per K4 tile, largest first
+K4_CHUNK = 64  # most output features of the last layer held at a time
 
 
 # -- plain versions ----------------------------------------------------------------
@@ -103,7 +110,9 @@ def _library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         common = [ci, ci, ci, ctypes.POINTER(ci), ci]  # device, act, n_mid, widths, n
         lib.k3_mlp_grad_quad.argtypes = common + [vp, vp, vp, vp, vp, vp, vp, vp]
-        lib.k4_mlp_grad_quad_bwd.argtypes = common + [ci] + [vp] * 13
+        lib.k4_mlp_grad_quad_bwd.argtypes = common + [ci] * 4 + [vp] * 13
+        lib.k4_shared_bytes_c.argtypes = [ci, ctypes.POINTER(ci), ci, ci, ci]
+        lib.k4_shared_bytes_c.restype = ctypes.c_longlong
         lib.k4_max_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         for fn in (lib.k3_mlp_grad_quad, lib.k4_mlp_grad_quad_bwd, lib.k4_max_blocks):
             fn.restype = ci
@@ -111,11 +120,80 @@ def _library() -> ctypes.CDLL:
 
 
 def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
-    """Dynamic shared memory of one block: every layer's streams for a tile
-    of points plus one activated copy of the widest layer input, rows padded
-    to a multiple of 4 features."""
+    """Dynamic shared memory of one K3 block: every layer's streams for a
+    tile of points plus one activated copy of the widest layer input, rows
+    padded to a multiple of 4 features."""
     rows = sum(widths) + (-(-max(widths[:-1]) // 4) * 4)
     return n_streams * rows * _ROW * 4
+
+
+class K4Plan(NamedTuple):
+    """How K4 runs a chain: `widths` zero-padded to multiples of 8, `tile`
+    points a tile, the last layer's output features in chunks of `chunk`,
+    the block's weight-gradient sums in shared memory (`acc_shared`) or in
+    its row of the partials in device memory, `shared_bytes` a block."""
+
+    widths: Tuple[int, ...]
+    tile: int
+    chunk: int
+    acc_shared: bool
+    shared_bytes: int
+
+
+def k4_shared_bytes(widths: Sequence[int], tile: int, chunk: int, acc_shared: bool) -> int:
+    """K4's dynamic shared memory a block (csrc/pointwise.cu): four streams
+    of rows of tile + 4 floats -- the saved inputs of every layer, one
+    activated copy of the widest of them, one chunk of the last layer (at
+    least as many rows as that layer has inputs: one of its streams holds
+    their hr + g hq) -- then g_quad of the tile and, with `acc_shared`, one
+    float a parameter."""
+    rows = sum(widths[:-1]) + max(widths[:-1]) + max(chunk, widths[-2])
+    n_params = sum(a * b + b for a, b in zip(widths, widths[1:]))
+    return 4 * (4 * rows * (tile + 4) + tile + (n_params if acc_shared else 0))
+
+
+def k4_plan(widths: Sequence[int]) -> K4Plan:
+    """K4's plan for the chain `widths` = [w0, the output widths of the
+    layers after the first]: the largest tile whose shared memory fits,
+    with the weight-gradient sums in shared memory if they fit beside it.
+    The last layer's inputs must be one pass of the block (a thread pair
+    owns four points by four features): wide ones shrink the tile."""
+    if not 2 <= len(widths) <= MAX_MID + 1 or min(widths) < 1:
+        raise ValueError(f"K4 takes 1..{MAX_MID} layers of positive widths, got {list(widths)}")
+    padded = tuple(-(-w // 8) * 8 for w in widths)
+    chunk = min(K4_CHUNK, padded[-1])
+    for tile in K4_TILES:
+        if (tile // 4) * (padded[-2] // 4) > K4_THREADS // 2:
+            continue
+        for acc_shared in (True, False):
+            smem = k4_shared_bytes(padded, tile, chunk, acc_shared)
+            if smem <= _MAX_SHARED_BYTES:
+                return K4Plan(padded, tile, chunk, acc_shared, smem)
+    raise ValueError(f"K4: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared "
+                     f"memory per block at every tile")
+
+
+def pad_chain(mids: Mids, widths: Sequence[int], tensors):
+    """The layers zero-padded to the chain `widths` and the [n, w0] tensors
+    zero-padded to widths[0] columns.  A padded feature's outgoing weights
+    are zero, so whatever its activation, it adds exactly 0.0 downstream."""
+    padded = []
+    for (W, b), w_in, w_out in zip(mids, widths, widths[1:]):
+        Wp = W.new_zeros((w_in, w_out))
+        Wp[: W.shape[0], : W.shape[1]] = W
+        bp = b.new_zeros((w_out,))
+        bp[: b.shape[0]] = b
+        padded.append((Wp, bp))
+    pad = widths[0] - tensors[0].shape[1]
+    return padded, [torch.nn.functional.pad(t, (0, pad)) for t in tensors]
+
+
+def unpad_grads(mids_bar, stream_bars, mids: Mids):
+    """The gradients of the unpadded chain `mids` out of those of the chain
+    ``pad_chain`` made of it: the padded entries dropped."""
+    w0 = mids[0][0].shape[0]
+    return ([(wb[: W.shape[0], : W.shape[1]], bb[: b.shape[0]]) for (wb, bb), (W, b) in zip(mids_bar, mids)],
+            [t[:, :w0] for t in stream_bars])
 
 
 def _check(mids: Mids, act_name: str, tensors, name: str):
@@ -183,7 +261,8 @@ def mlp_grad_quad(mids: Mids, act_name: str, z1, dz1, d2z1):
 
 def mlp_grad_quad_bwd(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_delta):
     """([(Wbar, bbar)], z1bar, dz1bar, d2z1bar).  CUDA tensors: the K4
-    kernel (per-block partial weight gradients, then a fixed-order
+    kernel under ``k4_plan`` (a block sums its weight gradients over the
+    tiles it walks and writes one row of partials, then a fixed-order
     reduction: two calls give bitwise-equal results); CPU tensors:
     ``mlp_grad_quad_bwd_plain``."""
     if z1.device.type == "cpu":
@@ -192,27 +271,33 @@ def mlp_grad_quad_bwd(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_delta)
         raise ValueError(f"K4 takes [n, w0] CUDA or CPU tensors, got {tuple(z1.shape)} on {z1.device}")
     widths, params, params_t = _check(mids, act_name, (z1, dz1, d2z1, g_quad, g_delta), "K4")
     n, w0 = z1.shape
-    z1, dz1, d2z1, g_delta = (_rows(t, n, w0, "z1/dz1/d2z1/g_delta") for t in (z1, dz1, d2z1, g_delta))
+    rows = [_rows(t, n, w0, "z1/dz1/d2z1/g_delta") for t in (z1, dz1, d2z1, g_delta)]
     if tuple(g_quad.shape) != (n,):
         raise ValueError(f"g_quad must be [{n}], got {tuple(g_quad.shape)}")
     g_quad = g_quad.contiguous()
-    smem = shared_bytes(widths, 4)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"K4: widths {widths} need {smem} B of shared memory per block, "
-                         f"more than {_MAX_SHARED_BYTES}")
+    plan = k4_plan(widths)
+    layers = mids
+    if list(plan.widths) != widths:
+        layers, rows = pad_chain(mids, plan.widths, rows)
+        _, params, params_t = _check(layers, act_name, (*rows, g_quad), "K4")
+    z1, dz1, d2z1, g_delta = rows
     device = z1.device.index if z1.device.index is not None else torch.cuda.current_device()
     lib = _library()
     per_sm = ctypes.c_int(0)
-    _raise(lib.k4_max_blocks(device, _ACTS[act_name], smem, ctypes.byref(per_sm)), "K4 occupancy query")
-    n_tiles = -(-n // _TILE)
+    _raise(lib.k4_max_blocks(device, _ACTS[act_name], plan.shared_bytes, ctypes.byref(per_sm)),
+           "K4 occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError(f"K4: no block of {plan.shared_bytes} B of shared memory fits an SM")
+    n_tiles = -(-n // plan.tile)
     n_sm = torch.cuda.get_device_properties(z1.device).multi_processor_count
     blocks = max(1, min(n_tiles, per_sm.value * n_sm))
     grads = torch.empty((params.numel(),), dtype=torch.float32, device=z1.device)
     partials = torch.empty((blocks, params.numel()), dtype=torch.float32, device=z1.device)
-    outs = [torch.empty((n, w0), dtype=torch.float32, device=z1.device) for _ in range(3)]
-    c_widths = (ctypes.c_int * len(widths))(*widths)
+    outs = [torch.empty((n, plan.widths[0]), dtype=torch.float32, device=z1.device) for _ in range(3)]
+    c_widths = (ctypes.c_int * len(plan.widths))(*plan.widths)
     err = lib.k4_mlp_grad_quad_bwd(
         device, _ACTS[act_name], len(mids), c_widths, n, blocks,
+        plan.tile, plan.chunk, int(plan.acc_shared),
         z1.data_ptr(), dz1.data_ptr(), d2z1.data_ptr(), g_quad.data_ptr(), g_delta.data_ptr(),
         params.data_ptr(), params_t.data_ptr(), partials.data_ptr(), grads.data_ptr(),
         *(o.data_ptr() for o in outs),
@@ -221,11 +306,14 @@ def mlp_grad_quad_bwd(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_delta)
     _raise(err, "K4")
     mlp_grad_quad_bwd.launches += 1
     mids_bar, off = [], 0
-    for W, b in mids:
+    for W, b in layers:
         wbar = grads[off: off + W.numel()].view(W.shape)
         off += W.numel()
         mids_bar.append((wbar, grads[off: off + b.numel()]))
         off += b.numel()
+    if layers is not mids:
+        mids_bar, outs = unpad_grads(mids_bar, outs, mids)
+        outs = [o.contiguous() for o in outs]
     return mids_bar, outs[0], outs[1], outs[2]
 
 

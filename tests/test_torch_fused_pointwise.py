@@ -300,8 +300,75 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting():
 
 def test_shared_memory_of_the_full_width_tile():
     """At the preset's width (w0 = 64, layers 64->64->256) a K3 block holds
-    3 streams x (384 + 64) rows x 20 floats and a K4 block 4 x 448 x 20:
-    above the 48 KB default, inside Hopper's 227 KB opt-in."""
+    3 streams x (384 + 64) rows x 20 floats, and a K4 block of 32 points 4
+    streams x (128 saved + 64 activated + 64 of the last layer) rows x 36
+    floats, g_quad of the tile and its 20,800 weight-gradient sums: above
+    the 48 KB default, inside Hopper's 227 KB opt-in."""
     assert tpk.shared_bytes([64, 64, 256], 3) == 3 * 448 * 20 * 4 == 107_520
-    assert tpk.shared_bytes([64, 64, 256], 4) == 143_360 <= 227 * 1024
-    assert tpk.shared_bytes([20] * 8 + [128], 4) == 4 * (20 * 8 + 128 + 20) * 20 * 4
+    plan = tpk.k4_plan([64, 64, 256])
+    assert plan == ((64, 64, 256), 32, 64, True, 4 * (4 * 256 * 36 + 32 + 20_800))
+    assert plan.shared_bytes == 230_784 <= 227 * 1024
+    # widths of 20 are padded to 24
+    assert tpk.k4_plan([20] * 8 + [128]).shared_bytes == 4 * (4 * (192 + 24 + 64) * 36 + 32 + 7_400)
+
+
+# chain -> (tile, weight-gradient sums in shared memory): 64 points where the
+# rows fit, 32 at the full width, 8 and no sums for 16 layers of 64 (1,152
+# rows a stream)
+K4_CHAINS = {(64, 64, 256): (32, True), (32, 32, 128): (64, True), (20,) * 8 + (128,): (32, True),
+             (8, 8, 4): (64, True), (5, 7, 3): (64, True), (64,) * 17: (8, False),
+             (64, 256): (32, True), (6, 100): (64, True)}
+
+
+@pytest.mark.parametrize("widths", list(K4_CHAINS), ids=lambda w: f"{len(w) - 1}x{max(w)}x{w[0]}")
+def test_k4_plan_fits_the_card(widths):
+    """Every chain gets widths in multiples of 8, one of the kernel's tiles,
+    a chunk in multiples of 8 features, one pass of the block
+    over the last layer's inputs, and at most 227 KB of shared memory."""
+    plan = tpk.k4_plan(widths)
+    assert all(p % 8 == 0 and 0 <= p - w < 8 for p, w in zip(plan.widths, widths))
+    assert plan.tile in tpk.K4_TILES and plan.chunk % 8 == 0 and 8 <= plan.chunk <= 64
+    assert plan.chunk == min(64, plan.widths[-1])
+    assert (plan.tile // 4) * (plan.widths[-2] // 4) <= tpk.K4_THREADS // 2
+    assert plan.shared_bytes == tpk.k4_shared_bytes(plan.widths, plan.tile, plan.chunk, plan.acc_shared)
+    assert plan.shared_bytes <= 227 * 1024
+    assert (plan.tile, plan.acc_shared) == K4_CHAINS[widths]
+
+
+def test_k4_plan_refuses_what_fits_no_tile():
+    with pytest.raises(ValueError, match="shared memory"):
+        tpk.k4_plan((128,) * 17)
+    with pytest.raises(ValueError, match="layers"):
+        tpk.k4_plan((64,) * 18)
+    with pytest.raises(ValueError, match="layers"):
+        tpk.k4_plan((64,))
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("widths", [(5, 7, 3), (6, 10), (12, 20, 8), (16, 24, 8)])
+def test_k4_padding_is_exact(act, widths):
+    """K4's plain version on the chain zero-padded as the wrapper pads it
+    gives, after the wrapper's slicing, the gradients of the unpadded chain
+    (a padded feature adds 0.0 even where act(0) != 0: its outgoing weights
+    are zero): jax.vjp's of the JAX composition within the tolerances of
+    test_k4_plain_matches_vjp_of_sums_jnp (rtol 3e-4, atol 1e-5 of the
+    largest entry: f32 in another order).  (16, 24, 8) needs no padding."""
+    mids, streams, (g_quad, g_delta) = _stack(9, widths=widths, n=23)
+    plan = tpk.k4_plan(widths)
+    t_mids, t_rows = _tmids(mids), _t(streams + [g_delta])
+    p_mids, p_rows = tpk.pad_chain(t_mids, plan.widths, t_rows)
+    assert [tuple(W.shape) for W, _ in p_mids] == list(zip(plan.widths, plan.widths[1:]))
+    assert all(r.shape == (23, plan.widths[0]) for r in p_rows)
+    mids_bar, *streams_bar = tpk.mlp_grad_quad_bwd_plain(
+        p_mids, act, *p_rows[:3], torch.from_numpy(g_quad), p_rows[3])
+    mids_bar, streams_bar = tpk.unpad_grads(mids_bar, streams_bar, t_mids)
+    sums = lambda m, a, b, c: jfp._sums_jnp(m, jmlp._ACTIVATIONS[act], jnp.float32, a, b, c)
+    _, pullback = jax.vjp(sums, _jmids(mids), *map(jnp.asarray, streams))
+    j_mids_bar, *j_streams_bar = pullback({"quad": jnp.asarray(g_quad), "delta": jnp.asarray(g_delta)})
+    for (wb, bb), (jwb, jbb), (W, b) in zip(mids_bar, j_mids_bar, mids):
+        assert wb.shape == W.shape and bb.shape == b.shape
+        _close(wb, jwb, G_RTOL, ATOL * float(np.abs(jwb).max()))
+        _close(bb, jbb, G_RTOL, ATOL * float(np.abs(jbb).max()))
+    for got, want in zip(streams_bar, j_streams_bar):
+        assert got.shape == want.shape
+        _close(got, want, G_RTOL)

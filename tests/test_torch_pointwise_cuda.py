@@ -10,11 +10,14 @@ This file imports neither JAX nor the JAX package; where JAX is not
 installed, add ``--noconftest`` (the conftest imports JAX).
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from pde_inverse_torch.losses import fused_pointwise as fp
 from pde_inverse_torch.models.mlp import PotentialMLP
+from pde_inverse_torch.ops.cuda import pointwise as pt
 from pde_inverse_torch.ops.cuda.pointwise import (
     mlp_grad_quad,
     mlp_grad_quad_bwd,
@@ -70,11 +73,18 @@ def _gate(kernel, plain, ref):
 
 
 FULL = (64, 64, 256)  # the KGMM-nonparametric-online preset's layers after the first
+OFFLINE = (32, 32, 128)  # the KGMM-nonparametric preset's
 
 
+# n on both sides of a boundary of K4's tile (32 points at the full width, 64
+# at the narrower preset's); a one-layer chain; a deep chain; chains the
+# wrapper pads to multiples of 8
 @pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
 @pytest.mark.parametrize("widths,n", [(FULL, 1), (FULL, 37), (FULL, 4099), ((8, 8, 4), 29),
-                                      ((20,) * 8 + (128,), 300), ((5, 7, 3), 50)])
+                                      ((20,) * 8 + (128,), 300), ((5, 7, 3), 50),
+                                      (OFFLINE, 4_097), (OFFLINE, 63), (OFFLINE, 64), (OFFLINE, 65), ((64, 256), 33),
+                                      (FULL, 31), (FULL, 32), (FULL, 33), (FULL, 20_000),
+                                      ((16,) * 13, 41), ((6, 100), 70)])
 def test_kernels_match_plain_versions(cuda, act, widths, n):
     mids, streams, cot = _inputs(cuda, widths, n)
     mids64, streams64, cot64 = _inputs(cuda, widths, n, dtype=torch.float64)
@@ -85,11 +95,48 @@ def test_kernels_match_plain_versions(cuda, act, widths, n):
           mlp_grad_quad_bwd_plain(mids64, act, *streams64, *cot64))
 
 
+def test_k4_takes_a_chain_of_16_layers(cuda):
+    """16 layers of 64 leave K4 a tile of 8 points and no room for its sums,
+    which it then keeps in its row of the partials in device memory (K3
+    holds every layer's streams and does not take this chain)."""
+    widths = (64,) * 17
+    assert pt.k4_plan(widths)[1:4] == (8, 64, False)
+    mids, streams, cot = _inputs(cuda, widths, 19)
+    mids64, streams64, cot64 = _inputs(cuda, widths, 19, dtype=torch.float64)
+    _gate(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot),
+          mlp_grad_quad_bwd_plain(mids, "tanh", *streams, *cot),
+          mlp_grad_quad_bwd_plain(mids64, "tanh", *streams64, *cot64))
+
+
 def test_k4_is_bitwise_repeatable(cuda):
     mids, streams, cot = _inputs(cuda, FULL, 20_011)
     a = _flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
     b = _flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_k4_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's for every plan the
+    tests and the presets use, the kernel refuses a chain that is not padded,
+    and a block of the full-width plan is resident on an SM."""
+    lib = pt._library()
+    chains = [FULL, OFFLINE, (20,) * 8 + (128,), (8, 8, 4), (5, 7, 3), (64,) * 17, (64, 256),
+              (16,) * 13, (6, 100)]
+    for widths in chains:
+        plan = pt.k4_plan(widths)
+        c_widths = (ctypes.c_int * len(plan.widths))(*plan.widths)
+        for tile in pt.K4_TILES:
+            for acc_shared in (True, False):
+                want = pt.k4_shared_bytes(plan.widths, tile, plan.chunk, acc_shared)
+                if (tile // 4) * (plan.widths[-2] // 4) > pt.K4_THREADS // 2:
+                    want = -1
+                assert lib.k4_shared_bytes_c(len(widths) - 1, c_widths, tile, plan.chunk,
+                                             int(acc_shared)) == want
+    assert lib.k4_shared_bytes_c(2, (ctypes.c_int * 3)(5, 7, 3), 32, 8, 1) == -1
+    plan = pt.k4_plan(FULL)
+    per_sm = ctypes.c_int(0)
+    assert lib.k4_max_blocks(torch.cuda.current_device(), 0, plan.shared_bytes, ctypes.byref(per_sm)) == 0
+    assert per_sm.value >= 1
 
 
 def test_padded_points_do_not_leak(cuda):
