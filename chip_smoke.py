@@ -11,8 +11,8 @@ Phases, each printing its own line:
 2. build: compiles K1/K2 (``pde_inverse_torch/csrc/langevin.cu``), K3/K4
    (``csrc/pointwise.cu``), K5-K8 and S1 (``csrc/pairwise.cu``) and S2/S3
    (``csrc/mma_tf32.cu``) with nvcc, one process per source, together, and
-   prints registers, the Langevin kernels that spill and every K4, K7 and K8
-   instantiation's registers and spill;
+   prints registers, the Langevin kernels that spill and every K3, K4, K7
+   and K8 instantiation's registers and spill;
 3. K1 and K2 (pack=2) against their plain PyTorch version on the card, at
    the KGMM main path's shapes (d=4; GMM with k=3 and a Quadratic
    potential; 2,500 particles with a trajectory and 75,000 without; 200
@@ -23,7 +23,8 @@ Phases, each printing its own line:
    run of the plain version, at the non-parametric main path's shape
    (250,000 path points, layers 64->64->256, tanh), a ragged n, silu and
    softplus, and at the offline preset's shape (320,000 points, layers
-   32->32->128) with a ragged n; K4's outputs bitwise equal on two calls;
+   32->32->128) with a ragged n; K3's and K4's outputs bitwise equal on two
+   calls;
    K5-K8 against their plain versions, held the same way, at the KMV main
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
@@ -352,11 +353,12 @@ def main() -> None:
                                      or "none"), flush=True)
     other = {lib.name: len(spills(lib)) for lib in (lib_pw, lib_pair, lib_mma)}
     print(f"[build] kernels that spill in the other sources: {other}", flush=True)
-    k4_res = {("tanh", "silu", "softplus")[int(m.group(1))]: v for k, v in resources(lib_pw).items()
-              if (m := re.search(r"k4_kernelILi(\d)E", k))}
-    check(len(k4_res) == 3, f"K4 instantiations in the build report: {sorted(k4_res)}")
-    print("[build] K4 instantiations (registers, spill-store bytes): "
-          + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(k4_res.items())), flush=True)
+    for kid, kernel in (("K3", "k3_kernel"), ("K4", "k4_kernel")):
+        res = {("tanh", "silu", "softplus")[int(m.group(1))]: v for k, v in resources(lib_pw).items()
+               if (m := re.search(kernel + r"ILi(\d)E", k))}
+        check(len(res) == 3, f"{kid} instantiations in the build report: {sorted(res)}")
+        print(f"[build] {kid} instantiations (registers, spill-store bytes): "
+              + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items())), flush=True)
     for kid, kernel in (("K7", "k7_kernel"), ("K8", "k8_kernel")):
         res = {k7_name(k, kernel): v for k, v in resources(lib_pair).items() if k7_name(k, kernel)}
         check(len(res) == 15, f"{kid} instantiations in the build report: {sorted(res)}")
@@ -512,6 +514,10 @@ def main() -> None:
               f"{F64_FACTOR} x plain + {F64_FLOOR}: pass; max abs err kernel vs plain "
               f"{k34_err[name]:.3e}", flush=True)
     mids, streams, cot = pointwise_inputs(dev, N_POINTS, torch.float32, 6)
+    a = flat(mlp_grad_quad(mids, "tanh", *streams))
+    b = flat(mlp_grad_quad(mids, "tanh", *streams))
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "K3 outputs differ between two calls")
+    print(f"[k3-repeat] n={N_POINTS}: two calls bitwise equal in both outputs (quad, delta)", flush=True)
     a = flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
     b = flat(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot))
     check(all(torch.equal(x, y) for x, y in zip(a, b)), "K4 outputs differ between two calls")

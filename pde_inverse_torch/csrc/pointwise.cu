@@ -13,23 +13,47 @@
 // four forward streams (z, p, q, r with r0 = g_delta), the head cotangents,
 // and one reverse sweep that needs act''' and sums the weight gradients.
 //
-// K3's design.  A block owns a tile of kTile points and keeps every layer's
-// streams for the tile in shared memory, feature-major with the points
-// minor ([stream][feature][point], rows padded to kRow floats), so that
-// one float4 read gives a thread four points of one feature and reads of
-// neighbouring features hit distinct banks.  The reverse sweep reads the
-// saved streams from there and overwrites them with the cotangents in
-// place.  Layer products are written out by hand: a thread owns four
-// points of one output feature, walks the reduction dimension reading W
-// (or the wrapper's packed W^T, so that a warp's reads are contiguous)
-// through the read-only cache, and keeps the sums of all streams in
-// registers.  At the full width of the KGMM-nonparametric-online preset
-// (w0 = 64, layers 64->64 and 64->256) K3 holds 3 x 448 rows x 20 floats =
-// 105 KB per block, above the 48 KB default, so the launch opts in to large
-// dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize, up to
-// 227 KB).  It is FP32-FMA bound (about 41 GFLOP against 0.26 GB of device
-// traffic at n = 250,000), issues one shared-memory read per four FMAs and
-// reaches 18 % of the FP32 peak.
+// Both keep a tile's streams in shared memory feature-major with the points
+// minor ([stream][feature][point], rows of tile + 4 floats), so that one
+// float4 read gives four points of one feature, and both take widths in
+// multiples of 8 (the wrapper zero-pads, exactly).
+//
+// K3's design.
+//  * Register-tiled products.  A pair of lanes (l and l + 16 of a warp, each
+//    reducing over half the rows, then exchanging sums) owns four points by
+//    four output features of the three streams z, p, q: one float4 of
+//    weights and three of streams feed 48 FMAs (the first design: one weight
+//    and three float4s for 12).  The reverse sweep's products (one stream,
+//    delta W^T) are the same routine with four points by four features.
+//  * Only what the reverse sweep needs is kept: the pre-activation z_k of
+//    every layer's input, p and q of the current layer's input, one
+//    activated copy (h, hp, hq) of it, and for the last layer, the widest,
+//    one chunk of at most 64 output features at a time.  A chunk's z_L, p_L,
+//    q_L stay in registers: the lane pair adds p_L^2 + z_L q_L over its four
+//    features into one partial a point (quad's sum over the chunks runs in a
+//    fixed order), writes 2 z_L into the chunk's rows, and the chunk's
+//    product 2 z_L W_L^T is added into running sums over the rows that p and
+//    q no longer need; after the last chunk the step back through
+//    act'(z_{L-1}) writes delta over z_{L-1}, and so on down to z_1.  The
+//    256-wide layer is never held whole.
+//  * Two blocks an SM.  At the full width (64 -> 64 -> 256) a 32-point tile
+//    takes 528 rows of 36 floats, 76 KB, and __launch_bounds__(256, 2) caps a
+//    thread at 128 registers, so 16 warps share an SM.  Chains that leave no
+//    room for two blocks get one (k3_plan in ops/cuda/pointwise.py decides,
+//    k3_shared_bytes_c here computes the same bytes).
+//  * A block per tile, no atomics, nothing summed across points: two calls
+//    give bitwise-equal outputs, and points past n load zeros and are not
+//    stored.
+//
+// What bounds K3 on an H100.  FP32 FMAs: 81,920 a point at the full width,
+// 41 GFLOP against 0.26 GB of device traffic at n = 250,000 (0.611 ms at 67
+// TFLOP/s).  It takes 1.6 ms on an H100 at 700 W (38 % of that bound; the
+// first design 3.35 ms, 18 %), with 124 registers and no spill.  By ablation
+// the last layer's forward products take 0.6 ms (61 % of their FMA bound),
+// the hbar products 0.27 ms (45 %), and the tile loads hide behind the other
+// block's products.  Not kept: eight points by four features in the reverse
+// products (12 % slower: half the lane pairs idle), a 64-point tile at one
+// block an SM (29 % slower).
 //
 // K4's design (the same layout of rows, tile + 4 floats each).
 //  * Register-tiled products.  A pair of lanes (l and l + 16 of a warp, each
@@ -79,24 +103,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 16;              // points per tile
-constexpr int kRow = kTile + 4;        // floats per feature row in shared memory
-constexpr int kGroup = 4;              // points per thread in a layer product
-constexpr int kGroups = kTile / kGroup;
 constexpr int kMaxMid = 16;
 constexpr int kTanh = 0;
 constexpr int kSilu = 1;
 constexpr int kSoftplus = 2;
-
-struct Net {
-  int n_mid;
-  int w[kMaxMid + 1];    // widths: w[0] = w0, w[k + 1] = output width of layer k
-  int p_off[kMaxMid];    // W_k [w_k, w_{k+1}] at params + p_off[k], b_k right after
-  int t_off[kMaxMid];    // W_k^T [w_{k+1}, w_k] at params_t + t_off[k]
-  int row[kMaxMid + 1];  // first shared-memory row of layer k's streams
-  int rows;              // rows of all layers (the sum of the widths)
-  int tmp_rows;          // rows of the activated copy (widest input, padded to 4)
-};
 
 // (act, act', act'', act''') of one value; the stable forms of sigmoid and
 // softplus, as jax.nn's.
@@ -128,13 +138,6 @@ __device__ __forceinline__ void act_d(float z, float& a0, float& a1, float& a2, 
   }
 }
 
-// row i of stream s of layer k, and row i of stream s of the activated copy
-__device__ __forceinline__ float* srow(float* sm, const Net& net, int s, int k, int i) {
-  return sm + static_cast<size_t>(s * net.rows + net.row[k] + i) * kRow;
-}
-__device__ __forceinline__ float* trow(float* tmp, const Net& net, int s, int i) {
-  return tmp + static_cast<size_t>(s * net.tmp_rows + i) * kRow;
-}
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -148,147 +151,367 @@ __device__ __forceinline__ void fma4(float4& acc, float4 x, float w) {
   acc.w = fmaf(x.w, w, acc.w);
 }
 
-// [n, w0] rows of the tile starting at point `base` -> shared rows of layer 0
-__device__ void load_tile(float* dst, const float* __restrict__ src, int base, int n, int w0) {
-  for (int idx = threadIdx.x; idx < kTile * w0; idx += kThreads) {
-    const int p = idx / w0;
-    const int i = idx - p * w0;
-    const int pt = base + p;
-    dst[i * kRow + p] = pt < n ? src[static_cast<size_t>(pt) * w0 + i] : 0.0f;
-  }
-}
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ void store_tile(float* __restrict__ dst, const float* src, int base, int n, int w0) {
-  for (int idx = threadIdx.x; idx < kTile * w0; idx += kThreads) {
-    const int p = idx / w0;
-    const int i = idx - p * w0;
-    const int pt = base + p;
-    if (pt < n) dst[static_cast<size_t>(pt) * w0 + i] = src[i * kRow + p];
-  }
-}
-
-// Activated streams of layer k's inputs into the copy `tmp`:
-// h = act(z), hp = act' p, hq = act'' p^2 + act' q, hr = act' r.
-template <int NS, int ACT>
-__device__ void activate(float* sm, float* tmp, const Net& net, int k) {
-  const int win = net.w[k];
-  for (int idx = threadIdx.x; idx < win * kTile; idx += kThreads) {
-    const int i = idx / kTile;
-    const int p = idx - i * kTile;
-    float a0, a1, a2, a3;
-    act_d<ACT>(srow(sm, net, 0, k, i)[p], a0, a1, a2, a3);
-    const float dp = srow(sm, net, 1, k, i)[p];
-    const float dq = srow(sm, net, 2, k, i)[p];
-    trow(tmp, net, 0, i)[p] = a0;
-    trow(tmp, net, 1, i)[p] = a1 * dp;
-    trow(tmp, net, 2, i)[p] = a2 * dp * dp + a1 * dq;
-    if constexpr (NS == 4) trow(tmp, net, 3, i)[p] = a1 * srow(sm, net, 3, k, i)[p];
-  }
-}
-
-// Layer k's streams out of the activated copy: out_s = h_s W (+ b for z).
-template <int NS>
-__device__ void forward_product(float* sm, float* tmp, const Net& net, int k,
-                                const float* __restrict__ params) {
-  const int win = net.w[k];
-  const int wout = net.w[k + 1];
-  const float* __restrict__ W = params + net.p_off[k];
-  const float* __restrict__ b = W + win * wout;
-  for (int item = threadIdx.x; item < kGroups * wout; item += kThreads) {
-    const int g = item / wout;
-    const int j = item - g * wout;
-    float4 acc[NS];
+// acc[s][c] (four points of output column c, stream s < NS) += sum over
+// `steps` rows i (a multiple of 4) of X_s[i][four points] * W[i][c], from the
+// rows W and X point at: one float4 of weights (read-only cache) and one
+// float4 a stream (shared memory) feed 16 NS FMAs; with SKIPQ stream 2 is
+// left out.  NS follows from acc: 4 in K4, 3 or 1 in K3.  The
+// weights come from L2 more often than not (the block's shared memory leaves
+// little L1), so those of the next four rows are loaded while these four are
+// used.
+__device__ __forceinline__ void load_rows4(float4 (&w)[4], const float4* wp, int ldw4) {
 #pragma unroll
-    for (int s = 0; s < NS; ++s) acc[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int i = 0; i < win; ++i) {
-      const float w = __ldg(W + static_cast<size_t>(i) * wout + j);
+  for (int u = 0; u < 4; ++u) w[u] = __ldg(wp + u * ldw4);
+}
+
+template <bool SKIPQ, int NS>
+__device__ __forceinline__ void fma_rows4(float4 (&acc)[NS][4], const float4 (&w)[4], const float* X,
+                                          int sstride, int row) {
 #pragma unroll
-      for (int s = 0; s < NS; ++s) fma4(acc[s], ld4(trow(tmp, net, s, i) + g * kGroup), w);
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (SKIPQ && s == 2) continue;
+      const float4 x = ld4(X + u * row + s * sstride);
+      fma4(acc[s][0], x, w[u].x);
+      fma4(acc[s][1], x, w[u].y);
+      fma4(acc[s][2], x, w[u].z);
+      fma4(acc[s][3], x, w[u].w);
     }
-    const float bj = __ldg(b + j);
-    acc[0].x += bj;
-    acc[0].y += bj;
-    acc[0].z += bj;
-    acc[0].w += bj;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) st4(srow(sm, net, s, k + 1, j) + g * kGroup, acc[s]);
   }
 }
 
-template <int NS, int ACT>
-__device__ void forward(float* sm, float* tmp, const Net& net, const float* __restrict__ params) {
-  for (int k = 0; k < net.n_mid; ++k) {
-    activate<NS, ACT>(sm, tmp, net, k);
-    __syncthreads();
-    forward_product<NS>(sm, tmp, net, k, params);
-    __syncthreads();
+template <bool SKIPQ, int NS>
+__device__ __forceinline__ void product4(float4 (&acc)[NS][4], const float* __restrict__ W, int ldw,
+                                         const float* X, int sstride, int row, int steps) {
+  const float4* wp = reinterpret_cast<const float4*>(W);
+  const int ldw4 = ldw / 4;
+  float4 wa[4], wb[4];  // two sets of four rows, used in turns: no copy between them
+  load_rows4(wa, wp, ldw4);
+  for (int i = 0; i < steps; i += 8) {
+    const bool more = i + 4 < steps;
+    if (more) load_rows4(wb, wp + 4 * ldw4, ldw4);
+    fma_rows4<SKIPQ>(acc, wa, X, sstride, row);
+    wp += 8 * ldw4;
+    if (i + 8 < steps) load_rows4(wa, wp, ldw4);
+    if (more) fma_rows4<SKIPQ>(acc, wb, X + 4 * row, sstride, row);
+    X += 8 * row;
   }
+}
+
+template <int NS>
+__device__ __forceinline__ void zero4(float4 (&acc)[NS][4]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[s][c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Both halves of the warp end with the sums of the two halves' reductions.
+template <bool SKIPQ, int NS>
+__device__ __forceinline__ void join_halves(float4 (&acc)[NS][4]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (SKIPQ && s == 2) continue;
+      acc[s][c].x += __shfl_xor_sync(kFull, acc[s][c].x, 16);
+      acc[s][c].y += __shfl_xor_sync(kFull, acc[s][c].y, 16);
+      acc[s][c].z += __shfl_xor_sync(kFull, acc[s][c].z, 16);
+      acc[s][c].w += __shfl_xor_sync(kFull, acc[s][c].w, 16);
+    }
+}
+
+__device__ __forceinline__ float4 pick(bool second, float4 a, float4 b) { return second ? b : a; }
+
+// ---- K3 -------------------------------------------------------------------------
+//
+// The chain as K3 runs it: every width a multiple of 8, a tile of `tile` points
+// (64, 32, 16 or 8), the last layer's output features in chunks of at most
+// `chunk`.  Shared memory holds rows of tile + 4 floats: z_k, the
+// pre-activation of layer k's input, for every layer (zrow[k] ...); p and q of
+// the current layer's input (pq_row ..., q max_in rows after p), over which
+// the last layer's running hbar sums go; the activated streams h, hp, hq of
+// the current layer's input (tmp_row ..., max_in rows apart); one chunk of
+// 2 z_L (chunk_row ...); and the chunk's quad partials, one row for four
+// output features (quad_row ...).
+struct K3Net {
+  int n_mid;
+  int w[kMaxMid + 1];
+  int p_off[kMaxMid];
+  int t_off[kMaxMid];
+  int zrow[kMaxMid];
+  int max_in;
+  int pq_row;
+  int tmp_row;
+  int chunk_row;
+  int quad_row;
+  int rows;
+  int tile;
+  int chunk;
+};
+
+// tmp = (act(z), act' p, act'' p^2 + act' q) of layer k's inputs
+template <int ACT>
+__device__ void k3_activate(float* sm, const K3Net& net, int sstride, int row, int k) {
+  const int T = net.tile;
+  const int win = net.w[k];
+  for (int idx = threadIdx.x; idx < win * T; idx += kThreads) {
+    const int i = idx / T;
+    const int c = idx - i * T;
+    const float* pq = sm + (net.pq_row + i) * row + c;
+    float* dst = sm + (net.tmp_row + i) * row + c;
+    float a0, a1, a2, a3;
+    act_d<ACT>(sm[(net.zrow[k] + i) * row + c], a0, a1, a2, a3);
+    const float p = pq[0];
+    dst[0] = a0;
+    dst[sstride] = a1 * p;
+    dst[2 * sstride] = a2 * p * p + a1 * pq[sstride];
+  }
+}
+
+// delta = hbar * act'(z) at four points
+template <int ACT>
+__device__ __forceinline__ float4 k3_step_back(float4 hb, float4 z) {
+  float a0, a1, a2, a3;
+  act_d<ACT>(z.x, a0, a1, a2, a3);
+  hb.x *= a1;
+  act_d<ACT>(z.y, a0, a1, a2, a3);
+  hb.y *= a1;
+  act_d<ACT>(z.z, a0, a1, a2, a3);
+  hb.z *= a1;
+  act_d<ACT>(z.w, a0, a1, a2, a3);
+  hb.w *= a1;
+  return hb;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 template <int ACT>
-__global__ void __launch_bounds__(kThreads)
-    k3_kernel(Net net, int n, const float* __restrict__ z1, const float* __restrict__ dz1,
+__global__ void __launch_bounds__(kThreads, 2)
+    k3_kernel(K3Net net, int n, const float* __restrict__ z1, const float* __restrict__ dz1,
               const float* __restrict__ d2z1, const float* __restrict__ params,
               const float* __restrict__ params_t, float* __restrict__ quad,
               float* __restrict__ delta) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* tmp = sm + 3 * net.rows * kRow;
-  const int base = blockIdx.x * kTile;
+  const int T = net.tile;
+  const int row = T + 4;
+  const int npg = T / 4;
+  const int sstride = net.max_in * row;  // floats between p and q, and between h, hp and hq
   const int w0 = net.w[0];
   const int L = net.n_mid;
+  const int base = blockIdx.x * T;
+  const int lane = threadIdx.x & 31;
+  const bool second = lane >= 16;
+  // this thread's item of a pass: 16 items a warp, each held by lane l and l + 16
+  const int slot = (threadIdx.x >> 5) * 16 + (lane & 15);
 
-  load_tile(srow(sm, net, 0, 0, 0), z1, base, n, w0);
-  load_tile(srow(sm, net, 1, 0, 0), dz1, base, n, w0);
-  load_tile(srow(sm, net, 2, 0, 0), d2z1, base, n, w0);
-  __syncthreads();
-  forward<3, ACT>(sm, tmp, net, params);
-
-  // quad = 2 sum_j (dz_L^2 + z_L d2z_L): one warp per point, f32
-  const int lane = threadIdx.x % 32;
-  for (int p = threadIdx.x / 32; p < kTile; p += kThreads / 32) {
-    float s = 0.0f;
-    for (int j = lane; j < net.w[L]; j += 32) {
-      const float z = srow(sm, net, 0, L, j)[p];
-      const float dz = srow(sm, net, 1, L, j)[p];
-      s += dz * dz + z * srow(sm, net, 2, L, j)[p];
-    }
+  // the tile's rows of z1 (to zrow[0]), dz1 and d2z1 (to p and q), 12 loads a
+  // thread in flight
+  {
+    const float* src[3] = {z1, dz1, d2z1};
+    float* dst[3] = {sm + net.zrow[0] * row, sm + net.pq_row * row, sm + net.pq_row * row + sstride};
+    const int live = min(T, n - base) * w0;  // floats of the tile that exist
+    for (int i0 = threadIdx.x; i0 < T * w0; i0 += 4 * kThreads) {
+      float v[4][3];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0 && base + p < n) quad[base + p] = 2.0f * s;
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+          const int idx = i0 + u * kThreads;
+          v[u][s] = idx < live ? src[s][static_cast<size_t>(base) * w0 + idx] : 0.0f;
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = i0 + u * kThreads;
+        if (idx < T * w0) {
+          const int c = idx / w0;
+          const int i = idx - c * w0;
+#pragma unroll
+          for (int s = 0; s < 3; ++s) dst[s][i * row + c] = v[u][s];
+        }
+      }
+    }
   }
+  __syncthreads();
 
-  // reverse sweep: delta_k = (delta_{k+1} W_k^T) * act'(z_k) from
-  // delta_L = 2 z_L, written over z_k.  The factor 2 is applied to the
-  // first product's sum (exact in floating point).
-  for (int k = L - 1; k >= 0; --k) {
+  // forward through the layers before the last: z_{k+1} to its rows, p and q
+  // over those of layer k (consumed by the activation)
+  for (int k = 0; k + 1 < L; ++k) {
+    k3_activate<ACT>(sm, net, sstride, row, k);
+    __syncthreads();
     const int win = net.w[k];
     const int wout = net.w[k + 1];
-    const float* __restrict__ Wt = params_t + net.t_off[k];
-    const float scale = k == L - 1 ? 2.0f : 1.0f;
-    for (int item = threadIdx.x; item < kGroups * win; item += kThreads) {
-      const int g = item / win;
-      const int i = item - g * win;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int j = 0; j < wout; ++j) {
-        fma4(acc, ld4(srow(sm, net, 0, k + 1, j) + g * kGroup), __ldg(Wt + static_cast<size_t>(j) * win + i));
+    const float* __restrict__ W = params + net.p_off[k];
+    const float* __restrict__ b = W + win * wout;
+    const int items = npg * (wout / 4);
+    const int mid = win / 2;
+    for (int ib = 0; ib < items; ib += kThreads / 2) {
+      const bool active = ib + slot < items;
+      const int item = active ? ib + slot : 0;
+      const int pg = item % npg;
+      const int jg = item / npg;
+      float4 o[3][4];
+      zero4(o);
+      product4<false>(o, W + (second ? mid : 0) * wout + jg * 4, wout,
+                      sm + (net.tmp_row + (second ? mid : 0)) * row + pg * 4, sstride, row, mid);
+      join_halves<false>(o);
+      if (!active) continue;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = jg * 4 + (second ? 2 : 0) + t;
+        const float bj = __ldg(b + j);
+        float4 z = pick(second, o[0][t], o[0][2 + t]);
+        z.x += bj;
+        z.y += bj;
+        z.z += bj;
+        z.w += bj;
+        st4(sm + (net.zrow[k + 1] + j) * row + pg * 4, z);
+        float* pq = sm + (net.pq_row + j) * row + pg * 4;
+        st4(pq, pick(second, o[1][t], o[1][2 + t]));
+        st4(pq + sstride, pick(second, o[2][t], o[2][2 + t]));
       }
-      float* zp = srow(sm, net, 0, k, i) + g * kGroup;
-      const float4 z = ld4(zp);
-      float a0, a1, a2, a3;
-      act_d<ACT>(z.x, a0, a1, a2, a3);
-      acc.x = acc.x * scale * a1;
-      act_d<ACT>(z.y, a0, a1, a2, a3);
-      acc.y = acc.y * scale * a1;
-      act_d<ACT>(z.z, a0, a1, a2, a3);
-      acc.z = acc.z * scale * a1;
-      act_d<ACT>(z.w, a0, a1, a2, a3);
-      acc.w = acc.w * scale * a1;
-      st4(zp, acc);
     }
     __syncthreads();
   }
-  store_tile(delta, srow(sm, net, 0, 0, 0), base, n, w0);
+  k3_activate<ACT>(sm, net, sstride, row, L - 1);
+  __syncthreads();
+
+  // the last layer, a chunk of its output features at a time: forward, the
+  // quad partials and 2 z_L of the chunk, then hbar += 2 z_L W_L^T over the
+  // chunk into running sums over the p rows, and after the last chunk the
+  // step back through act'(z_{L-1}), written over z_{L-1}
+  const int wl_in = net.w[L - 1];
+  const int wl = net.w[L];
+  const float* __restrict__ WL = params + net.p_off[L - 1];
+  const float* __restrict__ bL = WL + wl_in * wl;
+  const float* __restrict__ WLt = params_t + net.t_off[L - 1];
+  float* hbar = sm + net.pq_row * row;
+  float qsum = 0.0f;  // thread c < T: point c's sum of p_L^2 + z_L q_L over the chunks so far
+  for (int j0 = 0; j0 < wl; j0 += net.chunk) {
+    const int cn = min(net.chunk, wl - j0);
+    const bool last = j0 + cn == wl;
+    {
+      const int items = npg * (cn / 4);
+      const int mid = wl_in / 2;
+      for (int ib = 0; ib < items; ib += kThreads / 2) {
+        const bool active = ib + slot < items;
+        const int item = active ? ib + slot : 0;
+        const int pg = item % npg;
+        const int jg = item / npg;
+        float4 o[3][4];
+        zero4(o);
+        product4<false>(o, WL + (second ? mid : 0) * wl + j0 + jg * 4, wl,
+                        sm + (net.tmp_row + (second ? mid : 0)) * row + pg * 4, sstride, row, mid);
+        join_halves<false>(o);
+        // p^2 + z q of four points over this lane's two features, then the pair's four
+        float4 part = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (active) {
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int jc = jg * 4 + (second ? 2 : 0) + t;
+            const float bj = __ldg(bL + j0 + jc);
+            float4 z = pick(second, o[0][t], o[0][2 + t]);
+            const float4 p = pick(second, o[1][t], o[1][2 + t]);
+            const float4 q = pick(second, o[2][t], o[2][2 + t]);
+            z.x += bj;
+            z.y += bj;
+            z.z += bj;
+            z.w += bj;
+            part.x += p.x * p.x + z.x * q.x;
+            part.y += p.y * p.y + z.y * q.y;
+            part.z += p.z * p.z + z.z * q.z;
+            part.w += p.w * p.w + z.w * q.w;
+            st4(sm + (net.chunk_row + jc) * row + pg * 4,
+                make_float4(2.0f * z.x, 2.0f * z.y, 2.0f * z.z, 2.0f * z.w));
+          }
+        }
+        part.x += __shfl_xor_sync(kFull, part.x, 16);
+        part.y += __shfl_xor_sync(kFull, part.y, 16);
+        part.z += __shfl_xor_sync(kFull, part.z, 16);
+        part.w += __shfl_xor_sync(kFull, part.w, 16);
+        if (active && !second) st4(sm + (net.quad_row + jg) * row + pg * 4, part);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < T) {
+      float s = 0.0f;
+      for (int r = 0; r < cn / 4; ++r) s += sm[(net.quad_row + r) * row + threadIdx.x];
+      qsum += s;
+    }
+    {
+      const int items = npg * (wl_in / 4);
+      const int midc = cn / 2;
+      for (int ib = 0; ib < items; ib += kThreads / 2) {
+        const bool active = ib + slot < items;
+        const int item = active ? ib + slot : 0;
+        const int pg = item % npg;
+        const int ig = item / npg;
+        float4 o[1][4];
+        zero4(o);
+        product4<false>(o, WLt + (j0 + (second ? midc : 0)) * wl_in + ig * 4, wl_in,
+                        sm + (net.chunk_row + (second ? midc : 0)) * row + pg * 4, 0, row, midc);
+        join_halves<false>(o);
+        if (!active) continue;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int i = ig * 4 + (second ? 2 : 0) + t;
+          float4 h = pick(second, o[0][t], o[0][2 + t]);
+          float* hp = hbar + i * row + pg * 4;
+          if (j0 > 0) h = add4(ld4(hp), h);
+          if (last) {
+            float* zp = sm + (net.zrow[L - 1] + i) * row + pg * 4;
+            st4(zp, k3_step_back<ACT>(h, ld4(zp)));
+          } else {
+            st4(hp, h);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < T && base + static_cast<int>(threadIdx.x) < n) quad[base + threadIdx.x] = 2.0f * qsum;
+
+  // the layers before the last, in reverse: delta_k = (delta_{k+1} W_k^T) *
+  // act'(z_k), written over z_k
+  for (int k = L - 2; k >= 0; --k) {
+    const int win = net.w[k];
+    const int wout = net.w[k + 1];
+    const float* __restrict__ Wt = params_t + net.t_off[k];
+    const int items = npg * (win / 4);
+    const int mid = wout / 2;
+    for (int ib = 0; ib < items; ib += kThreads / 2) {
+      const bool active = ib + slot < items;
+      const int item = active ? ib + slot : 0;
+      const int pg = item % npg;
+      const int ig = item / npg;
+      float4 o[1][4];
+      zero4(o);
+      product4<false>(o, Wt + (second ? mid : 0) * win + ig * 4, win,
+                      sm + (net.zrow[k + 1] + (second ? mid : 0)) * row + pg * 4, 0, row, mid);
+      join_halves<false>(o);
+      if (!active) continue;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = ig * 4 + (second ? 2 : 0) + t;
+        float* zp = sm + (net.zrow[k] + i) * row + pg * 4;
+        st4(zp, k3_step_back<ACT>(pick(second, o[0][t], o[0][2 + t]), ld4(zp)));
+      }
+    }
+    __syncthreads();
+  }
+
+  const float* from = sm + net.zrow[0] * row;
+  for (int idx = threadIdx.x; idx < T * w0; idx += kThreads) {
+    const int c = idx / w0;
+    const int i = idx - c * w0;
+    if (base + c < n) delta[static_cast<size_t>(base + c) * w0 + i] = from[i * row + c];
+  }
 }
 
 // ---- K4 -------------------------------------------------------------------------
@@ -314,82 +537,10 @@ struct K4Net {
   int acc_shared;
 };
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// acc[s][c] (four points of output column c, stream s) += sum over `steps`
-// rows i (a multiple of 4) of X_s[i][four points] * W[i][c], from the rows W
-// and X point at: one float4 of weights (read-only cache) and one float4 a
-// stream (shared memory) feed 64 FMAs; with SKIPQ stream 2 is left out.  The
-// weights come from L2 more often than not (the block's shared memory leaves
-// little L1), so those of the next four rows are loaded while these four are
-// used.
-__device__ __forceinline__ void load_rows4(float4 (&w)[4], const float4* wp, int ldw4) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) w[u] = __ldg(wp + u * ldw4);
-}
-
-template <bool SKIPQ>
-__device__ __forceinline__ void fma_rows4(float4 (&acc)[4][4], const float4 (&w)[4], const float* X,
-                                          int sstride, int row) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (SKIPQ && s == 2) continue;
-      const float4 x = ld4(X + u * row + s * sstride);
-      fma4(acc[s][0], x, w[u].x);
-      fma4(acc[s][1], x, w[u].y);
-      fma4(acc[s][2], x, w[u].z);
-      fma4(acc[s][3], x, w[u].w);
-    }
-  }
-}
-
-template <bool SKIPQ>
-__device__ __forceinline__ void product4(float4 (&acc)[4][4], const float* __restrict__ W, int ldw,
-                                         const float* X, int sstride, int row, int steps) {
-  const float4* wp = reinterpret_cast<const float4*>(W);
-  const int ldw4 = ldw / 4;
-  float4 wa[4], wb[4];  // two sets of four rows, used in turns: no copy between them
-  load_rows4(wa, wp, ldw4);
-  for (int i = 0; i < steps; i += 8) {
-    const bool more = i + 4 < steps;
-    if (more) load_rows4(wb, wp + 4 * ldw4, ldw4);
-    fma_rows4<SKIPQ>(acc, wa, X, sstride, row);
-    wp += 8 * ldw4;
-    if (i + 8 < steps) load_rows4(wa, wp, ldw4);
-    if (more) fma_rows4<SKIPQ>(acc, wb, X + 4 * row, sstride, row);
-    X += 8 * row;
-  }
-}
-
-__device__ __forceinline__ void zero4(float4 (&acc)[4][4]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[s][c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-// Both halves of the warp end with the sums of the two halves' reductions.
-template <bool SKIPQ>
-__device__ __forceinline__ void join_halves(float4 (&acc)[4][4]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (SKIPQ && s == 2) continue;
-      acc[s][c].x += __shfl_xor_sync(kFull, acc[s][c].x, 16);
-      acc[s][c].y += __shfl_xor_sync(kFull, acc[s][c].y, 16);
-      acc[s][c].z += __shfl_xor_sync(kFull, acc[s][c].z, 16);
-      acc[s][c].w += __shfl_xor_sync(kFull, acc[s][c].w, 16);
-    }
-}
-
-__device__ __forceinline__ float4 pick(bool second, float4 a, float4 b) { return second ? b : a; }
-
-// tmp = the activated streams of layer k's inputs, as `activate`.  For the
-// last layer (LAST) also hr + g hq, the one stream that stands for hq and hr
-// in its weight gradients, into the rows at h3.
+// tmp = the activated streams of layer k's inputs: h = act(z), hp = act' p,
+// hq = act'' p^2 + act' q, hr = act' r.  For the last layer (LAST) also
+// hr + g hq, the one stream that stands for hq and hr in its weight
+// gradients, into the rows at h3.
 template <int ACT, bool LAST>
 __device__ void k4_activate(float* sm, const K4Net& net, int sstride, int row, int k,
                             const float* gq, float* h3) {
@@ -803,31 +954,40 @@ __global__ void k4_reduce(const float* __restrict__ partials, float* __restrict_
   grads[e] = s;
 }
 
-// Net from the widths; returns the parameter count, or -1 if invalid.
-int make_net(int n_mid, const int* widths, Net* net) {
+// K3's plan (tile, chunk) over the chain; returns the parameter count, or -1
+// if the chain or the plan is not one the kernel takes: widths in multiples
+// of 8, a tile of 8, 16, 32 or 64 points, a chunk in multiples of 8.
+int make_k3_net(int n_mid, const int* widths, int tile, int chunk, K3Net* net) {
   if (n_mid < 1 || n_mid > kMaxMid) return -1;
+  if ((tile != 8 && tile != 16 && tile != 32 && tile != 64) || chunk < 8 || chunk % 8 != 0) return -1;
   net->n_mid = n_mid;
   int p = 0, t = 0, row = 0, max_in = 0;
   for (int k = 0; k <= n_mid; ++k) {
-    if (widths[k] < 1) return -1;
+    if (widths[k] < 8 || widths[k] % 8 != 0) return -1;
     net->w[k] = widths[k];
-    net->row[k] = row;
-    row += widths[k];
   }
   for (int k = 0; k < n_mid; ++k) {
     net->p_off[k] = p;
     net->t_off[k] = t;
+    net->zrow[k] = row;
+    row += widths[k];
     p += widths[k] * widths[k + 1] + widths[k + 1];
     t += widths[k] * widths[k + 1];
     if (widths[k] > max_in) max_in = widths[k];
   }
-  net->rows = row;
-  net->tmp_rows = (max_in + 3) / 4 * 4;
+  net->max_in = max_in;
+  net->pq_row = row;
+  net->tmp_row = row + 2 * max_in;
+  net->chunk_row = row + 5 * max_in;
+  net->quad_row = net->chunk_row + chunk;
+  net->rows = net->quad_row + chunk / 4;
+  net->tile = tile;
+  net->chunk = chunk;
   return p;
 }
 
-size_t shared_bytes(const Net& net, int n_streams) {
-  return static_cast<size_t>(n_streams) * (net.rows + net.tmp_rows) * kRow * sizeof(float);
+size_t k3_shared_bytes(const K3Net& net) {
+  return static_cast<size_t>(net.rows) * (net.tile + 4) * sizeof(float);
 }
 
 // K4's plan (tile, chunk, acc_shared) over the chain; returns the parameter
@@ -875,6 +1035,13 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
 }
 
 template <int ACT>
+cudaError_t k3_blocks_per_sm(size_t smem, int* blocks) {
+  cudaError_t err = allow_shared(k3_kernel<ACT>, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k3_kernel<ACT>, kThreads, smem);
+}
+
+template <int ACT>
 cudaError_t k4_blocks_per_sm(size_t smem, int* blocks) {
   cudaError_t err = allow_shared(k4_kernel<ACT>, smem);
   if (err != cudaSuccess) return err;
@@ -889,16 +1056,41 @@ cudaError_t k4_blocks_per_sm(size_t smem, int* blocks) {
 // n_mid + 1 ints; params packs [W_k (row-major [w_k, w_{k+1}]), b_k] for
 // every layer k, params_t packs W_k^T.
 
-extern "C" int k3_mlp_grad_quad(int device, int act, int n_mid, const int* widths, int n,
-                                const float* z1, const float* dz1, const float* d2z1,
-                                const float* params, const float* params_t, float* quad,
-                                float* delta, void* stream) {
-  Net net;
-  if (n <= 0 || make_net(n_mid, widths, &net) < 0) return static_cast<int>(cudaErrorInvalidValue);
+// Dynamic shared memory of a K3 block under the plan, or -1 for a chain or a
+// plan the kernel does not take; the wrapper's k3_plan computes the same.
+extern "C" long long k3_shared_bytes_c(int n_mid, const int* widths, int tile, int chunk) {
+  K3Net net;
+  return make_k3_net(n_mid, widths, tile, chunk, &net) < 0 ? -1
+                                                          : static_cast<long long>(k3_shared_bytes(net));
+}
+
+// Resident K3 blocks per SM at `smem` bytes of dynamic shared memory.
+extern "C" int k3_max_blocks(int device, int act, int smem, int* blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = shared_bytes(net, 3);
-  const dim3 grid((n + kTile - 1) / kTile);
+  switch (act) {
+    case kTanh: err = k3_blocks_per_sm<kTanh>(smem, blocks); break;
+    case kSilu: err = k3_blocks_per_sm<kSilu>(smem, blocks); break;
+    case kSoftplus: err = k3_blocks_per_sm<kSoftplus>(smem, blocks); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// widths: the padded chain (multiples of 8); tile, chunk: the wrapper's plan;
+// one block a tile.
+extern "C" int k3_mlp_grad_quad(int device, int act, int n_mid, const int* widths, int n, int tile,
+                                int chunk, const float* z1, const float* dz1, const float* d2z1,
+                                const float* params, const float* params_t, float* quad,
+                                float* delta, void* stream) {
+  K3Net net;
+  if (n <= 0 || make_k3_net(n_mid, widths, tile, chunk, &net) < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k3_shared_bytes(net);
+  const dim3 grid((n + tile - 1) / tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (act) {
     case kTanh: err = allow_shared(k3_kernel<kTanh>, smem); break;

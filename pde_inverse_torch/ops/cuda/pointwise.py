@@ -16,11 +16,12 @@ VJP of K3 with respect to (mids, z1, dz1, d2z1) given the cotangents
 
 For a CUDA tensor each wrapper launches its kernel on the current stream
 and raises if the build or the launch fails; for a CPU tensor it runs its
-plain version.  K4 takes widths in multiples of 8: ``mlp_grad_quad_bwd``
-zero-pads any other chain (``pad_chain``) and drops the padded gradients
-(``unpad_grads``), which is exact; ``k4_plan`` chooses its tile of points,
-the chunk of the last layer's features and where the block keeps its
-weight-gradient sums.  ``mlp_grad_quad.launches`` and
+plain version.  Both kernels take widths in multiples of 8: the wrappers
+zero-pad any other chain (``pad_chain``) and drop the padded columns and
+gradients (``unpad_grads``), which is exact.  ``k3_plan`` chooses K3's tile
+of points, the chunk of the last layer's features and whether two blocks
+share an SM; ``k4_plan`` chooses K4's tile, chunk and where the block keeps
+its weight-gradient sums.  ``mlp_grad_quad.launches`` and
 ``mlp_grad_quad_bwd.launches`` count kernel launches (CPU calls do not
 count).  All arithmetic is float32.
 """
@@ -39,9 +40,10 @@ Mids = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 MAX_MID = 16  # layers after the first that the kernels take
 _ACTS = {"tanh": 0, "silu": 1, "softplus": 2}
-_TILE = 16  # points per K3 tile, csrc/pointwise.cu kTile
-_ROW = _TILE + 4  # floats per feature row of a K3 tile in shared memory
 _MAX_SHARED_BYTES = 227 * 1024  # a block's opt-in maximum on Hopper
+_SM_SHARED_BYTES = 228 * 1024  # an SM's, of which each resident block takes 1 KB beside its own
+K3_TILES = (64, 32, 16, 8)  # points per K3 tile, largest first
+K3_CHUNK = 64  # most output features of the last layer K3 holds at a time
 K4_THREADS = 256  # csrc/pointwise.cu kThreads
 K4_TILES = (64, 32, 16, 8)  # points per K4 tile, largest first
 K4_CHUNK = 64  # most output features of the last layer held at a time
@@ -109,22 +111,53 @@ def _library() -> ctypes.CDLL:
     if lib.k3_mlp_grad_quad.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         common = [ci, ci, ci, ctypes.POINTER(ci), ci]  # device, act, n_mid, widths, n
-        lib.k3_mlp_grad_quad.argtypes = common + [vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.k3_mlp_grad_quad.argtypes = common + [ci, ci] + [vp] * 8
         lib.k4_mlp_grad_quad_bwd.argtypes = common + [ci] * 4 + [vp] * 13
+        lib.k3_shared_bytes_c.argtypes = [ci, ctypes.POINTER(ci), ci, ci]
         lib.k4_shared_bytes_c.argtypes = [ci, ctypes.POINTER(ci), ci, ci, ci]
-        lib.k4_shared_bytes_c.restype = ctypes.c_longlong
-        lib.k4_max_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
-        for fn in (lib.k3_mlp_grad_quad, lib.k4_mlp_grad_quad_bwd, lib.k4_max_blocks):
+        lib.k3_shared_bytes_c.restype = lib.k4_shared_bytes_c.restype = ctypes.c_longlong
+        lib.k3_max_blocks.argtypes = lib.k4_max_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        for fn in (lib.k3_mlp_grad_quad, lib.k4_mlp_grad_quad_bwd, lib.k3_max_blocks, lib.k4_max_blocks):
             fn.restype = ci
     return lib
 
 
-def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
-    """Dynamic shared memory of one K3 block: every layer's streams for a
-    tile of points plus one activated copy of the widest layer input, rows
-    padded to a multiple of 4 features."""
-    rows = sum(widths) + (-(-max(widths[:-1]) // 4) * 4)
-    return n_streams * rows * _ROW * 4
+class K3Plan(NamedTuple):
+    """How K3 runs a chain: `widths` zero-padded to multiples of 8, `tile`
+    points a block, the last layer's output features in chunks of `chunk`,
+    `blocks_per_sm` blocks resident on an SM, `shared_bytes` a block."""
+
+    widths: Tuple[int, ...]
+    tile: int
+    chunk: int
+    blocks_per_sm: int
+    shared_bytes: int
+
+
+def k3_shared_bytes(widths: Sequence[int], tile: int, chunk: int) -> int:
+    """K3's dynamic shared memory a block (csrc/pointwise.cu): rows of tile +
+    4 floats -- the pre-activations of every layer's input, p and q of the
+    widest input, its activated copy (h, hp, hq), one chunk of 2 z_L, and a
+    row of quad partials for every four features of the chunk."""
+    rows = sum(widths[:-1]) + 5 * max(widths[:-1]) + chunk + chunk // 4
+    return 4 * rows * (tile + 4)
+
+
+def k3_plan(widths: Sequence[int]) -> K3Plan:
+    """K3's plan for the chain `widths` = [w0, the output widths of the
+    layers after the first]: the largest tile of which two blocks fit an SM
+    (the kernel's registers allow two), else the largest of which one does."""
+    if not 2 <= len(widths) <= MAX_MID + 1 or min(widths) < 1:
+        raise ValueError(f"K3 takes 1..{MAX_MID} layers of positive widths, got {list(widths)}")
+    padded = tuple(-(-w // 8) * 8 for w in widths)
+    chunk = min(K3_CHUNK, padded[-1])
+    for blocks in (2, 1):
+        for tile in K3_TILES:
+            smem = k3_shared_bytes(padded, tile, chunk)
+            if smem <= _MAX_SHARED_BYTES and blocks * (smem + 1024) <= _SM_SHARED_BYTES:
+                return K3Plan(padded, tile, chunk, blocks, smem)
+    raise ValueError(f"K3: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared "
+                     f"memory per block at every tile")
 
 
 class K4Plan(NamedTuple):
@@ -231,31 +264,35 @@ def _raise(err: int, name: str) -> None:
 
 
 def mlp_grad_quad(mids: Mids, act_name: str, z1, dz1, d2z1):
-    """(quad [n], delta [n, w0]).  CUDA tensors: the K3 kernel; CPU
-    tensors: ``mlp_grad_quad_plain``."""
+    """(quad [n], delta [n, w0]).  CUDA tensors: the K3 kernel under
+    ``k3_plan`` (a block a tile, nothing summed across points: two calls
+    give bitwise-equal results); CPU tensors: ``mlp_grad_quad_plain``."""
     if z1.device.type == "cpu":
         return mlp_grad_quad_plain(mids, act_name, z1, dz1, d2z1)
     if z1.device.type != "cuda" or z1.ndim != 2:
         raise ValueError(f"K3 takes [n, w0] CUDA or CPU tensors, got {tuple(z1.shape)} on {z1.device}")
     widths, params, params_t = _check(mids, act_name, (z1, dz1, d2z1), "K3")
     n, w0 = z1.shape
-    z1, dz1, d2z1 = (_rows(t, n, w0, "z1/dz1/d2z1") for t in (z1, dz1, d2z1))
-    smem = shared_bytes(widths, 3)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"K3: widths {widths} need {smem} B of shared memory per block, "
-                         f"more than {_MAX_SHARED_BYTES}")
+    rows = [_rows(t, n, w0, "z1/dz1/d2z1") for t in (z1, dz1, d2z1)]
+    plan = k3_plan(widths)
+    if list(plan.widths) != widths:
+        layers, rows = pad_chain(mids, plan.widths, rows)
+        _, params, params_t = _check(layers, act_name, rows, "K3")
+    z1, dz1, d2z1 = rows
     quad = torch.empty((n,), dtype=torch.float32, device=z1.device)
-    delta = torch.empty((n, w0), dtype=torch.float32, device=z1.device)
-    c_widths = (ctypes.c_int * len(widths))(*widths)
+    delta = torch.empty((n, plan.widths[0]), dtype=torch.float32, device=z1.device)
+    c_widths = (ctypes.c_int * len(plan.widths))(*plan.widths)
     err = _library().k3_mlp_grad_quad(
         z1.device.index if z1.device.index is not None else torch.cuda.current_device(),
-        _ACTS[act_name], len(mids), c_widths, n,
+        _ACTS[act_name], len(mids), c_widths, n, plan.tile, plan.chunk,
         z1.data_ptr(), dz1.data_ptr(), d2z1.data_ptr(), params.data_ptr(),
         params_t.data_ptr(), quad.data_ptr(), delta.data_ptr(),
         torch.cuda.current_stream(z1.device).cuda_stream,
     )
     _raise(err, "K3")
     mlp_grad_quad.launches += 1
+    if plan.widths[0] != w0:
+        delta = delta[:, :w0].contiguous()
     return quad, delta
 
 

@@ -299,12 +299,17 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting():
 
 
 def test_shared_memory_of_the_full_width_tile():
-    """At the preset's width (w0 = 64, layers 64->64->256) a K3 block holds
-    3 streams x (384 + 64) rows x 20 floats, and a K4 block of 32 points 4
-    streams x (128 saved + 64 activated + 64 of the last layer) rows x 36
-    floats, g_quad of the tile and its 20,800 weight-gradient sums: above
-    the 48 KB default, inside Hopper's 227 KB opt-in."""
-    assert tpk.shared_bytes([64, 64, 256], 3) == 3 * 448 * 20 * 4 == 107_520
+    """At the preset's width (w0 = 64, layers 64->64->256) a K3 block of 32
+    points holds 128 rows of pre-activations, p and q (128), the activated
+    copy (192), one chunk of 64 features of the last layer and its 16 rows
+    of quad partials, at 36 floats a row: two blocks fit an SM.  A K4 block
+    of 32 points holds 4 streams x (128 saved + 64 activated + 64 of the
+    last layer) rows x 36 floats, g_quad of the tile and its 20,800
+    weight-gradient sums: above the 48 KB default, inside Hopper's 227 KB
+    opt-in."""
+    plan = tpk.k3_plan([64, 64, 256])
+    assert plan == ((64, 64, 256), 32, 64, 2, 4 * (128 + 128 + 192 + 64 + 16) * 36)
+    assert plan.shared_bytes == 76_032 and 2 * (plan.shared_bytes + 1024) <= 228 * 1024
     plan = tpk.k4_plan([64, 64, 256])
     assert plan == ((64, 64, 256), 32, 64, True, 4 * (4 * 256 * 36 + 32 + 20_800))
     assert plan.shared_bytes == 230_784 <= 227 * 1024
@@ -372,3 +377,57 @@ def test_k4_padding_is_exact(act, widths):
     for got, want in zip(streams_bar, j_streams_bar):
         assert got.shape == want.shape
         _close(got, want, G_RTOL)
+
+
+# chain -> (tile, blocks a SM): 64 points where two such blocks fit, 32 at the
+# full width, 16 for 16 layers of 64 (1,424 rows)
+K3_CHAINS = {(64, 64, 256): (32, 2), (32, 32, 128): (64, 2), (20,) * 8 + (128,): (64, 2),
+             (8, 8, 4): (64, 2), (5, 7, 3): (64, 2), (64,) * 17: (16, 2), (64, 256): (32, 2),
+             (6, 100): (64, 2), (16,) * 13: (64, 2), (8, 4096): (64, 2)}
+
+
+@pytest.mark.parametrize("widths", list(K3_CHAINS), ids=lambda w: f"{len(w) - 1}x{max(w)}x{w[0]}")
+def test_k3_plan_fits_the_card(widths):
+    """Every chain K4 takes (and those the card tests run) gets widths in
+    multiples of 8, one of the kernel's tiles, a chunk of at most 64
+    features in multiples of 8, and at most 227 KB of shared memory a
+    block; with two blocks an SM, both fit in its 228 KB."""
+    plan = tpk.k3_plan(widths)
+    assert all(p % 8 == 0 and 0 <= p - w < 8 for p, w in zip(plan.widths, widths))
+    assert plan.tile in tpk.K3_TILES and plan.chunk == min(64, plan.widths[-1]) and plan.chunk % 8 == 0
+    assert plan.shared_bytes == tpk.k3_shared_bytes(plan.widths, plan.tile, plan.chunk) <= 227 * 1024
+    assert plan.blocks_per_sm * (plan.shared_bytes + 1024) <= 228 * 1024
+    assert (plan.tile, plan.blocks_per_sm) == K3_CHAINS[widths]
+    if widths in K4_CHAINS:
+        tpk.k4_plan(widths)
+
+
+@pytest.mark.parametrize("widths,match", [((8, 4096, 8), "shared memory"), ((64,) * 18, "layers"),
+                                          ((64,), "layers"), ((64, 0, 8), "positive")])
+def test_k3_plan_refuses_what_fits_no_tile(widths, match):
+    """A 4096-wide hidden layer needs 5 x 4096 rows at any tile; the kernel
+    takes 1..16 layers of positive widths."""
+    with pytest.raises(ValueError, match=match):
+        tpk.k3_plan(widths)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("widths", [(5, 7, 3), (6, 10), (12, 20, 8), (16, 24, 8)])
+def test_k3_padding_is_exact(act, widths):
+    """K3's plain version on the chain zero-padded as the wrapper pads it
+    gives, after the wrapper's slicing of delta, what ``_sums_jnp`` gives
+    for the unpadded chain (a padded feature adds 0.0 even where act(0) !=
+    0: its outgoing weights are zero; a padded output feature has z_L = p_L
+    = q_L = 0), within test_k3_plain_matches_sums_jnp's tolerances.
+    (16, 24, 8) needs no padding."""
+    mids, streams, _ = _stack(10, widths=widths, n=23)
+    plan = tpk.k3_plan(widths)
+    t_mids = _tmids(mids)
+    p_mids, p_rows = tpk.pad_chain(t_mids, plan.widths, _t(streams))
+    assert [tuple(W.shape) for W, _ in p_mids] == list(zip(plan.widths, plan.widths[1:]))
+    quad, delta = tpk.mlp_grad_quad_plain(p_mids, act, *p_rows)
+    delta = delta[:, :widths[0]]
+    want = jfp._sums_jnp(_jmids(mids), jmlp._ACTIVATIONS[act], jnp.float32, *map(jnp.asarray, streams))
+    assert quad.shape == want["quad"].shape and delta.shape == want["delta"].shape
+    _close(quad, want["quad"])
+    _close(delta, want["delta"])

@@ -76,9 +76,9 @@ FULL = (64, 64, 256)  # the KGMM-nonparametric-online preset's layers after the 
 OFFLINE = (32, 32, 128)  # the KGMM-nonparametric preset's
 
 
-# n on both sides of a boundary of K4's tile (32 points at the full width, 64
-# at the narrower preset's); a one-layer chain; a deep chain; chains the
-# wrapper pads to multiples of 8
+# n on both sides of a boundary of K3's and K4's tile (32 points at the full
+# width, 64 at the narrower preset's); a one-layer chain; a deep chain; chains
+# the wrapper pads to multiples of 8
 @pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
 @pytest.mark.parametrize("widths,n", [(FULL, 1), (FULL, 37), (FULL, 4099), ((8, 8, 4), 29),
                                       ((20,) * 8 + (128,), 300), ((5, 7, 3), 50),
@@ -98,7 +98,7 @@ def test_kernels_match_plain_versions(cuda, act, widths, n):
 def test_k4_takes_a_chain_of_16_layers(cuda):
     """16 layers of 64 leave K4 a tile of 8 points and no room for its sums,
     which it then keeps in its row of the partials in device memory (K3
-    holds every layer's streams and does not take this chain)."""
+    takes the chain too: test_k3_takes_a_chain_of_16_layers)."""
     widths = (64,) * 17
     assert pt.k4_plan(widths)[1:4] == (8, 64, False)
     mids, streams, cot = _inputs(cuda, widths, 19)
@@ -106,6 +106,53 @@ def test_k4_takes_a_chain_of_16_layers(cuda):
     _gate(mlp_grad_quad_bwd(mids, "tanh", *streams, *cot),
           mlp_grad_quad_bwd_plain(mids, "tanh", *streams, *cot),
           mlp_grad_quad_bwd_plain(mids64, "tanh", *streams64, *cot64))
+
+
+@pytest.mark.parametrize("act", ["tanh", "softplus"])
+@pytest.mark.parametrize("n", [15, 16, 17, 4_099])
+def test_k3_takes_a_chain_of_16_layers(cuda, act, n):
+    """16 layers of 64 keep 1,024 rows of pre-activations: K3 takes them at a
+    16-point tile, two blocks an SM; n on both sides of the tile."""
+    widths = (64,) * 17
+    assert pt.k3_plan(widths)[1:4] == (16, 64, 2)
+    mids, streams, _ = _inputs(cuda, widths, n)
+    mids64, streams64, _ = _inputs(cuda, widths, n, dtype=torch.float64)
+    _gate(mlp_grad_quad(mids, act, *streams), mlp_grad_quad_plain(mids, act, *streams),
+          mlp_grad_quad_plain(mids64, act, *streams64))
+
+
+@pytest.mark.parametrize("widths,n", [(FULL, 20_011), (OFFLINE, 4_097), ((5, 7, 3), 50)])
+def test_k3_is_bitwise_repeatable(cuda, widths, n):
+    mids, streams, _ = _inputs(cuda, widths, n)
+    a = mlp_grad_quad(mids, "tanh", *streams)
+    b = mlp_grad_quad(mids, "tanh", *streams)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_k3_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's for every tile at
+    every chain the tests and the presets use, the kernel refuses a chain
+    that is not padded, and as many blocks as the plan counts on are
+    resident on an SM, for each activation."""
+    lib = pt._library()
+    chains = [FULL, OFFLINE, (20,) * 8 + (128,), (8, 8, 4), (5, 7, 3), (64,) * 17, (64, 256),
+              (16,) * 13, (6, 100), (8, 4096)]
+    for widths in chains:
+        plan = pt.k3_plan(widths)
+        c_widths = (ctypes.c_int * len(plan.widths))(*plan.widths)
+        for tile in pt.K3_TILES:
+            assert lib.k3_shared_bytes_c(len(widths) - 1, c_widths, tile, plan.chunk) == \
+                pt.k3_shared_bytes(plan.widths, tile, plan.chunk)
+        assert lib.k3_shared_bytes_c(len(widths) - 1, c_widths, plan.tile, plan.chunk) == plan.shared_bytes
+    assert lib.k3_shared_bytes_c(2, (ctypes.c_int * 3)(5, 7, 3), 32, 8) == -1
+    assert lib.k3_shared_bytes_c(2, (ctypes.c_int * 3)(64, 64, 256), 24, 64) == -1
+    for widths in (FULL, OFFLINE, (64,) * 17):
+        plan = pt.k3_plan(widths)
+        for act in range(3):
+            per_sm = ctypes.c_int(0)
+            assert lib.k3_max_blocks(torch.cuda.current_device(), act, plan.shared_bytes,
+                                     ctypes.byref(per_sm)) == 0
+            assert per_sm.value == plan.blocks_per_sm, (widths, act, per_sm.value)
 
 
 def test_k4_is_bitwise_repeatable(cuda):
@@ -197,8 +244,9 @@ def test_wrappers_check_their_inputs(cuda):
         mlp_grad_quad([mids[1], mids[0]], "tanh", *streams)
     with pytest.raises(ValueError, match="derivative table"):
         mlp_grad_quad(mids, "gelu", *streams)
-    with pytest.raises(ValueError, match="shared memory"):
-        mlp_grad_quad([(torch.zeros((8, 4096), device=cuda), torch.zeros(4096, device=cuda))],
+    with pytest.raises(ValueError, match="shared memory"):  # a 4096-wide hidden layer fits no tile
+        mlp_grad_quad([(torch.zeros((8, 4096), device=cuda), torch.zeros(4096, device=cuda)),
+                       (torch.zeros((4096, 4), device=cuda), torch.zeros(4, device=cuda))],
                       "tanh", *streams)
     with pytest.raises(ValueError, match="g_quad"):
         mlp_grad_quad_bwd(mids, "tanh", *streams, cot[0][:5], cot[1])
