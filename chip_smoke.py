@@ -52,8 +52,11 @@ Phases, each printing its own line:
    counts read the same way;
 7. timing of every kernel against its plain version with CUDA events, K2
    against K1 at the offline shapes, K3 and K4 also at the XL and offline
-   steps' shapes, and S1-S3 beside one PyTorch call that computes the same
-   function.
+   steps' shapes, S1-S3 beside one PyTorch call that computes the same
+   function (S1 and S2 also by their device time, ``torch.profiler``), and
+   ``sum_rows``, the fixed-order row sum that finishes K7's and K8's partial
+   rows (S2's sum mode), at the KMV MLP's full-width partial shapes, bit for
+   bit against its plain version.
 
 The line before the last is a JSON object describing each kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -319,6 +322,7 @@ def main() -> None:
     from pde_inverse_torch.scripts import diag_packed_onchip as s1
     from pde_inverse_torch.scripts import microtest_blkdiag_dot as s3
     from pde_inverse_torch.scripts import microtest_sublane_reduce as s2
+    from pde_inverse_torch.scripts import time_diag
     from pde_inverse_torch.potentials import GMMPotential, QuadraticPotential
     from pde_inverse_torch.registry import get_method, get_pde_instance
 
@@ -759,10 +763,10 @@ def main() -> None:
 
     def zero_pair_launches():
         for fn in (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_packed,
-                   pw.mlp_pairwise_sums_packed_bwd):
+                   pw.mlp_pairwise_sums_packed_bwd, pw.sum_rows):
             fn.launches = 0
 
-    kmv_launches = {}
+    kmv_launches, sum_rows_launches = {}, {}
     for mode, extra, n_iter in (("auto", [], 20),
                                 ("on", [f"train.number_of_iterations={KMV_ON_STEPS}",
                                         f"train.steps_per_chunk={KMV_ON_STEPS // 2}",
@@ -780,13 +784,16 @@ def main() -> None:
         result_k = run(cfg_k, "cuda")
         torch.cuda.synchronize()
         launches_k = pair_launch()
+        sum_rows_launches[mode] = pw.sum_rows.launches  # S2's sum mode: 4 a step (K5 + K6, K7 + K8)
         peak_k = torch.cuda.max_memory_allocated()
         check(len(result_k.losses) == n_iter and bool(np.isfinite(result_k.losses).all()),
               f"KMV {mode} losses not finite: {result_k.losses}")
         pair = ("K7", "K8") if mode == "auto" else ("K5", "K6")
         others = [k for k in launches_k if k not in pair]
-        check(all(launches_k[k] >= n_iter for k in pair) and all(launches_k[k] == 0 for k in others),
-              f"KMV kmv_pallas={mode}: launches {launches_k} in {n_iter} steps")
+        check(all(launches_k[k] >= n_iter for k in pair) and all(launches_k[k] == 0 for k in others)
+              and sum_rows_launches[mode] >= 4 * n_iter,
+              f"KMV kmv_pallas={mode}: launches {launches_k}, sum_rows {sum_rows_launches[mode]} in "
+              f"{n_iter} steps")
         metrics_k = {**result_k.test_metrics, **result_k.result_metrics}
         check(len(result_k.result_metrics) == 1 and all(math.isfinite(v) for v in metrics_k.values()),
               f"KMV test metrics not finite: {metrics_k}")
@@ -795,7 +802,7 @@ def main() -> None:
               f"the same stamp: {KMV_NT * KMV_N * KMV_N} pairs per step; PotentialMLP 2->20x8->128 "
               f"tanh), kmv_pallas={mode}: {n_iter} steps, loss {result_k.losses[0]:.4e} -> "
               f"{result_k.losses[-1]:.4e}, {result_k.test_metrics['steps_per_sec']:.3f} steps/s, "
-              f"launches {launches_k}, peak memory {peak_k} B ({peak_k / 2**30:.3f} GiB); result "
+              f"launches {launches_k}, sum_rows {sum_rows_launches[mode]}, peak memory {peak_k} B ({peak_k / 2**30:.3f} GiB); result "
               + " ".join(f"{k}={v:.4e}" for k, v in result_k.result_metrics.items()), flush=True)
 
     # parametric KMV (closed form, no kernel)
@@ -1019,9 +1026,9 @@ def main() -> None:
     check(s1_out["ok"] and s1_launches >= 5, f"S1: {s1_out}, launches {s1_launches}")
     print(f"[s1] DIAG OK: {s1_out['checks']} checks, {s1_launches} launches, largest kernel-vs-plain "
           f"difference {s1_out['max_abs_err']:.3e}", flush=True)
-    pw.sum_rows.launches = mma_tf32.tf32_matmul.launches = 0
+    pw.sum_rows.launches = mma_tf32.column_sum.launches = 0
     s2_out = s2.run("cuda")
-    s2_launches = pw.sum_rows.launches + mma_tf32.tf32_matmul.launches
+    s2_launches = pw.sum_rows.launches + mma_tf32.column_sum.launches
     check(s2_out["ok"] and s2_launches == 9, f"S2: {s2_out}, launches {s2_launches}")
     print(f"[s2] axis-0 sums within their rounding bounds, {s2_launches} launches; rel(cancel-scale) "
           + "; ".join(f"{R}x{w} {mode} {r:.3e}" for R, w, mode, _, _, r in s2_out["rows"]), flush=True)
@@ -1117,16 +1124,32 @@ def main() -> None:
     l_fn = lambda: ax_s[None] - ar_s[:, None]
     p1, k1, k2, p2 = time_ms(p_fn, 200), time_ms(k_fn, 200), time_ms(k_fn, 200), time_ms(p_fn, 200)
     times["S1"], library["S1"] = ((k1 + k2) / 2, (p1 + p2) / 2), time_ms(l_fn, 200)
+    dev_k, dev_l = time_diag.times(k_fn, 200), time_diag.times(l_fn, 200)
     print(f"[timing] S1 pair rows ({s1.BI} points x {s1.N_REFS} refs, width {s1.W0}): kernel "
           f"{times['S1'][0]:.4f} ms, plain torch {times['S1'][1]:.4f} ms, one PyTorch call "
-          f"(ax[None] - ar[:, None]) {library['S1']:.4f} ms", flush=True)
+          f"(ax[None] - ar[:, None]) {library['S1']:.4f} ms; device time (torch.profiler, 200 calls): "
+          f"kernel {dev_k['device_ms']:.4f} ms, PyTorch call {dev_l['device_ms']:.4f} ms", flush=True)
     x_s = torch.from_numpy(s2.inputs(2048, 120)).to(dev)
     s2_times = {mode: time_ms(lambda: s2.reduce(mode, x_s), 200) for mode in s2.MODES}
     s2_plain = {mode: time_ms(lambda: s2.reduce_plain(mode, x_s), 20) for mode in s2.MODES}
+    s2_dev = {mode: time_diag.times(lambda: s2.reduce(mode, x_s), 200)["device_ms"] for mode in s2.MODES}
     times["S2"], library["S2"] = (s2_times["dot"], s2_plain["dot"]), time_ms(lambda: x_s.sum(0), 200)
+    lib_dev = time_diag.times(lambda: x_s.sum(0), 200)["device_ms"]
     print("[timing] S2 axis-0 sum of [2048, 120]: " + ", ".join(
-        f"{mode} kernel {s2_times[mode]:.4f} ms (plain {s2_plain[mode]:.4f} ms)" for mode in s2.MODES)
-        + f"; one PyTorch call x.sum(0) {library['S2']:.4f} ms", flush=True)
+        f"{mode} kernel {s2_times[mode]:.4f} ms (device {s2_dev[mode]:.4f} ms; plain {s2_plain[mode]:.4f} ms)"
+        for mode in s2.MODES)
+        + f"; one PyTorch call x.sum(0) {library['S2']:.4f} ms (device {lib_dev:.4f} ms)", flush=True)
+    # sum_rows at the partial rows K7 and K8 finish on the KMV MLP path
+    for what, (rows, cols) in time_diag.kmv_partial_shapes(dev).items():
+        part = torch.randn((rows, cols), generator=gen_s).to(dev)
+        check(torch.equal(pw.sum_rows(part), pw.sum_rows_plain(part)),
+              f"sum_rows {what} [{rows}, {cols}] differs from its plain version")
+        t_rows = time_diag.times(lambda: pw.sum_rows(part), 50)
+        print(f"[timing] sum_rows {what} ({rows} rows x {cols} columns, bitwise its plain version): device "
+              f"{t_rows['device_ms']:.4f} ms, call {t_rows['call_ms']:.4f} ms, bound "
+              f"{1e3 * 4 * (rows + 1) * cols / PEAK_BYTES_PER_S:.4f} ms (bytes); one PyTorch call "
+              f"part.sum(0) {time_ms(lambda: part.sum(0), 50):.4f} ms", flush=True)
+        del part
     x3, W3 = (torch.from_numpy(a).to(dev) for a in s3.inputs(2048, 20, 6))
     s3_times = {prec: time_ms(lambda: mma_tf32.tf32_matmul(x3, W3, prec), 200) for prec in ("tf32", "3xtf32")}
     s3_plain = {prec: time_ms(lambda: mma_tf32.tf32_matmul_plain(x3, W3, prec), 50)
@@ -1164,7 +1187,7 @@ def main() -> None:
     bounds["K8"] = bound(x_bytes, 2 * pairs * (4 * (Fh + wm) + 2 * wm + 8 * Fh))
     bounds["S1"] = bound(4 * (2 * s1.BI * s1.W0 + s1.N_REFS * s1.W0 + 2 * s1.N_REFS * s1.BI * s1.W0),
                          float(s1.N_REFS * s1.BI * s1.W0))
-    bounds["S2"] = bound(4 * (2048 * 120 + 2048 + 120), 2.0 * 2048 * 120, PEAK_TF32_FLOPS)
+    bounds["S2"] = bound(4 * (2048 * 120 + 120), 2.0 * 2048 * 120, PEAK_TF32_FLOPS)  # the ones are registers
     bounds["S3"] = bound(4 * (2 * 2048 * 120 + 120 * 120), 2.0 * 2048 * 120 * 120, PEAK_TF32_FLOPS)
     print("[bounds] least time per kernel at the timed shapes (larger of bytes / 3.35 TB/s and "
           "operations / 67 TFLOP/s FP32 or 494.7 TFLOP/s TF32): "
@@ -1215,9 +1238,11 @@ def main() -> None:
         row("S1", "S1 single-block checks of K5-K8's constructs (timed: pair rows)",
             "pde_inverse_torch/csrc/pairwise.cu", "scripts/diag_packed_onchip.py:47", s1_launches,
             s1_out["max_abs_err"], *times["S1"]),
-        row("S2", "S2 axis-0 sum of [2048, 120] (timed: TF32 ones-row mma.sync)",
-            "pde_inverse_torch/csrc/mma_tf32.cu", "scripts/microtest_sublane_reduce.py:47", s2_launches,
-            s2_out["max_abs_err"], *times["S2"]),
+        # launches: its sum mode, sum_rows, in the kmv_pallas=auto run (K7 once, K8 three times a step)
+        row("S2", "S2 axis-0 sum of [2048, 120]: sum_rows (launched on the KMV MLP path) and the TF32 "
+            "column sum (timed: mma.sync, ones in registers)", "pde_inverse_torch/csrc/mma_tf32.cu",
+            "scripts/microtest_sublane_reduce.py:47", sum_rows_launches["auto"], s2_out["max_abs_err"],
+            *times["S2"]),
         row("S3", "S3 block-diagonal [2048, 120] x [120, 120] (timed: TF32 mma.sync, x @ W)",
             "pde_inverse_torch/csrc/mma_tf32.cu", "scripts/microtest_blkdiag_dot.py:37", s3_launches,
             s3_out["max_abs_err"], *times["S3"]),

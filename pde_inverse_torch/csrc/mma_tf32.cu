@@ -28,10 +28,27 @@
 // the error envelope of TF32 and 3xTF32 products at the KMV MLP's width 20,
 // which a tensor-core redesign of K7/K8 needs.  Fast tensor-core products
 // (wgmma, TMA, shared-memory staging) are later work.
+//
+// S2's ones-row product has a kernel of its own, tf32_column_sum_kernel:
+// out[c] = sum_r x[r][c] as the m16n8k8 product x^T [w, R] @ ones [R, 8]
+// with x on the A side (a warp's A fragment is 16 columns x 8 rows of x, so
+// the M dimension carries 16 live columns) and the ones operand a constant
+// register fragment (TF32 1.0 is exact; nothing is loaded for it).  3xTF32
+// keeps two products a k-step, small(x) then big(x): small(1) = 0, so the
+// big_a @ small_b product is exactly zero and dropped.  The rows are split
+// into the chunks of csrc/row_chunks.cuh (a multiple of 8 rows, at least
+// 64), a warp runs one chunk's k-steps for its 16 columns with the C
+// fragment as the running sum (the loads of four k-steps issued before their
+// products), and the block of rank 0 of the cluster adds the chunk sums in
+// chunk order through distributed shared memory.  The general
+// tf32_gemm_kernel on ones [1, R] @ x would give [2048, 120] 15 warps of 256
+// dependent k-steps each, 15 of A's 16 rows zero, and a ones row to fill.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "row_chunks.cuh"
 
 namespace {
 
@@ -104,7 +121,94 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
+constexpr uint32_t kOneTf32 = 0x3f800000u;  // 1.0f, exact in TF32
+
+// out [w] = the column sums of x [R, w] (row-major) on the tensor cores in
+// TF32 (SPLIT false) or 3xTF32, in the chunk order of plan p (16-column
+// slabs).
+template <bool SPLIT>
+__global__ void __launch_bounds__(32 * row_chunks::kWarps)
+    tf32_column_sum_kernel(const float* __restrict__ x, float* __restrict__ out, int R, int w,
+                           row_chunks::Plan p) {
+  __shared__ float sums[row_chunks::kWarps * 16];  // [warp][column of its slab]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  int chunk, slab;
+  row_chunks::position(p, warp, &chunk, &slab);
+  const int col0 = (static_cast<int>(blockIdx.x) * p.slabs_per_block + slab) * 16;
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (chunk < p.n_chunks && col0 < w) {  // warp-uniform, as mma.sync needs
+    const bool lo = col0 + g < w;
+    const bool hi = col0 + g + 8 < w;
+    const uint32_t ones[2] = {kOneTf32, kOneTf32};
+    const int r1 = min(R, (chunk + 1) * p.chunk);
+    for (int k0 = chunk * p.chunk; k0 < r1; k0 += 32) {
+      // A fragments of four k-steps: a0 (col g, row t), a1 (g + 8, t),
+      // a2 (g, t + 4), a3 (g + 8, t + 4); rows past the chunk load 0
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ra = k0 + 8 * i + t;
+        const int rb = ra + 4;
+        const float* xa = x + static_cast<size_t>(ra) * w + col0 + g;
+        const float* xb = x + static_cast<size_t>(rb) * w + col0 + g;
+        v[i][0] = lo && ra < r1 ? __ldg(xa) : 0.0f;
+        v[i][1] = hi && ra < r1 ? __ldg(xa + 8) : 0.0f;
+        v[i][2] = lo && rb < r1 ? __ldg(xb) : 0.0f;
+        v[i][3] = hi && rb < r1 ? __ldg(xb + 8) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (k0 + 8 * i >= r1) break;  // warp-uniform
+        uint32_t big[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) big[j] = to_tf32(v[i][j]);
+        if constexpr (SPLIT) {
+          uint32_t small[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) small[j] = to_tf32(v[i][j] - __uint_as_float(big[j]));
+          mma_tf32(d, small, ones);
+        }
+        mma_tf32(d, big, ones);
+      }
+    }
+  }
+  // every C column is the same sum: d[0] is column col0 + g, d[2] col0 + g + 8
+  if (p.n_chunks == 1) {  // grid-uniform: the chunk sum is the sum
+    if (t == 0 && col0 + g < w) out[col0 + g] = d[0];
+    if (t == 0 && col0 + g + 8 < w) out[col0 + g + 8] = d[2];
+    return;
+  }
+  if (t == 0) {
+    sums[warp * 16 + g] = d[0];
+    sums[warp * 16 + g + 8] = d[2];
+  }
+  row_chunks::sync(p);
+  // warp w < slabs_per_block of rank 0 holds chunk 0 of slab w
+  if (blockIdx.y == 0 && warp < p.slabs_per_block && lane < 16 && col0 + lane < w) {
+    out[col0 + lane] = row_chunks::add_chunks<16>(p, sums, slab, lane);
+  }
+  row_chunks::sync(p);  // no block leaves while rank 0 reads its shared memory
+}
+
 }  // namespace
+
+// S2's column sum: out [w] = sum over the rows of x [R, w] (row-major) on
+// `stream` in TF32 (split = 0) or 3xTF32 (split = 1); returns a CUDA error
+// code (0 on success).
+extern "C" int tf32_column_sum(int device, int split, int R, int w, const float* x, float* out,
+                               void* stream) {
+  if (R <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const row_chunks::Plan p = row_chunks::plan(R, w, 16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = split ? row_chunks::launch(p, st, tf32_column_sum_kernel<true>, x, out, R, w, p)
+              : row_chunks::launch(p, st, tf32_column_sum_kernel<false>, x, out, R, w, p);
+  return static_cast<int>(err);
+}
 
 // Plain C entry point, bound with ctypes: C = A @ B on `stream` in TF32
 // (split = 0) or 3xTF32 (split = 1); returns a CUDA error code (0 on

@@ -192,17 +192,31 @@
 //   inputs are a few MB), and under them the shared-memory operands: the
 //   weight-gradient product still loads one float per two FMAs.
 //
+// sum_rows, the fixed-order row sum that finishes every kernel's partial rows
+// (K5 and K7 one launch a call, K6 and K8 three), keeps its order a function
+// of (rows, len) alone: chunks of at least 64 consecutive rows, each summed by
+// one warp for 32 columns, the chunk sums added in chunk order through a
+// thread-block cluster's distributed shared memory (csrc/row_chunks.cuh).
+// A thread a column walking every row would give K8's weight-gradient
+// partials (896 rows x 3,360 columns at the KMV main path) 14 blocks on 132
+// SMs, each thread 896 dependent adds.  What bounds it: bytes (each partial
+// read once; 12 MB there, 3.6 us at 3.35 TB/s).
+//
 // S1, the checks of scripts/diag_packed_onchip.py (replacing its Pallas
 // kernels, which checked the TPU kernels' lane-packing constructs), are the
-// s1_* entry points at the end: single-block kernels built from the very
-// device functions above (pair_rows, forward_product on an M layer,
-// sum_rows), so that they test what K5 and K6 run; of K7's and K8's
-// constructs they cover sum_rows only (the wrappers s1_packed_sums and
-// s1_packed_sums_bwd run the whole K7 and K8 with one ref split).
+// s1_* entry points at the end, built from the very device functions above
+// (pair_rows, forward_product on an M layer, sum_rows), so that they test
+// what K5 and K6 run; of K7's and K8's constructs they cover sum_rows only
+// (the wrappers s1_packed_sums and s1_packed_sums_bwd run the whole K7 and K8
+// with one ref split).  The pair rows run a block a ref, with no loop over
+// refs and its barriers; the M layer runs in one block; both set their
+// shared-memory limit once per process, not per call.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "row_chunks.cuh"
 
 namespace {
 
@@ -215,6 +229,7 @@ constexpr int kMaxMid = 17;        // 16 layers after the first, plus M
 constexpr int kTanh = 0;
 constexpr int kSilu = 1;
 constexpr int kSoftplus = 2;
+static_assert(kThreads == 32 * row_chunks::kWarps, "sum_rows_kernel runs row_chunks::kWarps warps a block");
 
 struct Net {
   int n_mid;
@@ -1436,44 +1451,86 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[e] = sum over rows r, in order, of part[r][e]
-__global__ void sum_rows(const float* __restrict__ part, float* __restrict__ out, int rows, size_t len) {
-  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+// out[e] = sum over rows r of part[r][e] in row order (one chunk, rows <=
+// chunk): a thread a column, the columns of a warp one coalesced 128-byte
+// line a row.  A kernel of its own: with the chunked kernel's registers a
+// block would leave an SM a quarter fewer warps to keep loads in flight.
+__global__ void __launch_bounds__(kThreads)
+    sum_rows_in_order_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, size_t len) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= len) return;
   float s = 0.0f;
   for (int r = 0; r < rows; ++r) s += part[static_cast<size_t>(r) * len + e];
   out[e] = s;
 }
 
-cudaError_t launch_sum_rows(const float* part, float* out, int rows, size_t len, cudaStream_t st) {
-  const unsigned grid = static_cast<unsigned>((len + kThreads - 1) / kThreads);
-  sum_rows<<<grid, kThreads, 0, st>>>(part, out, rows, len);
-  return cudaGetLastError();
+// out[e] = sum over rows r of part[r][e] in the chunk order of
+// csrc/row_chunks.cuh (two chunks or more): a warp sums one chunk of rows
+// for 32 columns (a lane a column, 16 loads in flight a lane), and the block
+// of rank 0 adds the chunk sums in chunk order.
+__global__ void __launch_bounds__(kThreads)
+    sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, size_t len,
+                    row_chunks::Plan p) {
+  __shared__ float sums[kThreads];  // [warp][lane]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int chunk, slab;
+  row_chunks::position(p, warp, &chunk, &slab);
+  const size_t e = (static_cast<size_t>(blockIdx.x) * p.slabs_per_block + slab) * 32 + lane;
+  float s = 0.0f;
+  if (chunk < p.n_chunks && e < len) {
+    const float* __restrict__ col = part + e;
+    const int r1 = min(rows, (chunk + 1) * p.chunk);
+    int r = chunk * p.chunk;
+    for (; r + 16 <= r1; r += 16) {
+      float v[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = __ldg(col + static_cast<size_t>(r + i) * len);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s += v[i];
+    }
+    for (; r < r1; ++r) s += __ldg(col + static_cast<size_t>(r) * len);
+  }
+  sums[threadIdx.x] = s;
+  row_chunks::sync(p);
+  // warp w < slabs_per_block of rank 0 holds chunk 0 of slab w
+  if (blockIdx.y == 0 && warp < p.slabs_per_block && e < len) {
+    out[e] = row_chunks::add_chunks<32>(p, sums, slab, lane);
+  }
+  row_chunks::sync(p);  // no block leaves while rank 0 reads its shared memory
 }
 
-// S1: the tile's pair rows against each of m refs, out of pair_rows<3>:
-// z_out, dz_out [m, n, w0] (n <= kTile points, one block).
+cudaError_t launch_sum_rows(const float* part, float* out, int rows, size_t len, cudaStream_t st) {
+  const row_chunks::Plan p = row_chunks::plan(rows, static_cast<long long>(len), 32);
+  if (p.blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (p.n_chunks == 1) {  // the plan's blocks hold kThreads columns each
+    sum_rows_in_order_kernel<<<static_cast<unsigned>(p.blocks), kThreads, 0, st>>>(part, out, rows, len);
+    return cudaGetLastError();
+  }
+  return row_chunks::launch(p, st, sum_rows_kernel, part, out, rows, len, p);
+}
+
+// S1: the tile's pair rows against ref blockIdx.x, out of pair_rows<3>:
+// z_out, dz_out [m, n, w0] (n <= kTile points, one block a ref).
 __global__ void __launch_bounds__(kThreads)
-    s1_pair_rows_kernel(Net net, int n, int m, const float* __restrict__ ax,
-                        const float* __restrict__ av, const float* __restrict__ ar,
-                        float* __restrict__ z_out, float* __restrict__ dz_out) {
+    s1_pair_rows_kernel(Net net, int n, const float* __restrict__ ax, const float* __restrict__ av,
+                        const float* __restrict__ ar, float* __restrict__ z_out,
+                        float* __restrict__ dz_out) {
   extern __shared__ float4 smem4[];
   const Smem S = carve(reinterpret_cast<float*>(smem4), net, 3);
   const int w0 = net.w[0];
+  const int j = blockIdx.x;
   load_points(S.cax, ax, 0, 0, n, w0);
   load_points(S.cav, av, 0, 0, n, w0);
   __syncthreads();
-  for (int j = 0; j < m; ++j) {
-    pair_rows<3>(S, net, ar + static_cast<size_t>(j) * w0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n * w0; idx += kThreads) {
-      const int p = idx / w0;
-      const int f = idx - p * w0;
-      const size_t o = (static_cast<size_t>(j) * n + p) * w0 + f;
-      z_out[o] = srow(S, net, 0, 0, f)[p];
-      dz_out[o] = srow(S, net, 1, 0, f)[p];
-    }
-    __syncthreads();
+  pair_rows<3>(S, net, ar + static_cast<size_t>(j) * w0);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n * w0; idx += kThreads) {
+    const int p = idx / w0;
+    const int f = idx - p * w0;
+    const size_t o = (static_cast<size_t>(j) * n + p) * w0 + f;
+    z_out[o] = srow(S, net, 0, 0, f)[p];
+    dz_out[o] = srow(S, net, 1, 0, f)[p];
   }
 }
 
@@ -1536,6 +1593,21 @@ template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
+
+// allow_shared for the S1 kernels, whose calls take microseconds: the
+// attribute is set again only when a call needs more than it allows, once per
+// device and process for a fixed shape
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t allow_shared_once(Kernel kernel, size_t smem, int device, size_t (&allowed)[kMaxDevices]) {
+  if (device < 0 || device >= kMaxDevices) return allow_shared(kernel, smem);
+  if (smem <= allowed[device]) return cudaSuccess;
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err == cudaSuccess) allowed[device] = smem;
+  return err;
+}
+size_t s1_pair_rows_allowed[kMaxDevices];
+size_t s1_m_layer_allowed[kMaxDevices];
 
 template <typename Kernel>
 cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
@@ -1774,7 +1846,7 @@ extern "C" int pw_sums_bwd(int device, int act, int n_mid, const int* widths, in
       launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
 }
 
-// S1: pair rows of n <= 32 points against m refs (one block): ax, av
+// S1: pair rows of n <= 32 points against m refs (a block a ref): ax, av
 // [n, w0], ar [m, w0] -> z_out, dz_out [m, n, w0].
 extern "C" int s1_pair_rows(int device, int w0, int n, int m, const float* ax, const float* av,
                             const float* ar, float* z_out, float* dz_out, void* stream) {
@@ -1786,10 +1858,10 @@ extern "C" int s1_pair_rows(int device, int w0, int n, int m, const float* ax, c
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = shared_bytes(net, 3);
-  err = allow_shared(s1_pair_rows_kernel, smem);
+  err = allow_shared_once(s1_pair_rows_kernel, smem, device, s1_pair_rows_allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  s1_pair_rows_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      net, n, m, ax, av, ar, z_out, dz_out);
+  s1_pair_rows_kernel<<<m, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(net, n, ax, av, ar, z_out,
+                                                                                dz_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1805,14 +1877,24 @@ extern "C" int s1_m_layer(int device, int w, int n, const float* g3, const float
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = shared_bytes(net, 3);
-  err = allow_shared(s1_m_layer_kernel, smem);
+  err = allow_shared_once(s1_m_layer_kernel, smem, device, s1_m_layer_allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   s1_m_layer_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(net, n, g3, params, out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The plan of sum_rows (csrc/row_chunks.cuh) for [rows, len] in slabs of
+// `slab` columns: out = chunk, n_chunks, warps_per_slab, cluster,
+// slabs_per_block, blocks (the Python twin is ops/cuda/pairwise.py
+// sum_rows_plan).
+extern "C" void sum_rows_plan_c(long long rows, long long len, int slab, long long* out) {
+  const row_chunks::Plan p = row_chunks::plan(rows, len, slab);
+  const long long v[6] = {p.chunk, p.n_chunks, p.warps_per_slab, p.cluster, p.slabs_per_block, p.blocks};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+}
+
 // The fixed-order row sum that finishes K5-K8's partial rows, for S1 and
-// S2: part [rows, len] -> out [len], out[e] = sum over r in order.
+// S2: part [rows, len] -> out [len] in the order of csrc/row_chunks.cuh.
 extern "C" int pw_sum_rows(int device, const float* part, float* out, int rows, long long len,
                            void* stream) {
   if (rows <= 0 || len <= 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -2,10 +2,10 @@
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 compiles ``pde_inverse_torch/csrc/<name>.cu`` into
-``pde_inverse_torch/_build/lib<name>-<hash>.so`` (the hash covers the source
-and the flags), at first use; the library is loaded with ctypes.  A failed
-build raises.  ``nvcc`` is taken from ``$CUDA_HOME/bin`` (default
-``/usr/local/cuda``) or from ``PATH``.
+``pde_inverse_torch/_build/lib<name>-<hash>.so`` (the hash covers the source,
+the headers of ``csrc/`` and the flags), at first use; the library is loaded
+with ctypes.  A failed build raises.  ``nvcc`` is taken from
+``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or from ``PATH``.
 """
 
 from __future__ import annotations
@@ -42,9 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for csrc/<name>.cu lands, keyed by source and flags."""
+    """Where the library for csrc/<name>.cu lands, keyed by source, the
+    headers of csrc/ and flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

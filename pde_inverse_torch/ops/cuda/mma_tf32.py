@@ -11,14 +11,16 @@ a [M, K], b [K, N] (or [N, K]) float32:
   big @ small + small @ big + big @ big -- the counterpart of
   ``Precision.HIGHEST``.
 
-S2's ones-row product (``column_sum``) is ``tf32_matmul(ones [1, R], x)``;
-its plain-f32 mode is the fixed-order row sum of K5-K8
-(``ops/cuda/pairwise.py::sum_rows``).  For a CUDA tensor the wrapper
-launches the kernel on the current stream and raises if the build or the
-launch fails; for a CPU tensor it runs ``tf32_matmul_plain``, which rounds
-the operands the same way and multiplies in float32 (the products of TF32
-values are exact in float32; only the order of the sums differs).
-``tf32_matmul.launches`` counts kernel launches.
+S2's ones-row product ``column_sum(x, precision)`` is the column sum of x
+[R, w] as x^T @ ones on the tensor cores, in a kernel of its own (the ones
+operand a register constant, the rows split into the chunks of
+``pairwise.sum_rows_plan``); its plain-f32 mode is the fixed-order row sum
+of K5-K8 (``ops/cuda/pairwise.py::sum_rows``).  For a CUDA tensor a wrapper
+launches its kernel on the current stream and raises if the build or the
+launch fails; for a CPU tensor it runs its plain version, which rounds the
+operands the same way and adds in float32 (the products of TF32 values are
+exact in float32; only the order of the sums differs).
+``tf32_matmul.launches`` and ``column_sum.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import ctypes
 import torch
 
 from pde_inverse_torch.ops.cuda import build
+from pde_inverse_torch.ops.cuda.pairwise import chunked_sum, sum_rows_plan
 
 PRECISIONS = {"tf32": 0, "3xtf32": 1}
 
@@ -55,11 +58,11 @@ def tf32_matmul_plain(a, b, precision: str = "tf32", transpose_b: bool = False):
 
 def _library() -> ctypes.CDLL:
     lib = build.load("mma_tf32")
-    fn = lib.tf32_matmul
-    if fn.argtypes is None:
+    if lib.tf32_matmul.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ci, ci, ci, ci, ci, vp, ci, vp, cl, cl, vp, ci, vp]
-        fn.restype = ci
+        lib.tf32_matmul.argtypes = [ci, ci, ci, ci, ci, vp, ci, vp, cl, cl, vp, ci, vp]
+        lib.tf32_column_sum.argtypes = [ci, ci, ci, ci, vp, vp, vp]
+        lib.tf32_matmul.restype = lib.tf32_column_sum.restype = ci
     return lib
 
 
@@ -94,11 +97,39 @@ def tf32_matmul(a, b, precision: str = "tf32", transpose_b: bool = False):
     return out
 
 
+def column_sum_plain(x, precision: str = "tf32"):
+    """The plain version of ``column_sum``: x rounded to TF32 (3xTF32: its
+    small part too), each k-step's 8 rows summed, small before big, into
+    the chunk sums of ``sum_rows_plan(R, w, 16)``, added in chunk order."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
+    big = round_tf32(x)
+    parts = [big] if precision == "tf32" else [round_tf32(x - big), big]
+    return chunked_sum(parts, sum_rows_plan(*x.shape, slab=16).chunk, step=8)
+
+
 def column_sum(x, precision: str = "tf32"):
-    """S2's axis-0 sum of x [R, w] as the ones-row product ones [1, R] @ x
-    on the tensor cores: [w]."""
-    ones = torch.ones((1, x.shape[0]), dtype=x.dtype, device=x.device)
-    return tf32_matmul(ones, x, precision)[0]
+    """S2's axis-0 sum of x [R, w] as the ones-row product on the tensor
+    cores in TF32 or 3xTF32: [w].  CUDA tensors: the kernel; CPU tensors:
+    ``column_sum_plain``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
+    if x.device.type == "cpu":
+        return column_sum_plain(x, precision)
+    if x.device.type != "cuda":
+        raise ValueError(f"column_sum runs on CUDA or CPU tensors, not {x.device}")
+    if x.dtype != torch.float32 or x.ndim != 2 or min(x.shape) < 1:
+        raise ValueError(f"column_sum: need x float32 [R, w], got {x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    err = _library().tf32_column_sum(dev, PRECISIONS[precision], x.shape[0], x.shape[1], x.data_ptr(),
+                                     out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"column_sum launch failed: CUDA error {err}")
+    column_sum.launches += 1
+    return out
 
 
 tf32_matmul.launches = 0
+column_sum.launches = 0

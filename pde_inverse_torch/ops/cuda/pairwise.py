@@ -27,8 +27,9 @@ or their VJP.  Counterparts:
 S1, the checks of the constructs these kernels run
 (``pde_inverse_torch/scripts/diag_packed_onchip.py``), has its wrappers at the
 end: ``s1_pair_rows``, ``s1_m_layer``, ``sum_rows`` (the fixed-order row sum
-that finishes K5-K8's partial rows; S2's ``sum`` mode too) and
-``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8 with the refs unsplit).
+that finishes K5-K8's partial rows, in the chunk order of ``sum_rows_plan``;
+S2's ``sum`` mode too) and ``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8
+with the refs unsplit).
 
 For a CUDA tensor each wrapper launches its kernel on the current stream
 and raises if the build or the launch fails; for a CPU tensor it runs its
@@ -254,6 +255,9 @@ def _library() -> ctypes.CDLL:
         lib.s1_pair_rows.argtypes = [ci, ci, ci, ci] + [vp] * 6
         lib.s1_m_layer.argtypes = [ci, ci, ci] + [vp] * 4
         lib.pw_sum_rows.argtypes = [ci, vp, vp, ci, ctypes.c_longlong, vp]
+        lib.sum_rows_plan_c.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ci,
+                                        ctypes.POINTER(ctypes.c_longlong)]
+        lib.sum_rows_plan_c.restype = None
         for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k7_sums, lib.k7_max_blocks,
                    lib.k8_sums_bwd, lib.k8_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
             fn.restype = ci
@@ -474,6 +478,7 @@ def _fwd_launch(name, layers, act_name, ax, av, ar, mask) -> Dict[str, torch.Ten
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), params.data_ptr(),
         params_t.data_ptr(), partials.data_ptr(), out.data_ptr(), L.stream,
     ), name)
+    sum_rows.launches += 1
     return _sums_out(L, out)
 
 
@@ -502,6 +507,7 @@ def _k7_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, n_split=None) -> 
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), weights.data_ptr(),
         partials.data_ptr(), out.data_ptr(), L.stream,
     ), name)
+    sum_rows.launches += 1
     return _sums_out(L, out)
 
 
@@ -537,6 +543,7 @@ def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
         x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr(),
         L.stream,
     ), name)
+    sum_rows.launches += 3
     return _grads_of(grads, layers), axv_bar[0], axv_bar[1], ar_bar
 
 
@@ -623,6 +630,7 @@ def _k8_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_
         grads.data_ptr(), x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(),
         ar_bar.data_ptr(), L.stream,
     ), name)
+    sum_rows.launches += 3
     return (*unpad_collapsed(grads, mids_m, M, plan.width), axv_bar[0], axv_bar[1], ar_bar)
 
 
@@ -639,7 +647,7 @@ def mlp_pairwise_sums_packed_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar
     return out
 
 
-# -- S1: single-block checks of the constructs K5/K6 run; K7/K8 unsplit --------------
+# -- S1: checks of the constructs K5/K6 run; K7/K8 unsplit ----------------------------
 
 
 def s1_pair_rows_plain(ax, av, ar):
@@ -661,20 +669,21 @@ def _checked(name: str, *tensors: torch.Tensor):
 
 def s1_pair_rows(ax, av, ar):
     """S1's pair rows of n <= 32 points ax, av [n, w0] against refs ar
-    [m, w0] in one block, through K5/K6's ``pair_rows``: (z, dz) [m, n, w0].
-    CPU tensors: ``s1_pair_rows_plain``."""
+    [m, w0], a block a ref, through K5/K6's ``pair_rows``: (z, dz)
+    [m, n, w0].  CPU tensors: ``s1_pair_rows_plain``."""
     if not _on_cuda("S1", ax):
         return s1_pair_rows_plain(ax, av, ar)
     ax, av, ar = _checked("S1 pair rows", ax, av, ar)
     (n, w0), m = ax.shape, ar.shape[0]
     if not 1 <= n <= _TILE or tuple(av.shape) != (n, w0) or ar.shape[1] != w0:
         raise ValueError(f"S1 pair rows: need ax, av [n <= {_TILE}, w0] and ar [m, w0]")
-    z, dz = (torch.empty((m, n, w0), dtype=torch.float32, device=ax.device) for _ in range(2))
+    out = torch.empty((2, m, n, w0), dtype=torch.float32, device=ax.device)  # z | dz
+    z_ptr = out.data_ptr()
     _raise(_library().s1_pair_rows(_device_index(ax), w0, n, m, ax.data_ptr(), av.data_ptr(),
-                                   ar.data_ptr(), z.data_ptr(), dz.data_ptr(),
+                                   ar.data_ptr(), z_ptr, z_ptr + 4 * m * n * w0,
                                    torch.cuda.current_stream(ax.device).cuda_stream), "S1 pair rows")
     s1_pair_rows.launches += 1
-    return z, dz
+    return out.unbind(0)
 
 
 def s1_m_layer_plain(g3, M):
@@ -701,18 +710,85 @@ def s1_m_layer(g3, M):
     return out
 
 
-def sum_rows_plain(part):
-    """out[e] = sum over rows r of part[r][e], added in row order, in the
-    input's precision."""
-    out = torch.zeros_like(part[0])
-    for row in part:
-        out = out + row
+class SumRowsPlan(NamedTuple):
+    """How ``sum_rows`` (and S2's ``column_sum``) splits [rows, len]: chunks
+    of `chunk` consecutive rows (a multiple of 8, at least 64), the last one
+    ragged; a warp sums one chunk for a slab of columns, `warps_per_slab`
+    warps of a block and `cluster` blocks of a thread-block cluster along the
+    rows, `slabs_per_block` slabs a block and `blocks` blocks along the
+    columns (csrc/row_chunks.cuh; ``sum_rows_plan_c`` is its C twin)."""
+
+    chunk: int
+    n_chunks: int
+    warps_per_slab: int
+    cluster: int
+    slabs_per_block: int
+    blocks: int
+
+
+SUM_ROWS_WARPS = 8  # warps a block
+SUM_ROWS_CLUSTER = 8  # most blocks a cluster
+# least rows a chunk: up to 64 partial rows (one a ref split) add in row
+# order, so that a masked ref's row of zeros can be dropped without a change
+SUM_ROWS_MIN_CHUNK = 64
+
+
+def sum_rows_plan(rows: int, len_: int, slab: int = 32) -> SumRowsPlan:
+    """The chunks of the fixed summation order of part [rows, len_] (`slab`
+    columns a warp: 32 for ``sum_rows``, 16 for ``column_sum``): at most
+    SUM_ROWS_WARPS x SUM_ROWS_CLUSTER chunks; rows <= chunk is row order."""
+    if rows < 1 or len_ < 1:
+        raise ValueError(f"sum_rows_plan: need rows, len >= 1, got {rows}, {len_}")
+    most = SUM_ROWS_WARPS * SUM_ROWS_CLUSTER
+    chunk = max(SUM_ROWS_MIN_CHUNK, -(-(-(-rows // most)) // 8) * 8)
+    n_chunks = -(-rows // chunk)
+    warps = 1
+    while warps < min(n_chunks, SUM_ROWS_WARPS):
+        warps *= 2
+    per_block = SUM_ROWS_WARPS // warps
+    return SumRowsPlan(chunk, n_chunks, warps, -(-n_chunks // warps), per_block,
+                       -(-(-(-len_ // slab)) // per_block))
+
+
+def chunked_sum(parts, chunk: int, step: int = 1):
+    """The order of ``sum_rows_plan``: each [rows, len] tensor of `parts`
+    zero-padded to whole chunks of `chunk` rows; per chunk, starting from
+    0.0, the rows `step` at a time, every part in turn (with step > 1 a
+    step's rows are first added to each other in row order, as one
+    tensor-core k-step adds its products); then the chunk sums added in
+    chunk order.  Zero rows add exactly 0.0 (a sum from +0.0 is never
+    -0.0), so the padding changes no bit."""
+    rows, n = parts[0].shape
+    n_chunks = -(-rows // chunk)
+    padded = [torch.nn.functional.pad(x, (0, 0, 0, n_chunks * chunk - rows))
+              .view(n_chunks, chunk // step, step, n) for x in parts]
+    s = torch.zeros((n_chunks, n), dtype=parts[0].dtype, device=parts[0].device)
+    for k in range(chunk // step):
+        for x in padded:
+            t = x[:, k, 0]
+            for i in range(1, step):
+                t = t + x[:, k, i]
+            s = s + t
+    out = torch.zeros(n, dtype=s.dtype, device=s.device)
+    for c in range(n_chunks):
+        out = out + s[c]
     return out
+
+
+def sum_rows_plain(part):
+    """out[e] = sum over rows r of part[r][e] (part [rows, ...]) in the
+    kernel's order (``sum_rows_plan``, ``chunked_sum``), in the input's
+    precision."""
+    rows = part.shape[0]
+    flat = part.reshape(rows, -1)
+    return chunked_sum([flat], sum_rows_plan(rows, flat.shape[1]).chunk).view(part.shape[1:])
 
 
 def sum_rows(part):
     """The fixed-order row sum of K5-K8's partial rows: part [rows, len] ->
-    [len].  CPU tensors: ``sum_rows_plain``."""
+    [len], in the order of ``sum_rows_plan``.  CPU tensors:
+    ``sum_rows_plain``.  ``sum_rows.launches`` also counts the launches
+    inside K5-K8's calls (one for K5 and K7, three for K6 and K8)."""
     if not _on_cuda("sum_rows", part):
         return sum_rows_plain(part)
     (part,) = _checked("sum_rows", part)
@@ -724,6 +800,14 @@ def sum_rows(part):
            "sum_rows")
     sum_rows.launches += 1
     return out
+
+
+def sum_rows_plan_c(rows: int, len_: int, slab: int = 32) -> SumRowsPlan:
+    """The kernel's own plan (``sum_rows_plan_c`` in csrc/pairwise.cu);
+    builds the library."""
+    out = (ctypes.c_longlong * 6)()
+    _library().sum_rows_plan_c(rows, len_, slab, out)
+    return SumRowsPlan(*out)
 
 
 def s1_packed_sums(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask):

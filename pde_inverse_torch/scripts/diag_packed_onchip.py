@@ -4,11 +4,12 @@
 The JAX script checked, one single-cell Pallas kernel each, the TPU lane
 packing of the packed pairwise kernels K7/K8.  The port's kernels have no
 lane packing.  So this script checks the constructs they do have: steps 1
-to 4 in single-block kernels built from the very device functions of K5
-and K6 in ``csrc/pairwise.cu`` (a block walks its refs one 32-pair tile at
-a time with every layer's streams in shared memory; of K7's and K8's
-constructs they cover the row sum), step 5 K7 and K8 whole; all against
-numpy float64 (tolerance 1e-5, relative to the largest value):
+to 4 in kernels built from the very device functions of K5 and K6 in
+``csrc/pairwise.cu`` (K5/K6 walk their refs one 32-pair tile at a time with
+every layer's streams in shared memory; the pair rows run a block a ref,
+the M layer one block; of K7's and K8's constructs they cover the row sum),
+step 5 K7 and K8 whole; all against numpy float64 (tolerance 1e-5, relative
+to the largest value):
 
   1. pair rows: z = ax_i - ar_j and dz = av_i (``pair_rows``);
   2. the ref mask: a masked ref adds exactly 0.0 (on the card the masked

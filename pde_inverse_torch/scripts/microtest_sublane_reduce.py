@@ -8,9 +8,10 @@ small signal, the shape of a cotangent sum) at (2048, 120), (2048, 20) and
 
   sum     the port's fixed-order column sum, the row sum that finishes
           K5-K8's bias and u gradients (``ops/cuda/pairwise.py::sum_rows``);
-  dot     a ones-row product ones [1, R] @ x on the tensor cores in TF32
-          (``mma.sync`` m16n8k8, ``ops/cuda/mma_tf32.py``): Hopper's
-          counterpart of the TPU's default-precision f32 dot;
+  dot     a ones-row product on the tensor cores in TF32, x^T @ ones with
+          the ones a register constant (``mma.sync`` m16n8k8,
+          ``ops/cuda/mma_tf32.py::column_sum``): Hopper's counterpart of the
+          TPU's default-precision f32 dot;
   dot_hi  the same product in 3xTF32, the counterpart of Precision.HIGHEST.
 
 Each line prints abs (the largest error), rel(leafmax) (over the largest
@@ -61,8 +62,7 @@ def reduce(mode: str, x: torch.Tensor) -> torch.Tensor:
 def reduce_plain(mode: str, x: torch.Tensor) -> torch.Tensor:
     if mode == "sum":
         return pw.sum_rows_plain(x)
-    ones = torch.ones((1, x.shape[0]), dtype=x.dtype, device=x.device)
-    return mma_tf32.tf32_matmul_plain(ones, x, "tf32" if mode == "dot" else "3xtf32")[0]
+    return mma_tf32.column_sum_plain(x, "tf32" if mode == "dot" else "3xtf32")
 
 
 def run(device=None) -> dict:
