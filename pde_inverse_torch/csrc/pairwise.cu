@@ -1500,14 +1500,22 @@ __global__ void __launch_bounds__(kThreads)
   row_chunks::sync(p);  // no block leaves while rank 0 reads its shared memory
 }
 
+// sum_rows' launches in this process, counted where they are made (read by
+// pw_sum_rows_launches: the wrappers of K5-K8 and S2 count from it)
+long long sum_rows_launched = 0;
+
 cudaError_t launch_sum_rows(const float* part, float* out, int rows, size_t len, cudaStream_t st) {
   const row_chunks::Plan p = row_chunks::plan(rows, static_cast<long long>(len), 32);
   if (p.blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err;
   if (p.n_chunks == 1) {  // the plan's blocks hold kThreads columns each
     sum_rows_in_order_kernel<<<static_cast<unsigned>(p.blocks), kThreads, 0, st>>>(part, out, rows, len);
-    return cudaGetLastError();
+    err = cudaGetLastError();
+  } else {
+    err = row_chunks::launch(p, st, sum_rows_kernel, part, out, rows, len, p);
   }
-  return row_chunks::launch(p, st, sum_rows_kernel, part, out, rows, len, p);
+  if (err == cudaSuccess) ++sum_rows_launched;
+  return err;
 }
 
 // S1: the tile's pair rows against ref blockIdx.x, out of pair_rows<3>:
@@ -1885,7 +1893,7 @@ extern "C" int s1_m_layer(int device, int w, int n, const float* g3, const float
 
 // The plan of sum_rows (csrc/row_chunks.cuh) for [rows, len] in slabs of
 // `slab` columns: out = chunk, n_chunks, warps_per_slab, cluster,
-// slabs_per_block, blocks (the Python twin is ops/cuda/pairwise.py
+// slabs_per_block, blocks (the Python twin is ops/cuda/row_chunks.py
 // sum_rows_plan).
 extern "C" void sum_rows_plan_c(long long rows, long long len, int slab, long long* out) {
   const row_chunks::Plan p = row_chunks::plan(rows, len, slab);
@@ -1903,3 +1911,6 @@ extern "C" int pw_sum_rows(int device, const float* part, float* out, int rows, 
   return static_cast<int>(launch_sum_rows(part, out, rows, static_cast<size_t>(len),
                                           static_cast<cudaStream_t>(stream)));
 }
+
+// sum_rows' kernel launches so far in this process, from every entry point.
+extern "C" long long pw_sum_rows_launches() { return sum_rows_launched; }

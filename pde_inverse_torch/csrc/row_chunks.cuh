@@ -15,7 +15,7 @@
 // of one thread-block cluster along the rows (grid.y, so the cluster rank is
 // blockIdx.y), and the block of rank 0 adds the chunk sums in chunk order
 // through distributed shared memory: one launch, no scratch, no atomics.
-// pde_inverse_torch/ops/cuda/pairwise.py::sum_rows_plan is the Python twin
+// pde_inverse_torch/ops/cuda/row_chunks.py::sum_rows_plan is the Python twin
 // (checked against sum_rows_plan_c on the card).
 
 #pragma once

@@ -3,8 +3,8 @@
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 compiles ``pde_inverse_torch/csrc/<name>.cu`` into
 ``pde_inverse_torch/_build/lib<name>-<hash>.so`` (the hash covers the source,
-the headers of ``csrc/`` and the flags), at first use; the library is loaded
-with ctypes.  A failed build raises.  ``nvcc`` is taken from
+the ``csrc/`` headers it includes and the flags), at first use; the library
+is loaded with ctypes.  A failed build raises.  ``nvcc`` is taken from
 ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or from ``PATH``.
 """
 
@@ -41,11 +41,17 @@ def _nvcc() -> str:
     return found
 
 
+def _local_headers(src: Path) -> list:
+    """The csrc/ headers that `src` includes by name (``#include "x.cuh"``)."""
+    lines = src.read_text().splitlines()
+    return sorted(CSRC / ln.split('"')[1] for ln in lines if ln.startswith('#include "'))
+
+
 def library_path(name: str) -> Path:
     """Where the library for csrc/<name>.cu lands, keyed by source, the
-    headers of csrc/ and flags."""
+    csrc/ headers it includes and flags."""
     src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in _local_headers(src))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -14,7 +14,7 @@ a [M, K], b [K, N] (or [N, K]) float32:
 S2's ones-row product ``column_sum(x, precision)`` is the column sum of x
 [R, w] as x^T @ ones on the tensor cores, in a kernel of its own (the ones
 operand a register constant, the rows split into the chunks of
-``pairwise.sum_rows_plan``); its plain-f32 mode is the fixed-order row sum
+``row_chunks.sum_rows_plan``); its plain-f32 mode is the fixed-order row sum
 of K5-K8 (``ops/cuda/pairwise.py::sum_rows``).  For a CUDA tensor a wrapper
 launches its kernel on the current stream and raises if the build or the
 launch fails; for a CPU tensor it runs its plain version, which rounds the
@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from pde_inverse_torch.ops.cuda import build
-from pde_inverse_torch.ops.cuda.pairwise import chunked_sum, sum_rows_plan
+from pde_inverse_torch.ops.cuda.row_chunks import chunked_sum, sum_rows_plan
 
 PRECISIONS = {"tf32": 0, "3xtf32": 1}
 

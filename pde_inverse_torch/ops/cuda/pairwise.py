@@ -27,9 +27,9 @@ or their VJP.  Counterparts:
 S1, the checks of the constructs these kernels run
 (``pde_inverse_torch/scripts/diag_packed_onchip.py``), has its wrappers at the
 end: ``s1_pair_rows``, ``s1_m_layer``, ``sum_rows`` (the fixed-order row sum
-that finishes K5-K8's partial rows, in the chunk order of ``sum_rows_plan``;
-S2's ``sum`` mode too) and ``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8
-with the refs unsplit).
+that finishes K5-K8's partial rows, in the chunk order of
+``row_chunks.sum_rows_plan``; S2's ``sum`` mode too) and
+``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8 with the refs unsplit).
 
 For a CUDA tensor each wrapper launches its kernel on the current stream
 and raises if the build or the launch fails; for a CPU tensor it runs its
@@ -48,6 +48,7 @@ import torch
 
 from pde_inverse_torch.ops.activations import ACT_D012, ACT_D0123, supported_activation
 from pde_inverse_torch.ops.cuda import build
+from pde_inverse_torch.ops.cuda.row_chunks import SumRowsPlan, chunked_sum, sum_rows_plan
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -258,10 +259,21 @@ def _library() -> ctypes.CDLL:
         lib.sum_rows_plan_c.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ci,
                                         ctypes.POINTER(ctypes.c_longlong)]
         lib.sum_rows_plan_c.restype = None
+        lib.pw_sum_rows_launches.argtypes = []
+        lib.pw_sum_rows_launches.restype = ctypes.c_longlong
         for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k7_sums, lib.k7_max_blocks,
                    lib.k8_sums_bwd, lib.k8_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
             fn.restype = ci
     return lib
+
+
+def _counting_sum_rows(lib: ctypes.CDLL, entry, *args) -> int:
+    """entry(*args), adding the sum_rows launches it made, as the library
+    counts them where it launches, to ``sum_rows.launches``."""
+    before = lib.pw_sum_rows_launches()
+    err = entry(*args)
+    sum_rows.launches += lib.pw_sum_rows_launches() - before
+    return err
 
 
 def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
@@ -473,12 +485,11 @@ def _fwd_launch(name, layers, act_name, ax, av, ar, mask) -> Dict[str, torch.Ten
     partials = L.empty(n_split, tn * (2 + w0))
     out = L.empty(tn * (2 + w0))
     params, params_t = L.params()
-    _raise(lib.pw_sums(
+    _raise(_counting_sum_rows(lib, lib.pw_sums,
         L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), params.data_ptr(),
         params_t.data_ptr(), partials.data_ptr(), out.data_ptr(), L.stream,
     ), name)
-    sum_rows.launches += 1
     return _sums_out(L, out)
 
 
@@ -502,12 +513,11 @@ def _k7_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, n_split=None) -> 
     tn = L.nt * L.n
     partials = L.empty(n_split, tn * (2 + w0))
     out = L.empty(tn * (2 + w0))
-    _raise(lib.k7_sums(
+    _raise(_counting_sum_rows(lib, lib.k7_sums,
         L.device, L.act, plan.width, plan.threads, n_layers, w0, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), weights.data_ptr(),
         partials.data_ptr(), out.data_ptr(), L.stream,
     ), name)
-    sum_rows.launches += 1
     return _sums_out(L, out)
 
 
@@ -535,7 +545,7 @@ def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
     axv_bar = L.empty(2, L.nt, L.n, w0)
     ar_partials = L.empty(n_blk, L.nt * L.m * w0)
     ar_bar = L.empty(L.nt, L.m, w0)
-    _raise(lib.pw_sums_bwd(
+    _raise(_counting_sum_rows(lib, lib.pw_sums_bwd,
         L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
         g_hess.data_ptr(), g_dz0.data_ptr(), params.data_ptr(), params_t.data_ptr(),
@@ -543,7 +553,6 @@ def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
         x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr(),
         L.stream,
     ), name)
-    sum_rows.launches += 3
     return _grads_of(grads, layers), axv_bar[0], axv_bar[1], ar_bar
 
 
@@ -623,14 +632,13 @@ def _k8_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_
     axv_bar = L.empty(2, L.nt, L.n, w0)
     ar_partials = L.empty(n_blk, L.nt * L.m * w0)
     ar_bar = L.empty(L.nt, L.m, w0)
-    _raise(lib.k8_sums_bwd(
+    _raise(_counting_sum_rows(lib, lib.k8_sums_bwd,
         L.device, L.act, plan.width, plan.threads, n_layers, w0, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
         g_hess.data_ptr(), g_dz0.data_ptr(), weights.data_ptr(), w_partials.data_ptr(),
         grads.data_ptr(), x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(),
         ar_bar.data_ptr(), L.stream,
     ), name)
-    sum_rows.launches += 3
     return (*unpad_collapsed(grads, mids_m, M, plan.width), axv_bar[0], axv_bar[1], ar_bar)
 
 
@@ -710,71 +718,6 @@ def s1_m_layer(g3, M):
     return out
 
 
-class SumRowsPlan(NamedTuple):
-    """How ``sum_rows`` (and S2's ``column_sum``) splits [rows, len]: chunks
-    of `chunk` consecutive rows (a multiple of 8, at least 64), the last one
-    ragged; a warp sums one chunk for a slab of columns, `warps_per_slab`
-    warps of a block and `cluster` blocks of a thread-block cluster along the
-    rows, `slabs_per_block` slabs a block and `blocks` blocks along the
-    columns (csrc/row_chunks.cuh; ``sum_rows_plan_c`` is its C twin)."""
-
-    chunk: int
-    n_chunks: int
-    warps_per_slab: int
-    cluster: int
-    slabs_per_block: int
-    blocks: int
-
-
-SUM_ROWS_WARPS = 8  # warps a block
-SUM_ROWS_CLUSTER = 8  # most blocks a cluster
-# least rows a chunk: up to 64 partial rows (one a ref split) add in row
-# order, so that a masked ref's row of zeros can be dropped without a change
-SUM_ROWS_MIN_CHUNK = 64
-
-
-def sum_rows_plan(rows: int, len_: int, slab: int = 32) -> SumRowsPlan:
-    """The chunks of the fixed summation order of part [rows, len_] (`slab`
-    columns a warp: 32 for ``sum_rows``, 16 for ``column_sum``): at most
-    SUM_ROWS_WARPS x SUM_ROWS_CLUSTER chunks; rows <= chunk is row order."""
-    if rows < 1 or len_ < 1:
-        raise ValueError(f"sum_rows_plan: need rows, len >= 1, got {rows}, {len_}")
-    most = SUM_ROWS_WARPS * SUM_ROWS_CLUSTER
-    chunk = max(SUM_ROWS_MIN_CHUNK, -(-(-(-rows // most)) // 8) * 8)
-    n_chunks = -(-rows // chunk)
-    warps = 1
-    while warps < min(n_chunks, SUM_ROWS_WARPS):
-        warps *= 2
-    per_block = SUM_ROWS_WARPS // warps
-    return SumRowsPlan(chunk, n_chunks, warps, -(-n_chunks // warps), per_block,
-                       -(-(-(-len_ // slab)) // per_block))
-
-
-def chunked_sum(parts, chunk: int, step: int = 1):
-    """The order of ``sum_rows_plan``: each [rows, len] tensor of `parts`
-    zero-padded to whole chunks of `chunk` rows; per chunk, starting from
-    0.0, the rows `step` at a time, every part in turn (with step > 1 a
-    step's rows are first added to each other in row order, as one
-    tensor-core k-step adds its products); then the chunk sums added in
-    chunk order.  Zero rows add exactly 0.0 (a sum from +0.0 is never
-    -0.0), so the padding changes no bit."""
-    rows, n = parts[0].shape
-    n_chunks = -(-rows // chunk)
-    padded = [torch.nn.functional.pad(x, (0, 0, 0, n_chunks * chunk - rows))
-              .view(n_chunks, chunk // step, step, n) for x in parts]
-    s = torch.zeros((n_chunks, n), dtype=parts[0].dtype, device=parts[0].device)
-    for k in range(chunk // step):
-        for x in padded:
-            t = x[:, k, 0]
-            for i in range(1, step):
-                t = t + x[:, k, i]
-            s = s + t
-    out = torch.zeros(n, dtype=s.dtype, device=s.device)
-    for c in range(n_chunks):
-        out = out + s[c]
-    return out
-
-
 def sum_rows_plain(part):
     """out[e] = sum over rows r of part[r][e] (part [rows, ...]) in the
     kernel's order (``sum_rows_plan``, ``chunked_sum``), in the input's
@@ -786,19 +729,20 @@ def sum_rows_plain(part):
 
 def sum_rows(part):
     """The fixed-order row sum of K5-K8's partial rows: part [rows, len] ->
-    [len], in the order of ``sum_rows_plan``.  CPU tensors:
+    [len], in the order of ``row_chunks.sum_rows_plan``.  CPU tensors:
     ``sum_rows_plain``.  ``sum_rows.launches`` also counts the launches
-    inside K5-K8's calls (one for K5 and K7, three for K6 and K8)."""
+    inside K5-K8's calls (one for K5 and K7, three for K6 and K8), read
+    from the library's own count (``pw_sum_rows_launches``)."""
     if not _on_cuda("sum_rows", part):
         return sum_rows_plain(part)
     (part,) = _checked("sum_rows", part)
     if part.ndim != 2 or part.shape[0] < 1 or part.shape[1] < 1:
         raise ValueError(f"sum_rows: need part [rows, len], got {tuple(part.shape)}")
     out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
-    _raise(_library().pw_sum_rows(_device_index(part), part.data_ptr(), out.data_ptr(), part.shape[0],
-                                  part.shape[1], torch.cuda.current_stream(part.device).cuda_stream),
-           "sum_rows")
-    sum_rows.launches += 1
+    lib = _library()
+    _raise(_counting_sum_rows(lib, lib.pw_sum_rows, _device_index(part), part.data_ptr(), out.data_ptr(),
+                              part.shape[0], part.shape[1],
+                              torch.cuda.current_stream(part.device).cuda_stream), "sum_rows")
     return out
 
 

@@ -86,6 +86,27 @@ def test_s2_plain_versions_within_their_rounding_bounds(capsys):
     assert "rel(cancel-scale)=" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("mode", s2.MODES)
+@pytest.mark.parametrize("fault", ["zeros", "last k-step dropped", "one row twice"])
+def test_s2_fails_a_wrong_sum(monkeypatch, mode, fault):
+    """S2 holds each mode against its plain version and, on columns whose
+    sums do not cancel, against float64: a kernel that returned zeros, left
+    out a k-step of 8 rows or added a row twice would fail the run."""
+    right = s2.reduce
+
+    def wrong(m, x):
+        if m != mode:
+            return right(m, x)
+        if fault == "zeros":
+            return torch.zeros(x.shape[1])
+        if fault == "last k-step dropped":
+            return right(m, x[:-8])
+        return right(m, x) + x[0]
+
+    monkeypatch.setattr(s2, "reduce", wrong)
+    assert not s2.run("cpu")["ok"]
+
+
 def test_s3_plain_versions_within_their_rounding_bounds(capsys):
     out = s3.run("cpu")
     assert out["ok"] and len(out["rows"]) == 12 and out["max_abs_err"] == 0.0

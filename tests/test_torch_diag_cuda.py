@@ -69,7 +69,8 @@ def test_sum_rows_plan_c_twin_is_the_python_plan(cuda):
 
 def test_sum_rows_counts_its_launches_inside_k5_to_k8(cuda):
     """sum_rows finishes K5's and K7's partial rows once a call, K6's and
-    K8's three times; the count includes them."""
+    K8's three times; the count, read from the library where it launches,
+    includes them."""
     gen = torch.Generator().manual_seed(5)
     mids = [(torch.randn((4, 8), generator=gen).to(cuda), torch.randn(8, generator=gen).to(cuda)),
             (torch.randn((8, 6), generator=gen).to(cuda), torch.randn(6, generator=gen).to(cuda))]
@@ -82,9 +83,10 @@ def test_sum_rows_counts_its_launches_inside_k5_to_k8(cuda):
                     (lambda: pw.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot), 3),
                     (lambda: pw.mlp_pairwise_sums_packed(*head, "tanh", ax, av, ar, mask), 1),
                     (lambda: pw.mlp_pairwise_sums_packed_bwd(*head, "tanh", ax, av, ar, mask, *cot), 3)):
-        before = pw.sum_rows.launches
+        before, in_library = pw.sum_rows.launches, pw._library().pw_sum_rows_launches()
         call()
         assert pw.sum_rows.launches == before + n
+        assert pw._library().pw_sum_rows_launches() == in_library + n
 
 
 @pytest.mark.parametrize("precision", ["tf32", "3xtf32"])
@@ -140,9 +142,10 @@ def test_s2_s3_within_their_bounds_on_the_card(cuda):
     before = (pw.sum_rows.launches, mma_tf32.column_sum.launches, mma_tf32.tf32_matmul.launches)
     out2, out3 = s2.run("cuda"), s3.run("cuda")
     assert out2["ok"] and out3["ok"]
-    # S2: three sums and six column sums (9); S3: twelve products
+    # S2 on two inputs a shape: six sums and twelve column sums (18); S3:
+    # twelve products
     after = (pw.sum_rows.launches, mma_tf32.column_sum.launches, mma_tf32.tf32_matmul.launches)
-    assert [a - b for a, b in zip(after, before)] == [3, 6, 12]
+    assert [a - b for a, b in zip(after, before)] == [6, 12, 12]
     rel = {(R, w, mode): r for R, w, mode, _, _, r in out2["rows"]}
     assert rel[(2048, 120, "dot_hi")] < rel[(2048, 120, "dot")]
     assert np.isfinite([r[-1] for r in out3["rows"]]).all()

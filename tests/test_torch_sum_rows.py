@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl
 from pde_inverse_tpu.ops.pallas import pairwise_kernel as jpk
 from pde_inverse_torch.ops.cuda import mma_tf32
 from pde_inverse_torch.ops.cuda import pairwise as pw
+from pde_inverse_torch.ops.cuda import row_chunks as rc
 from pde_inverse_torch.scripts import microtest_sublane_reduce as s2
 
 torch.set_num_threads(1)
@@ -39,16 +40,16 @@ def _jax_s2_script():
 @pytest.mark.parametrize("rows,len_", SHAPES)
 @pytest.mark.parametrize("slab", [32, 16])
 def test_plan_covers_every_row_and_column(rows, len_, slab):
-    p = pw.sum_rows_plan(rows, len_, slab)
-    assert p.chunk % 8 == 0 and p.chunk >= pw.SUM_ROWS_MIN_CHUNK
+    p = rc.sum_rows_plan(rows, len_, slab)
+    assert p.chunk % 8 == 0 and p.chunk >= rc.SUM_ROWS_MIN_CHUNK
     assert (p.n_chunks - 1) * p.chunk < rows <= p.n_chunks * p.chunk
-    assert p.n_chunks <= pw.SUM_ROWS_WARPS * pw.SUM_ROWS_CLUSTER
+    assert p.n_chunks <= rc.SUM_ROWS_WARPS * rc.SUM_ROWS_CLUSTER
     # warps along the rows: the least power of two that holds a block's chunks
-    assert p.warps_per_slab in (1, 2, 4, 8) and p.warps_per_slab >= min(p.n_chunks, pw.SUM_ROWS_WARPS)
-    assert p.warps_per_slab == 1 or p.warps_per_slab // 2 < min(p.n_chunks, pw.SUM_ROWS_WARPS)
+    assert p.warps_per_slab in (1, 2, 4, 8) and p.warps_per_slab >= min(p.n_chunks, rc.SUM_ROWS_WARPS)
+    assert p.warps_per_slab == 1 or p.warps_per_slab // 2 < min(p.n_chunks, rc.SUM_ROWS_WARPS)
     assert (p.cluster - 1) * p.warps_per_slab < p.n_chunks <= p.cluster * p.warps_per_slab
-    assert 1 <= p.cluster <= pw.SUM_ROWS_CLUSTER
-    assert p.slabs_per_block * p.warps_per_slab == pw.SUM_ROWS_WARPS
+    assert 1 <= p.cluster <= rc.SUM_ROWS_CLUSTER
+    assert p.slabs_per_block * p.warps_per_slab == rc.SUM_ROWS_WARPS
     assert (p.blocks - 1) * p.slabs_per_block * slab < len_ <= p.blocks * p.slabs_per_block * slab
     assert (p.n_chunks == 1) == (rows <= p.chunk)
 
@@ -58,16 +59,16 @@ def test_plan_at_the_main_path_shapes():
     7 stamps x 32 point blocks = 896 rows of 3,360 weights): 14 chunks of 64
     rows in clusters of 2 blocks; S2's [2048, 120]: 32 chunks, clusters of 4;
     K8's and K7's other partials have few rows and keep row order."""
-    assert pw.sum_rows_plan(896, 3360) == pw.SumRowsPlan(64, 14, 8, 2, 1, 105)
-    assert pw.sum_rows_plan(2048, 120) == pw.SumRowsPlan(64, 32, 8, 4, 1, 4)
-    assert pw.sum_rows_plan(2048, 120, 16) == pw.SumRowsPlan(64, 32, 8, 4, 1, 8)
-    assert pw.sum_rows_plan(5000, 120) == pw.SumRowsPlan(80, 63, 8, 8, 1, 4)
-    assert pw.sum_rows_plan(4, 2 * 7 * 2000 * 20).n_chunks == 1
-    assert pw.sum_rows_plan(32, 7 * 2000 * 20).n_chunks == 1
-    assert pw.sum_rows_plan(7, 7 * 2000 * 22).n_chunks == 1
-    assert pw.sum_rows_plan(100_000, 5).chunk == 1568
+    assert rc.sum_rows_plan(896, 3360) == rc.SumRowsPlan(64, 14, 8, 2, 1, 105)
+    assert rc.sum_rows_plan(2048, 120) == rc.SumRowsPlan(64, 32, 8, 4, 1, 4)
+    assert rc.sum_rows_plan(2048, 120, 16) == rc.SumRowsPlan(64, 32, 8, 4, 1, 8)
+    assert rc.sum_rows_plan(5000, 120) == rc.SumRowsPlan(80, 63, 8, 8, 1, 4)
+    assert rc.sum_rows_plan(4, 2 * 7 * 2000 * 20).n_chunks == 1
+    assert rc.sum_rows_plan(32, 7 * 2000 * 20).n_chunks == 1
+    assert rc.sum_rows_plan(7, 7 * 2000 * 22).n_chunks == 1
+    assert rc.sum_rows_plan(100_000, 5).chunk == 1568
     with pytest.raises(ValueError, match="rows"):
-        pw.sum_rows_plan(0, 5)
+        rc.sum_rows_plan(0, 5)
 
 
 @pytest.mark.parametrize("rows", [1, 3, 64])
@@ -137,24 +138,28 @@ def test_plain_sums_within_s2_bounds_against_float64(rows, len_):
 
 @pytest.mark.parametrize("mode", s2.MODES)
 def test_plain_s2_modes_match_the_jax_kernel_body_in_interpret_mode(mode):
-    """S2 at [2048, 120] on the JAX script's cancellation-heavy input: the
-    port's plain mode against the script's own kernel body run through an
-    interpret-mode pallas_call on the CPU, where its dots run in float32.
-    sum and dot_hi: within their own bound (both are float32-accurate);
-    dot: TF32's rounding on the port's side, so dot's bound plus sum's."""
+    """S2 at [2048, 120]: the port's plain mode against the JAX script's own
+    kernel body run through an interpret-mode pallas_call on the CPU, where
+    its dots run in float32, on the script's cancellation-heavy input and
+    on one whose column sums do not cancel (there the bounds are under a
+    thousandth of the sums, so a wrong or zero sum fails).  sum and dot_hi:
+    within their own bound (both are float32-accurate); dot: TF32's
+    rounding on the port's side, so dot's bound plus sum's."""
     jax_s2 = _jax_s2_script()
-    x = s2.inputs(2048, 120)
-    with jax.default_device(jax.devices("cpu")[0]):
-        want = np.asarray(pl.pallas_call(jax_s2.make_kernel(mode), interpret=True,
-                                         out_shape=jax.ShapeDtypeStruct((1, 120), jnp.float32))(
-            jnp.asarray(x)))[0]
-    got = s2.reduce_plain(mode, torch.from_numpy(x)).numpy()
-    scale = float(np.abs(x).sum(0).max())
+    kernel = pl.pallas_call(jax_s2.make_kernel(mode), interpret=True,
+                            out_shape=jax.ShapeDtypeStruct((1, 120), jnp.float32))
     tol = s2.bound(mode, 2048) + (s2.bound("sum", 2048) if mode == "dot" else 0.0)
-    assert float(np.abs(got.astype(np.float64) - want).max()) / scale <= tol
-    # and both within the bound of the float64 sum
-    ref = x.astype(np.float64).sum(0)
-    assert float(np.abs(got - ref).max()) / scale <= s2.bound(mode, 2048)
+    for x in (s2.inputs(2048, 120), s2.sums_input(2048, 120)):
+        with jax.default_device(jax.devices("cpu")[0]):
+            want = np.asarray(kernel(jnp.asarray(x)))[0]
+        got = s2.reduce_plain(mode, torch.from_numpy(x)).numpy()
+        scale = float(np.abs(x).sum(0).max())
+        assert float(np.abs(got.astype(np.float64) - want).max()) / scale <= tol
+        # and both within the bound of the float64 sum
+        ref = x.astype(np.float64).sum(0)
+        assert float(np.abs(got - ref).max()) / scale <= s2.bound(mode, 2048)
+        assert float(np.abs(want - ref).max()) / scale <= s2.bound("sum", 2048)
+    assert float(np.abs(want).min()) > 1e3 * tol * scale  # the sums of the second input stand out
 
 
 @pytest.mark.parametrize("m", [1, 48, 200])
