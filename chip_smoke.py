@@ -12,7 +12,7 @@ Phases, each printing its own line:
    (``csrc/pointwise.cu``), K5-K8 and S1 (``csrc/pairwise.cu``) and S2/S3
    (``csrc/mma_tf32.cu``) with nvcc, one process per source, together, and
    prints registers, the Langevin kernels that spill and every K3, K4, K7
-   and K8 instantiation's registers and spill;
+   and K6 (``k6_kernel``), K7 and K8 instantiation's registers and spill;
 3. K1 and K2 (pack=2) against their plain PyTorch version on the card, at
    the KGMM main path's shapes (d=4; GMM with k=3 and a Quadratic
    potential; 2,500 particles with a trajectory and 75,000 without; 200
@@ -29,8 +29,9 @@ Phases, each printing its own line:
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
    and K7 and K8 also at width 32 and on a chain 20 -> 32 -> 8 -> 20 padded
-   to 32;
-   K6's, K7's and K8's outputs bitwise equal on two calls;
+   to 32; K6 runs ``k6_kernel`` at these widths, and ``pw_bwd_kernel`` on
+   a chain of hidden width 64 (64 -> 64 -> 128), held the same way;
+   K6's (both kernels), K7's and K8's outputs bitwise equal on two calls;
 5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM (K1), on
    preset KGMM with langevin_pack=2 (K2), then on preset
    KGMM-nonparametric-online, each at full width with the launch counts set
@@ -40,7 +41,9 @@ Phases, each printing its own line:
    against the same step on the CPU.  Then the KMV paths, each read the
    same way: the MLP configuration (the JAX package's ``mlp_pairwise``
    bench row) with kmv_pallas=auto (K7/K8), a shorter run with
-   kmv_pallas=on (K5/K6), preset KMV (parametric, closed form); the KMV
+   kmv_pallas=on (K5/K6 through k6_kernel), two steps of the same
+   configuration at hidden width 64 (64 x 2 -> 128) with kmv_pallas=auto
+   (K5/K6 through pw_bwd_kernel), preset KMV (parametric, closed form); the KMV
    step's split by kmv_pallas mode; one np KMV step on the card against the
    CPU.  Then the offline paths: preset KGMM-offline with langevin_pack 0
    (K1) and 2 (K2), dataset generation included; preset
@@ -52,8 +55,9 @@ Phases, each printing its own line:
    counts read the same way;
 7. timing of every kernel against its plain version with CUDA events, K2
    against K1 at the offline shapes, K3 and K4 also at the XL and offline
-   steps' shapes, S1-S3 beside one PyTorch call that computes the same
-   function (S1 and S2 also by their device time, ``torch.profiler``), and
+   steps' shapes, K6 also at the hidden-64 chain, S1-S3 beside one PyTorch
+   call that computes the same function (also by their device time,
+   ``torch.profiler``), and
    ``sum_rows``, the fixed-order row sum that finishes K7's and K8's partial
    rows (S2's sum mode), at the KMV MLP's full-width partial shapes, bit for
    bit against its plain version.
@@ -141,6 +145,12 @@ KMV_MLP = ["preset=KMV-nonparametric-fourier", "neural_network.model=mlp",
            "logging.writer=none"]
 KMV_RUN = KMV_MLP + ["train.number_of_iterations=20", "train.steps_per_chunk=10", "test.frequency=20"]
 KMV_ON_STEPS = 4
+# K6 where a width before the feature layer exceeds 32 (pw_bwd_kernel): the
+# KMV MLP at hidden width 64 with neural_network.layers=2, the deepest
+# hidden-64 chain whose 32-point tile fits a block's shared memory
+K6_WIDE = (64, 64, 128)
+KMV_WIDE = ["neural_network.hidden_dim=64", "neural_network.layers=2", "train.number_of_iterations=2",
+            "train.steps_per_chunk=1", "test.frequency=2", "solver.train.kmv_pallas=auto"]
 NP_RUN = ["preset=KGMM-nonparametric-online", "train.number_of_iterations=20",
           "train.steps_per_chunk=10", "test.frequency=20", "logging.writer=none",
           "train.optimizer.ema_switch_step=10"]
@@ -363,7 +373,7 @@ def main() -> None:
         check(len(res) == 3, f"{kid} instantiations in the build report: {sorted(res)}")
         print(f"[build] {kid} instantiations (registers, spill-store bytes): "
               + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items())), flush=True)
-    for kid, kernel in (("K7", "k7_kernel"), ("K8", "k8_kernel")):
+    for kid, kernel in (("K6", "k6_kernel"), ("K7", "k7_kernel"), ("K8", "k8_kernel")):
         res = {k7_name(k, kernel): v for k, v in resources(lib_pair).items() if k7_name(k, kernel)}
         check(len(res) == 15, f"{kid} instantiations in the build report: {sorted(res)}")
         print(f"[build] {kid} instantiations (registers, spill-store bytes): " + "; ".join(
@@ -573,6 +583,53 @@ def main() -> None:
         print(f"[{kid.lower()}-repeat] {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal in all "
               f"{len(a)} outputs", flush=True)
         del a, b
+    # the hidden-64 chain of [main-path-kmv-wide]: K5 (pw_fwd_kernel) and K6
+    # through pw_bwd_kernel, held the same way at the path's own 7 x 2,000 x
+    # 2,000 and at two small ragged, masked shapes; K6 also repeated bitwise
+    rows = {"K5": [], "K6": []}
+    wide_err = {"K5": 0.0, "K6": 0.0}
+    for kid in ("K5", "K6"):
+        kernel, plain = kernels[kid]
+        for act, nt_, n_, m_, zeros in (("tanh", KMV_NT, KMV_N, KMV_N, ()), ("tanh", 2, 300, 257, (3,)),
+                                        ("silu", 1, 77, 45, (0, 44))):
+            mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, K6_WIDE)
+            mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, K6_WIDE)
+            before = (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums_bwd.launches,
+                      pw.mlp_pairwise_sums_bwd.launches_wide)
+            got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
+            after = (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums_bwd.launches,
+                     pw.mlp_pairwise_sums_bwd.launches_wide)
+            check(after == ((before[0] + 1, before[1], before[2]) if kid == "K5"
+                            else (before[0], before[1], before[2] + 1)),
+                  f"{kid} at hidden width 64 did not run {'pw_fwd_kernel' if kid == 'K5' else 'pw_bwd_kernel'}")
+            want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
+            ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
+            worst_k, worst_p = 0.0, 0.0
+            for k_, p_, r_ in zip(got, want, ref):
+                scale = float(r_.abs().max())
+                err_k = float((k_.double() - r_).abs().max()) / scale
+                err_p = float((p_.double() - r_).abs().max()) / scale
+                check(bool(torch.isfinite(k_).all()) and err_k <= F64_FACTOR * err_p + F64_FLOOR,
+                      f"{kid} wide {act} {nt_}x{n_}x{m_} output {tuple(k_.shape)}: kernel vs f64 {err_k:.3e} > "
+                      f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
+                worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
+                wide_err[kid] = max(wide_err[kid], float((k_ - p_).abs().max()))
+            rows[kid].append(f"{act}/{nt_}x{n_}x{m_}{'/masked' if zeros else ''}: {worst_k:.2e} vs {worst_p:.2e}")
+            del got, want, ref
+    pair_err["K5"] = max(pair_err["K5"], wide_err["K5"])
+    mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9, (), K6_WIDE)
+    a = flat(pairwise_call("K6", pw.mlp_pairwise_sums_bwd, "tanh", mids, tens, cot))
+    b = flat(pairwise_call("K6", pw.mlp_pairwise_sums_bwd, "tanh", mids, tens, cot))
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "K6 (pw_bwd_kernel) outputs differ between two calls")
+    del a, b
+    layers = '->'.join(map(str, K6_WIDE))
+    print(f"[k5-wide-vs-plain] layers {layers} through pw_fwd_kernel, worst output error relative to its "
+          f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K5'])}; gate <= {F64_FACTOR} x plain + "
+          f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K5']:.3e}", flush=True)
+    print(f"[k6-wide-vs-plain] layers {layers} through pw_bwd_kernel, worst output error relative to its "
+          f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K6'])}; gate <= {F64_FACTOR} x plain + "
+          f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K6']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two "
+          f"calls bitwise equal", flush=True)
 
     # -- 5. main paths ---------------------------------------------------------------
     cfg, _ = parse_args(["preset=KGMM", "train.number_of_iterations=20",
@@ -758,6 +815,7 @@ def main() -> None:
 
     # the KMV MLP path (K7/K8 with kmv_pallas=auto), then K5/K6 (kmv_pallas=on)
     pair_launch = lambda: {"K5": pw.mlp_pairwise_sums.launches, "K6": pw.mlp_pairwise_sums_bwd.launches,
+                           "K6-wide": pw.mlp_pairwise_sums_bwd.launches_wide,
                            "K7": pw.mlp_pairwise_sums_packed.launches,
                            "K8": pw.mlp_pairwise_sums_packed_bwd.launches}
 
@@ -765,6 +823,7 @@ def main() -> None:
         for fn in (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_packed,
                    pw.mlp_pairwise_sums_packed_bwd, pw.sum_rows):
             fn.launches = 0
+        pw.mlp_pairwise_sums_bwd.launches_wide = 0
 
     kmv_launches, sum_rows_launches = {}, {}
     for mode, extra, n_iter in (("auto", [], 20),
@@ -805,6 +864,27 @@ def main() -> None:
               f"launches {launches_k}, sum_rows {sum_rows_launches[mode]}, peak memory {peak_k} B "
               f"({peak_k / 2**30:.3f} GiB); result "
               + " ".join(f"{k}={v:.4e}" for k, v in result_k.result_metrics.items()), flush=True)
+
+    # the KMV MLP at hidden width 64: kmv_pallas=auto takes K5 and K6's
+    # pw_bwd_kernel
+    cfg_w, _ = parse_args(KMV_MLP + KMV_WIDE)
+    check(cfg_w.neural_network.hidden_dim == 64 and cfg_w.solver.train.sample_per_time == KMV_N,
+          "KMV MLP hidden-64 configuration changed")
+    torch.cuda.synchronize()
+    zero_pair_launches()
+    result_w = run(cfg_w, "cuda")
+    torch.cuda.synchronize()
+    launches_w = pair_launch()
+    n_iter = cfg_w.train.number_of_iterations
+    check(len(result_w.losses) == n_iter and bool(np.isfinite(result_w.losses).all())
+          and launches_w["K5"] >= n_iter and launches_w["K6-wide"] >= n_iter
+          and launches_w["K6"] == launches_w["K7"] == launches_w["K8"] == 0,
+          f"KMV hidden 64: losses {result_w.losses}, launches {launches_w}")
+    kmv_launches["wide"] = launches_w
+    print(f"[main-path-kmv-wide] KMV MLP at hidden width 64 ({KMV_NT} stamps x {KMV_N} samples, PotentialMLP "
+          f"2->64x2->128 tanh), kmv_pallas=auto: {n_iter} steps, loss {result_w.losses[0]:.4e} -> "
+          f"{result_w.losses[-1]:.4e}, launches {launches_w}; result "
+          + " ".join(f"{k}={v:.4e}" for k, v in result_w.result_metrics.items()), flush=True)
 
     # parametric KMV (closed form, no kernel)
     cfg_q, _ = parse_args(["preset=KMV", "train.number_of_iterations=20", "train.steps_per_chunk=10",
@@ -1120,6 +1200,17 @@ def main() -> None:
               f"kernel {times[kid][0]:.4f} ms, plain torch {times[kid][1]:.4f} ms (runs: plain "
               f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
 
+    mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 10, (), K6_WIDE)
+    k_fn = lambda: pairwise_call("K6", pw.mlp_pairwise_sums_bwd, "tanh", mids, tens, cot)
+    p_fn = lambda: pairwise_call("K6", pw.mlp_pairwise_sums_bwd_plain, "tanh", mids, tens, cot)
+    p1, k1, k2, p2 = time_ms(p_fn, 1), time_ms(k_fn, 2), time_ms(k_fn, 2), time_ms(p_fn, 1)
+    times["K6-wide"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    print(f"[timing] K6 hidden 64 through pw_bwd_kernel ({KMV_NT}x{KMV_N}x{KMV_N} pairs, layers "
+          f"{'->'.join(map(str, K6_WIDE))}, tanh): kernel {times['K6-wide'][0]:.4f} ms, plain torch "
+          f"{times['K6-wide'][1]:.4f} ms (runs: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain "
+          f"{p2:.4f})", flush=True)
+    del mids, tens, cot
+
     # S1-S3 at their scripts' shapes, beside one PyTorch call for the same function
     library = {}
     gen_s = torch.Generator().manual_seed(12)
@@ -1171,15 +1262,21 @@ def main() -> None:
     s3_times = {prec: time_ms(lambda: mma_tf32.tf32_matmul(x3, W3, prec), 200) for prec in ("tf32", "3xtf32")}
     s3_plain = {prec: time_ms(lambda: mma_tf32.tf32_matmul_plain(x3, W3, prec), 50)
                 for prec in ("tf32", "3xtf32")}
+    s3_dev = {f"{prec}{' W^T' if bt else ''}": time_diag.times(
+        lambda: mma_tf32.tf32_matmul(x3, W3, prec, bt), 200)["device_ms"]
+        for prec in ("tf32", "3xtf32") for bt in (False, True)}
     torch.backends.cuda.matmul.allow_tf32 = True
     lib_tf32 = time_ms(lambda: x3 @ W3, 200)
+    lib_tf32_dev = time_diag.times(lambda: x3 @ W3, 200)["device_ms"]
     torch.backends.cuda.matmul.allow_tf32 = False
     lib_f32 = time_ms(lambda: x3 @ W3, 200)
     times["S3"], library["S3"] = (s3_times["tf32"], s3_plain["tf32"]), lib_tf32
     print(f"[timing] S3 [2048, 120] x [120, 120] block-diagonal x @ W: TF32 kernel {s3_times['tf32']:.4f} ms "
           f"(plain {s3_plain['tf32']:.4f} ms), 3xTF32 kernel {s3_times['3xtf32']:.4f} ms (plain "
           f"{s3_plain['3xtf32']:.4f} ms); one PyTorch call x @ W with TF32 allowed {lib_tf32:.4f} ms, "
-          f"disallowed {lib_f32:.4f} ms", flush=True)
+          f"disallowed {lib_f32:.4f} ms; device time (torch.profiler, 200 calls): kernel "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in s3_dev.items())
+          + f", x @ W with TF32 allowed {lib_tf32_dev:.4f} ms", flush=True)
 
     # bounds, from this run's shapes: each input read once, each output written once
     bounds = {}
@@ -1199,6 +1296,9 @@ def main() -> None:
     F5, Fh, wm = mlp_products(KMV_WIDTHS), mlp_products(KMV_WIDTHS[:-1]), KMV_WIDTHS[0] ** 2
     bounds["K5"] = bound(x_bytes, 2 * pairs * 4 * F5)
     bounds["K6"] = bound(x_bytes, 2 * pairs * 12 * F5)
+    w0w = K6_WIDE[0]
+    bounds["K6-wide"] = bound(4 * (3 * KMV_NT * KMV_N * w0w + KMV_N + 2 * KMV_NT * KMV_N + KMV_NT * KMV_N * w0w),
+                              2 * pairs * 12 * mlp_products(K6_WIDE))
     # K7: 3 streams through the hidden layers, Mg and M gp, 1 reverse stream
     bounds["K7"] = bound(x_bytes, 2 * pairs * (3 * Fh + 2 * wm + Fh))
     bounds["K8"] = bound(x_bytes, 2 * pairs * (4 * (Fh + wm) + 2 * wm + 8 * Fh))
@@ -1242,8 +1342,8 @@ def main() -> None:
     for kid, name, replaces in (
         ("K5", "K5 pairwise mean-field sums, |f|^2 head (value, vHv, dPhi/dz0 over refs)",
          "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:136"),
-        ("K6", "K6 VJP of K5 (4-stream forward, reverse sweep, weight and ar gradients)",
-         "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340"),
+        ("K6", "K6 VJP of K5 through k6_kernel (hidden widths <= 32: K8's lane quads, the feature layer "
+         "streamed in chunks)", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340"),
         ("K7", "K7 pairwise sums through the collapsed head g.Mg + u.g",
          "pde_inverse_tpu/ops/pallas/pairwise_packed.py:219"),
         ("K8", "K8 VJP of K7 (mids, M, u, ax, av, ar)",
@@ -1253,6 +1353,11 @@ def main() -> None:
         rows_out.append(row(kid, name, "pde_inverse_torch/csrc/pairwise.cu", replaces,
                             kmv_launches["auto" if kid in ("K7", "K8") else "on"][kid], pair_err[kid],
                             *times[kid]))
+    # launches: the hidden-64 KMV run's (kmv_pallas=auto)
+    rows_out.append(row("K6-wide", "K6 hidden > 32: VJP of K5 through pw_bwd_kernel (timed: layers "
+                        f"{'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
+                        "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340",
+                        kmv_launches["wide"]["K6-wide"], wide_err["K6"], *times["K6-wide"]))
     rows_out += [
         row("S1", "S1 single-block checks of K5-K8's constructs (timed: pair rows)",
             "pde_inverse_torch/csrc/pairwise.cu", "scripts/diag_packed_onchip.py:47", s1_launches,
@@ -1267,7 +1372,8 @@ def main() -> None:
             f"(timed: K8's weight-gradient partials [{sum_rows_shape[0]}, {sum_rows_shape[1]}])",
             "pde_inverse_torch/csrc/pairwise.cu", "scripts/microtest_sublane_reduce.py:47",
             sum_rows_launches["auto"], sum_rows_err, *times["sum_rows"]),
-        row("S3", "S3 block-diagonal [2048, 120] x [120, 120] (timed: TF32 mma.sync, x @ W)",
+        row("S3", "S3 block-diagonal [2048, 120] x [120, 120] (timed: TF32 mma.sync, operands staged, x @ W; "
+            f"device {s3_dev['tf32']:.4f} ms against x @ W's {lib_tf32_dev:.4f} ms)",
             "pde_inverse_torch/csrc/mma_tf32.cu", "scripts/microtest_blkdiag_dot.py:37", s3_launches,
             s3_out["max_abs_err"], *times["S3"]),
     ]

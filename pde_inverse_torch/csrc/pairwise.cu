@@ -10,7 +10,8 @@
 // for the cotangents (g_val, g_hess [nt, n], g_dz0 [nt, n, w0]).
 //
 // Two heads:
-// * the square head (K5 forward pw_fwd_kernel, K6 backward pw_bwd_kernel)
+// * the square head (K5 forward pw_fwd_kernel, K6 backward k6_kernel or,
+//   where a width before the feature layer exceeds 32, pw_bwd_kernel)
 //   replaces
 //   pde_inverse_tpu/ops/pallas/pairwise_kernel.py::_kernel and ::_bwd_kernel:
 //   the layers end with the feature layer and Phi = |z_L|^2;
@@ -28,8 +29,9 @@
 // 4-stream forward pass and one reverse sweep (the TPU kernels' formulation,
 // and K4's in csrc/pointwise.cu).
 //
-// Design of K5 and K6.  A block owns (ref split s, stamp t, block of
-// kTile points) and walks the refs j of its split in order; a tile is its
+// Design of K5 and of pw_bwd_kernel (K6 where a width exceeds 32).  A block
+// owns (ref split s, stamp t, block of kTile points) and walks the refs j of
+// its split in order; a tile is its
 // kTile points against one ref.  Every layer's streams of the tile live in
 // shared memory, feature-major with the points minor (rows of kRow floats),
 // as in K3/K4, and the reverse sweep overwrites them with the cotangents in
@@ -192,6 +194,48 @@
 //   inputs are a few MB), and under them the shared-memory operands: the
 //   weight-gradient product still loads one float per two FMAs.
 //
+// K6 on K8's lane quads (k6_kernel), for chains whose widths before the
+// feature layer are <= 32; wider chains keep pw_bwd_kernel, K6's first
+// design (the 32-point tiles above), chosen by shape in the wrapper.  The
+// hidden layers run as in K8, through K8's device functions unchanged
+// (k8_product, k8_product_t, k8_mix, k8_back, k8_weight_grads, k8_save,
+// k8_restore): lane s of a quad owns the features 4 e + s of the four
+// streams, the same row sets, padding and splits.  The square head
+// Phi = |z_F|^2 runs through the feature layer W_F [W, F] (F = 128 at the
+// KMV MLP), whose four F-wide streams are never held whole nor saved:
+// * the feature layer is streamed in chunks of W features, in chunk order,
+//   each chunk a [W, W] block of W_F's columns and its W biases, laid out
+//   as one more hidden layer is (F zero-padded to whole chunks: 128 -> 140 at
+//   W = 20, 7 chunks).  Layer L's activated streams are written once into
+//   the set H; for each chunk, k8_product gives the chunk's (z, p, q, r)_F,
+//   the lane computes their cotangents zbar = c (2 g_val z + 2 g_hess q +
+//   2 r), pbar = 4 c g_hess p, qbar = 2 c g_hess z, rbar = 2 c z (c = the
+//   ref's mask, 0 past n) and writes them into S[c & 1], k8_product_t adds
+//   their product with the chunk's W_F^T to the lane's hbar registers (W
+//   wide, summed over the chunks in order), and after one barrier
+//   k8_weight_grads adds the chunk's W_F and b_F gradients to the block's
+//   accumulators.  The two sets S alternate between chunks, so one barrier a
+//   chunk suffices; one more barrier after the head frees H and S for the
+//   reverse sweep.  Padded features have zero weights and biases: they add
+//   exactly 0.0 and the wrapper drops their gradients;
+// * weights: L x (W_k, b_k) then the chunks, 4 (L + chunks) (W^2 + W) bytes,
+//   and as many gradient accumulators; rows: K8's max(L, 1) + 2 row sets of
+//   4 R + 4 floats a pair; the ref-row partials;
+// * shared memory at the KMV main path (W = 20, L = 7, 7 chunks, 224 lanes):
+//   47,040 B of weights and accumulators + 169,344 B of rows + 560 B of
+//   ref-row partials = 216,944 B, one block (7 warps, 56 pairs) an SM.  256
+//   lanes would need 241,216 B, more than a block may have; 224 rather than
+//   192 lanes keeps 200 threads busy in the weight-gradient products (8
+//   slices of the 25 4 x 4 blocks) where 192 would keep 100.  With 7 x 36
+//   point blocks on 132 resident blocks the wrapper takes 1 split (252
+//   blocks, 1.91 waves);
+// * FMAs a pair at width 20, L = 7 and F = 128: 4 streams x 7 x 400 forward,
+//   3 x 4 x 20 x 140 in the head (product, hbar and weight gradients over the
+//   padded 140 features), 2 x 4 x 7 x 400 in the reverse sweep = 33,600 +
+//   33,600 = 67,200 (64,320 without the padding), and 160 tanhf.  Barriers
+//   a ref: L + chunks + 2.  What bounds it: operations, and under them the
+//   shared-memory operands as in K8.
+//
 // sum_rows, the fixed-order row sum that finishes every kernel's partial rows
 // (K5 and K7 one launch a call, K6 and K8 three), keeps its order a function
 // of (rows, len) alone: chunks of at least 64 consecutive rows, each summed by
@@ -216,6 +260,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "row_chunks.cuh"
 
 namespace {
@@ -1257,6 +1302,279 @@ struct K8Kernel {
   static constexpr auto get() { return &k8_kernel<W, ACT>; }
 };
 
+// -- K6 on K8's lane quads -------------------------------------------------------
+
+constexpr int kK6MaxThreads = 256;  // lanes per block, at most
+
+// floats of K6's weights: n_layers x (W_k [W, W], b_k [W]) and the feature
+// layer as n_chunks chunks of W features, each a [W, W] block of W_F's
+// columns and its W biases: (n_layers + n_chunks) (W^2 + W)
+__host__ __device__ constexpr int k6_weight_floats(int w, int n_layers, int n_chunks) {
+  return (n_layers + n_chunks) * (w * w + w);
+}
+
+size_t k6_shared_bytes(int w, int threads, int n_layers, int n_chunks) {
+  return sizeof(float) * (2 * static_cast<size_t>(k6_weight_floats(w, n_layers, n_chunks)) +
+                          static_cast<size_t>(k8_rows(n_layers)) * (threads / 4) * k8_quad(w) +
+                          static_cast<size_t>(threads / 32) * w);
+}
+
+// K6: the VJP of K5 for hidden widths <= 32 (see the header).  weights: the
+// zero-padded [L x (W_k, b_k), n_chunks x (W_F chunk, b_F chunk)];
+// w_partials: one row of that layout per block; x_partials: [n_split, 2, nt,
+// n, w0]; ar_partials: [ceil(n / (threads / 4)), nt, m, w0].
+template <int W, int ACT>
+__global__ void __launch_bounds__(kK6MaxThreads)
+    k6_kernel(int n_layers, int n_chunks, int w0, int nt, int n, int m, int chunk,
+              const float* __restrict__ ax, const float* __restrict__ av, const float* __restrict__ ar,
+              const float* __restrict__ mask, const float* __restrict__ g_val,
+              const float* __restrict__ g_hess, const float* __restrict__ g_dz0,
+              const float* __restrict__ weights, float* __restrict__ w_partials,
+              float* __restrict__ x_partials, float* __restrict__ ar_partials) {
+  extern __shared__ float4 smem4[];
+  constexpr int R = k7_row(W);
+  constexpr int Q = k8_quad(W);
+  constexpr int G = W / 4;       // features per lane: 4 e + s
+  constexpr int LW = W * W + W;  // floats of one layer's (or chunk's) weights and bias
+  const int L = n_layers;
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int P = T / 4;  // pairs (points) per block
+  const int n_wf = k6_weight_floats(W, L, n_chunks);
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* gacc = sw + n_wf;
+  float* sets = gacc + n_wf;
+  const int n_sets = k8_rows(L);
+  float* arw = sets + n_sets * P * Q;
+  for (int idx = tid; idx < n_wf / 4; idx += T) {
+    smem4[idx] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
+    smem4[n_wf / 4 + idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const float* sF = sw + L * LW;  // chunk c of the feature layer at sF + c LW
+  // row sets: saved layer k at k - 1 (k = 1 .. L - 1), then H, S[0], S[1]
+  float* setH = sets + (n_sets - 3) * P * Q;
+  float* setS = sets + (n_sets - 2) * P * Q;  // S[b] at setS + b P Q
+  int S = 1;  // pair slices of the weight-gradient product
+  while (2 * S <= 32 && 2 * S * (W / 4) * (W / 4) <= T) S *= 2;
+
+  const int lane = tid & 31;
+  const int s = tid & 3;             // this lane's features: 4 e + s
+  const int qoff = (tid >> 2) * Q;   // the pair's rows in a row set
+  const int own = qoff + s * R;      // the lane's own row there
+  const int n_iblk = (n + P - 1) / P;
+  const int iblk = blockIdx.x % n_iblk;
+  const int t = (blockIdx.x / n_iblk) % nt;
+  const int split = blockIdx.x / (n_iblk * nt);
+  const int i = iblk * P + (tid >> 2);
+  const bool valid = i < n;
+  const int j_begin = split * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const size_t ti = static_cast<size_t>(t) * n + (valid ? i : 0);
+  const float* __restrict__ art = ar + static_cast<size_t>(t) * m * w0;
+
+  // the point's layer-0 streams at the lane's features, and its sums
+  float bz[G], bp[G], br[G], sumz[G], sump[G];
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    const int f = 4 * e + s;
+    const bool in = valid && f < w0;
+    bz[e] = in ? __ldg(ax + ti * w0 + f) : 0.0f;
+    bp[e] = in ? __ldg(av + ti * w0 + f) : 0.0f;
+    br[e] = in ? __ldg(g_dz0 + ti * w0 + f) : 0.0f;
+    sumz[e] = sump[e] = 0.0f;
+  }
+  const float gv = valid ? __ldg(g_val + ti) : 0.0f;
+  const float gh = valid ? __ldg(g_hess + ti) : 0.0f;
+  __syncthreads();
+
+#pragma unroll 1
+  for (int j = j_begin; j < j_end; ++j) {
+    const float mk = __ldg(mask + j);
+    float* __restrict__ ar_row = ar_partials + ((static_cast<size_t>(iblk) * nt + t) * m + j) * w0;
+    if (mk == 0.0f) {  // block-uniform: this ref adds nothing
+      if (tid < w0) ar_row[tid] = 0.0f;
+      continue;
+    }
+    const float cm = valid ? mk : 0.0f;
+    const float* __restrict__ arj = art + static_cast<size_t>(j) * w0;
+    float x[4][G];  // the raw streams z, p, q, r
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      x[0][e] = bz[e] - (4 * e + s < w0 ? __ldg(arj + 4 * e + s) : 0.0f);
+      x[1][e] = bp[e];
+      x[2][e] = 0.0f;
+      x[3][e] = br[e];
+    }
+
+    // forward through the hidden layers, as K8; layer k's raw inputs are
+    // saved for k >= 1 (the core for z)
+#pragma unroll 1
+    for (int k = 0; k < L; ++k) {
+      float h[4][G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        x[0][e] = act_core<ACT>(x[0][e]);
+        float a0, a1, a2, a3, he[4];
+        act_of_core<ACT>(x[0][e], a0, a1, a2, a3);
+        k8_mix(a0, a1, a2, x[1][e], x[2][e], x[3][e], he);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) h[st][e] = he[st];
+      }
+      if (k > 0) k8_save<W>(sets + (k - 1) * P * Q + own, x);
+      __syncwarp();  // the pair's lanes have read H for the layer before
+      k8_to_rows<W>(setH + qoff, s, h);
+      __syncwarp();
+      const float* Wk = sw + k * LW;
+      k8_product<W>(Wk, setH + qoff, s, x);
+#pragma unroll
+      for (int e = 0; e < G; ++e) x[0][e] += Wk[W * W + 4 * e + s];
+    }
+
+    // the square head, streamed: layer L's activated streams stay in H; each
+    // chunk of W features gives the chunk's (z, p, q, r)_F, their cotangents
+    // (into S[c & 1]), their share of hbar (in registers) and of the chunk's
+    // W_F and b_F gradients
+    float cot[4][G];
+    {
+      float hs[4][G], core[G], hb[4][G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        core[e] = act_core<ACT>(x[0][e]);
+        float a0, a1, a2, a3, he[4];
+        act_of_core<ACT>(core[e], a0, a1, a2, a3);
+        k8_mix(a0, a1, a2, x[1][e], x[2][e], x[3][e], he);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+          hs[st][e] = he[st];
+          hb[st][e] = 0.0f;
+        }
+      }
+      __syncwarp();
+      k8_to_rows<W>(setH + qoff, s, hs);
+      __syncwarp();
+#pragma unroll 1
+      for (int c = 0; c < n_chunks; ++c) {
+        const float* Wc = sF + c * LW;
+        float y[4][G];
+        k8_product<W>(Wc, setH + qoff, s, y);
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+          const float z = y[0][e] + Wc[W * W + 4 * e + s];
+          const float pp = y[1][e], q = y[2][e], r = y[3][e];
+          y[0][e] = cm * (2.0f * gv * z + 2.0f * gh * q + 2.0f * r);
+          y[1][e] = cm * (4.0f * gh * pp);
+          y[2][e] = cm * (2.0f * gh * z);
+          y[3][e] = cm * (2.0f * z);
+        }
+        float* sc = setS + (c & 1) * P * Q;
+        k8_to_rows<W>(sc + qoff, s, y);
+        __syncwarp();
+        float part[4][G];
+        k8_product_t<W>(Wc, sc + qoff, s, part);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+#pragma unroll
+          for (int e = 0; e < G; ++e) hb[st][e] += part[st][e];
+        }
+        __syncthreads();
+        k8_weight_grads<W>(setH, sc, gacc + (L + c) * LW, 0, 4, T, S);
+      }
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        float a0, a1, a2, a3, ce[4];
+        act_of_core<ACT>(core[e], a0, a1, a2, a3);
+        const float y[4] = {hb[0][e], hb[1][e], hb[2][e], hb[3][e]};
+        k8_back(a1, a2, a3, x[1][e], x[2][e], x[3][e], y, ce);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) cot[st][e] = ce[st];
+      }
+      __syncthreads();  // every warp is done with the head's rows in H and S
+    }
+
+    // reverse sweep through the hidden layers, as K8: cot is the cotangent
+    // of layer k's outputs
+#pragma unroll 1
+    for (int k = L - 1; k >= 0; --k) {
+      float* sk = setS + (k & 1) * P * Q;
+      k8_to_rows<W>(sk + qoff, s, cot);
+      __syncwarp();
+      float hb[4][G];
+      k8_product_t<W>(sw + k * LW, sk + qoff, s, hb);
+      float* hk = k == 0 ? setH : sets + (k - 1) * P * Q;
+      if (k == 0) {  // layer 0's inputs are not saved
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+          x[0][e] = act_core<ACT>(bz[e] - (4 * e + s < w0 ? __ldg(arj + 4 * e + s) : 0.0f));
+          x[1][e] = bp[e];
+          x[2][e] = 0.0f;
+          x[3][e] = br[e];
+        }
+      } else {
+        k8_restore<W>(hk + own, x);
+      }
+      float h[4][G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        float a0, a1, a2, a3, he[4], ce[4];
+        act_of_core<ACT>(x[0][e], a0, a1, a2, a3);
+        const float y[4] = {hb[0][e], hb[1][e], hb[2][e], hb[3][e]};
+        k8_back(a1, a2, a3, x[1][e], x[2][e], x[3][e], y, ce);
+        k8_mix(a0, a1, a2, x[1][e], x[2][e], x[3][e], he);
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+          cot[st][e] = ce[st];
+          h[st][e] = he[st];
+        }
+      }
+      __syncwarp();  // the pair's lanes have read their saved rows
+      k8_to_rows<W>(hk + qoff, s, h);
+      __syncthreads();
+      k8_weight_grads<W>(hk, sk, gacc + k * LW, 0, 4, T, S);
+    }
+
+    // cot is (z0bar | p0bar | q0bar | r0bar): the point's sums, and the ref's
+    // row summed over the block's points
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      sumz[e] += cot[0][e];
+      sump[e] += cot[1][e];
+      float v = cot[0][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) arw[(tid >> 5) * W + 4 * e + s] = v;
+    }
+    __syncthreads();
+    if (tid < w0) {
+      float v = 0.0f;
+      for (int w = 0; w < T / 32; ++w) v += arw[w * W + tid];
+      ar_row[tid] = -v;
+    }
+  }
+
+  // this split's ax and av cotangents, each [nt, n, w0], and the block's row
+  // of weight gradients
+  if (valid) {
+    const size_t tnw = static_cast<size_t>(nt) * n * w0;
+    float* o = x_partials + static_cast<size_t>(split) * 2 * tnw + ti * w0;
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      if (4 * e + s < w0) {
+        o[4 * e + s] = sumz[e];
+        o[tnw + 4 * e + s] = sump[e];
+      }
+    }
+  }
+  __syncthreads();
+  float* __restrict__ part = w_partials + static_cast<size_t>(blockIdx.x) * n_wf;
+  for (int e = tid; e < n_wf; e += T) part[e] = gacc[e];
+}
+
+struct K6Kernel {
+  template <int W, int ACT>
+  static constexpr auto get() { return &k6_kernel<W, ACT>; }
+};
+
 // New cotangents of layer k's inputs for one point, from the products
 // hbar_s = sbar_s W^T and the saved streams (z, p, q, r), written in place.
 template <int ACT>
@@ -1597,25 +1915,12 @@ size_t shared_bytes(const Net& net, int n_streams) {
          sizeof(float);
 }
 
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-}
+using launch::allow_shared;
+using launch::allow_shared_once;
 
-// allow_shared for the S1 kernels, whose calls take microseconds: the
-// attribute is set again only when a call needs more than it allows, once per
-// device and process for a fixed shape
-constexpr int kMaxDevices = 64;
-template <typename Kernel>
-cudaError_t allow_shared_once(Kernel kernel, size_t smem, int device, size_t (&allowed)[kMaxDevices]) {
-  if (device < 0 || device >= kMaxDevices) return allow_shared(kernel, smem);
-  if (smem <= allowed[device]) return cudaSuccess;
-  const cudaError_t err = allow_shared(kernel, smem);
-  if (err == cudaSuccess) allowed[device] = smem;
-  return err;
-}
-size_t s1_pair_rows_allowed[kMaxDevices];
-size_t s1_m_layer_allowed[kMaxDevices];
+// the S1 kernels' calls take microseconds: their limits are raised once
+size_t s1_pair_rows_allowed[launch::kMaxDevices];
+size_t s1_m_layer_allowed[launch::kMaxDevices];
 
 template <typename Kernel>
 cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
@@ -1813,8 +2118,77 @@ extern "C" int k8_sums_bwd(int device, int act, int width, int threads, int n_la
       launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
 }
 
-// K6.  w_partials: [n_split * nt * n_blk, n_params]; x_partials: [n_split, 2,
-// nt, n, w0]; ar_partials: [n_blk, nt, m, w0] (n_blk = ceil(n / 32)) scratch.
+// K6's dynamic shared memory for width w, `threads` lanes a block, n_layers
+// hidden layers and n_chunks chunks of the feature layer (bytes; the
+// wrapper's plan computes the same).
+extern "C" long long k6_shared_bytes_c(int width, int threads, int n_layers, int n_chunks) {
+  return static_cast<long long>(k6_shared_bytes(width, threads, n_layers, n_chunks));
+}
+
+static bool k6_valid(int threads, int n_layers, int n_chunks) {
+  return threads >= 32 && threads <= kK6MaxThreads && threads % 32 == 0 && n_layers >= 0 &&
+         n_layers <= kMaxMid - 2 && n_chunks >= 1;
+}
+
+// Resident K6 blocks per SM for the width instantiation, activation,
+// `threads` lanes a block, n_layers hidden layers and n_chunks chunks.
+extern "C" int k6_max_blocks(int device, int act, int width, int threads, int n_layers, int n_chunks,
+                             int* blocks) {
+  if (!k6_valid(threads, n_layers, n_chunks)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k6_shared_bytes(width, threads, n_layers, n_chunks);
+  return static_cast<int>(with_kernel<K6Kernel>(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+  }));
+}
+
+// K6 for hidden widths <= 32 (k6_kernel): weights [L x (W_k [W, W], b_k [W]),
+// n_chunks x (W_F chunk [W, W], b_F chunk [W])], zero-padded to `width`
+// (16-byte aligned); `threads` lanes a block, threads / 4 points.  Scratch:
+// w_partials [n_split * nt * n_blk, n_w] (n_w the floats of `weights`, n_blk =
+// ceil(n / (threads / 4))), x_partials [n_split, 2, nt, n, w0], ar_partials
+// [n_blk, nt, m, w0].  grads: [n_w] in the layout of `weights`; axv_bar: [2,
+// nt, n, w0] = ax_bar | av_bar; ar_bar: [nt, m, w0].
+extern "C" int k6_sums_bwd(int device, int act, int width, int threads, int n_layers, int n_chunks,
+                           int w0, int nt, int n, int m, int n_split, const float* ax, const float* av,
+                           const float* ar, const float* mask, const float* g_val,
+                           const float* g_hess, const float* g_dz0, const float* weights,
+                           float* w_partials, float* grads, float* x_partials, float* axv_bar,
+                           float* ar_partials, float* ar_bar, void* stream) {
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width ||
+      !k6_valid(threads, n_layers, n_chunks) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k6_shared_bytes(width, threads, n_layers, n_chunks);
+  const int chunk = (m + n_split - 1) / n_split;
+  const int n_iblk = (n + threads / 4 - 1) / (threads / 4);
+  const int blocks = n_split * nt * n_iblk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = with_kernel<K6Kernel>(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<blocks, threads, smem, st>>>(n_layers, n_chunks, w0, nt, n, m, chunk, ax, av, ar, mask, g_val,
+                                        g_hess, g_dz0, weights, w_partials, x_partials, ar_partials);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(w_partials, grads, blocks,
+                        static_cast<size_t>(k6_weight_floats(width, n_layers, n_chunks)), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * w0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
+}
+
+// K6 for hidden widths > 32 (pw_bwd_kernel).  w_partials: [n_split * nt *
+// n_blk, n_params]; x_partials: [n_split, 2, nt, n, w0]; ar_partials: [n_blk,
+// nt, m, w0] (n_blk = ceil(n / 32)) scratch.
 // grads: [n_params] in the params layout; axv_bar: [2, nt, n, w0] = ax_bar |
 // av_bar; ar_bar: [nt, m, w0].
 extern "C" int pw_sums_bwd(int device, int act, int n_mid, const int* widths, int nt,

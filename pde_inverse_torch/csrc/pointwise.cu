@@ -100,6 +100,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -1028,11 +1030,7 @@ size_t k4_shared_bytes(const K4Net& net, int n_params) {
   return (streams + net.tile + (net.acc_shared ? n_params : 0)) * sizeof(float);
 }
 
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+using launch::allow_shared;
 
 template <int ACT>
 cudaError_t k3_blocks_per_sm(size_t smem, int* blocks) {

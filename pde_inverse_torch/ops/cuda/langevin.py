@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from pde_inverse_torch import rng
-from pde_inverse_torch.ops.cuda import build
+from pde_inverse_torch.ops.cuda import build, current_stream, device_index
 from pde_inverse_torch.ops.langevin import simulate_kinetic_langevin
 from pde_inverse_torch.potentials import GMMPotential, Potential, QuadraticPotential
 
@@ -165,7 +165,7 @@ def langevin(
     )
     tau0 = torch.empty((n,), dtype=z0.dtype, device=z0.device)
     err = _library().langevin_run(
-        z0.device.index if z0.device.index is not None else torch.cuda.current_device(),
+        device_index(z0),
         d,
         kind,
         _INTEGRATORS[integrator],
@@ -185,7 +185,7 @@ def langevin(
         float(noise_scale),
         int(seed),
         int(bool(random_phase)),
-        torch.cuda.current_stream(z0.device).cuda_stream,
+        current_stream(device_index(z0)),
     )
     if err != 0:
         raise RuntimeError(f"{'K1' if pack == 1 else 'K2'} launch failed: CUDA error {err}")

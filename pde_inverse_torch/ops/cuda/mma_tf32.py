@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from pde_inverse_torch.ops.cuda import build
+from pde_inverse_torch.ops.cuda import build, current_stream, device_index
 from pde_inverse_torch.ops.cuda.row_chunks import chunked_sum, sum_rows_plan
 
 PRECISIONS = {"tf32": 0, "3xtf32": 1}
@@ -59,8 +59,8 @@ def tf32_matmul_plain(a, b, precision: str = "tf32", transpose_b: bool = False):
 def _library() -> ctypes.CDLL:
     lib = build.load("mma_tf32")
     if lib.tf32_matmul.argtypes is None:
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tf32_matmul.argtypes = [ci, ci, ci, ci, ci, vp, ci, vp, cl, cl, vp, ci, vp]
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.tf32_matmul.argtypes = [ci] * 6 + [vp, ci, vp, ci, vp, ci, vp]
         lib.tf32_column_sum.argtypes = [ci, ci, ci, ci, vp, vp, vp]
         lib.tf32_matmul.restype = lib.tf32_column_sum.restype = ci
     return lib
@@ -69,7 +69,8 @@ def _library() -> ctypes.CDLL:
 def tf32_matmul(a, b, precision: str = "tf32", transpose_b: bool = False):
     """a @ b (transpose_b: a @ b^T) on the tensor cores in TF32 or 3xTF32.
     CUDA tensors: the kernel; CPU tensors: ``tf32_matmul_plain``."""
-    if precision not in PRECISIONS:
+    split = PRECISIONS.get(precision)
+    if split is None:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
     if a.device.type == "cpu":
         return tf32_matmul_plain(a, b, precision, transpose_b)
@@ -79,18 +80,18 @@ def tf32_matmul(a, b, precision: str = "tf32", transpose_b: bool = False):
         raise ValueError("tf32_matmul: a and b must be float32 on one device")
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"tf32_matmul: need 2-D operands, got {tuple(a.shape)}, {tuple(b.shape)}")
-    a, b = a.contiguous(), b.contiguous()
+    if not a.is_contiguous():
+        a = a.contiguous()
+    if not b.is_contiguous():
+        b = b.contiguous()
     M, K = a.shape
-    N = b.shape[0] if transpose_b else b.shape[1]
-    if (b.shape[1] if transpose_b else b.shape[0]) != K:
+    N, Kb = b.shape if transpose_b else b.shape[::-1]
+    if Kb != K:
         raise ValueError(f"tf32_matmul: shapes {tuple(a.shape)} and {tuple(b.shape)} do not chain")
-    # B[k][n] at b + k * sbk + n * sbn
-    sbk, sbn = (1, K) if transpose_b else (N, 1)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    err = _library().tf32_matmul(dev, PRECISIONS[precision], M, N, K, a.data_ptr(), K, b.data_ptr(),
-                                 sbk, sbn, out.data_ptr(), N,
-                                 torch.cuda.current_stream(a.device).cuda_stream)
+    dev = device_index(a)
+    err = _library().tf32_matmul(dev, split, int(transpose_b), M, N, K, a.data_ptr(), K, b.data_ptr(),
+                                 b.shape[1], out.data_ptr(), N, current_stream(dev))
     if err != 0:
         raise RuntimeError(f"tf32_matmul launch failed: CUDA error {err}")
     tf32_matmul.launches += 1
@@ -122,9 +123,9 @@ def column_sum(x, precision: str = "tf32"):
         raise ValueError(f"column_sum: need x float32 [R, w], got {x.dtype} {tuple(x.shape)}")
     x = x.contiguous()
     out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    dev = device_index(x)
     err = _library().tf32_column_sum(dev, PRECISIONS[precision], x.shape[0], x.shape[1], x.data_ptr(),
-                                     out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+                                     out.data_ptr(), current_stream(dev))
     if err != 0:
         raise RuntimeError(f"column_sum launch failed: CUDA error {err}")
     column_sum.launches += 1

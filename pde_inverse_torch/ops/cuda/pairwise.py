@@ -17,7 +17,9 @@ or their VJP.  Counterparts:
 * ``mlp_pairwise_sums`` (K5) and ``mlp_pairwise_sums_bwd`` (K6):
   ``pde_inverse_tpu/ops/pallas/pairwise_kernel.py``, the layers after the
   first (``mids``: [(W [w_in, w_out], b)], the feature layer last) and
-  Phi = |f_L|^2;
+  Phi = |f_L|^2; K6 runs k6_kernel (K8's lane quads, the feature layer
+  streamed in chunks, ``k6_plan``) where every width before the feature
+  layer is <= 32, else pw_bwd_kernel;
 * ``mlp_pairwise_sums_packed`` (K7) and ``mlp_pairwise_sums_packed_bwd``
   (K8): ``pairwise_packed.py``, the hidden layers before the feature layer
   (``mids_m``) and the collapsed head Phi = g.(M g) + u.g with g the last
@@ -47,7 +49,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import torch
 
 from pde_inverse_torch.ops.activations import ACT_D012, ACT_D0123, supported_activation
-from pde_inverse_torch.ops.cuda import build
+from pde_inverse_torch.ops.cuda import build, current_stream, device_index
 from pde_inverse_torch.ops.cuda.row_chunks import SumRowsPlan, chunked_sum, sum_rows_plan
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -62,6 +64,7 @@ _WAVES = 4  # aim for this many waves of resident blocks when splitting the refs
 K7_WIDTHS = (8, 16, 20, 24, 32)  # k7_kernel's width instantiations
 K7_THREADS = (128, 64, 32)  # points per K7 block: the most whose shared memory fits
 K8_THREADS = (256, 192, 128, 96, 64, 32)  # lanes per K8 block (4 a point), likewise
+K6_THREADS = (256, 224, 192, 160, 128, 96, 64, 32)  # lanes per k6_kernel block, likewise
 
 
 # -- plain versions ----------------------------------------------------------------
@@ -248,6 +251,10 @@ def _library() -> ctypes.CDLL:
         lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, pi, pi]
         lib.k7_sums.argtypes = [ci] * 10 + [vp] * 8
         lib.k8_sums_bwd.argtypes = [ci] * 10 + [vp] * 15
+        lib.k6_sums_bwd.argtypes = [ci] * 11 + [vp] * 15
+        lib.k6_max_blocks.argtypes = [ci] * 6 + [pi]
+        lib.k6_shared_bytes_c.argtypes = [ci] * 4
+        lib.k6_shared_bytes_c.restype = ctypes.c_longlong
         for fn in (lib.k7_max_blocks, lib.k8_max_blocks):
             fn.argtypes = [ci] * 5 + [pi]
         for fn in (lib.k7_shared_bytes_c, lib.k8_shared_bytes_c):
@@ -262,7 +269,7 @@ def _library() -> ctypes.CDLL:
         lib.pw_sum_rows_launches.argtypes = []
         lib.pw_sum_rows_launches.restype = ctypes.c_longlong
         for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k7_sums, lib.k7_max_blocks,
-                   lib.k8_sums_bwd, lib.k8_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
+                   lib.k8_sums_bwd, lib.k8_max_blocks, lib.k6_sums_bwd, lib.k6_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
             fn.restype = ci
     return lib
 
@@ -348,6 +355,99 @@ def k8_plan(widths: Sequence[int]) -> K7Plan:
     return _plan("K8", widths, K8_THREADS, k8_shared_bytes)
 
 
+class K6Plan(NamedTuple):
+    """How k6_kernel runs a square-head chain: the hidden layers zero-padded
+    to `width`, the feature layer to `chunks` chunks of `width` features,
+    `threads` lanes a block (four a point), `shared_bytes` a block."""
+
+    width: int
+    threads: int
+    shared_bytes: int
+    chunks: int
+
+
+def k6_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
+    """k6_kernel's shared memory a block (csrc/pairwise.cu): the padded
+    weights, n_layers x (W_k, b_k) then `chunks` x (a [width, width] block
+    of W_F, its biases), as many gradient accumulators, K8's ``k8_rows``
+    row sets and one ref-row partial a warp."""
+    weights = (n_layers + chunks) * (width * width + width)
+    row = width + 4 if width % 8 == 0 else width
+    return 4 * (2 * weights + k8_rows(n_layers) * (threads // 4) * (4 * row + 4) + threads // 32 * width)
+
+
+def k6_takes(widths: Sequence[int]) -> bool:
+    """Whether the square-head chain `widths` = [w0, the hidden layers'
+    output widths..., the feature width] runs through k6_kernel (every
+    width before the feature layer <= 32) rather than pw_bwd_kernel."""
+    return len(widths) >= 2 and max(widths[:-1]) <= K7_WIDTHS[-1]
+
+
+def k6_plan(widths: Sequence[int]) -> K6Plan:
+    """k6_kernel's plan for the chain `widths` (as ``k6_takes``): the least
+    instantiated width that holds every width before the feature layer, the
+    feature layer in chunks of that width, and the most lanes a block (of
+    K6_THREADS) whose shared memory fits."""
+    n_layers = len(widths) - 2
+    if n_layers < 0 or min(widths) < 1:
+        raise ValueError(f"K6: widths {list(widths)} are not a chain ending with the feature width")
+    width = next((w for w in K7_WIDTHS if w >= max(widths[:-1])), None)
+    if width is None:
+        raise ValueError(f"K6 takes widths <= {K7_WIDTHS[-1]} before the feature layer, got {list(widths)}")
+    chunks = -(-widths[-1] // width)
+    for threads in K6_THREADS:
+        smem = k6_shared_bytes(width, threads, n_layers, chunks)
+        if smem <= _MAX_SHARED_BYTES:
+            return K6Plan(width, threads, smem, chunks)
+    raise ValueError(f"K6: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+
+
+def pack_square(layers: Layers, width: int) -> torch.Tensor:
+    """Layers padded to `width` (hidden [width, width], the feature layer
+    [width, chunks x width]) as k6_kernel's flat weights: every hidden
+    (W_k, b_k), then for each chunk of `width` features its [width, width]
+    block of W_F and its biases."""
+    *hidden, (WF, bF) = layers
+    chunks = WF.shape[1] // width
+    feature = torch.cat([WF.reshape(width, chunks, width).transpose(0, 1).reshape(chunks, -1),
+                         bF.reshape(chunks, width)], dim=1)
+    return torch.cat([x.reshape(-1) for W, b in hidden for x in (W, b)] + [feature.reshape(-1)])
+
+
+def pad_square(mids: Layers, width: int):
+    """The square-head chain `mids` zero-padded for k6_kernel: (flat weights
+    of ``pack_square``, the padded layers [(W_k [width, width], b_k), (W_F
+    [width, chunks x width], b_F)])."""
+    *hidden, (WF, _) = mids
+    f_pad = -(-WF.shape[1] // width) * width
+    padded = []
+    for k, (W, b) in enumerate(mids):
+        cols = width if k < len(hidden) else f_pad
+        Wp = W.new_zeros((width, cols))
+        Wp[: W.shape[0], : W.shape[1]] = W
+        bp = b.new_zeros(cols)
+        bp[: b.shape[0]] = b
+        padded.append((Wp, bp))
+    return pack_square(padded, width), padded
+
+
+def unpad_square(flat: torch.Tensor, mids: Layers, width: int):
+    """The gradients of the unpadded chain `mids` out of flat weights in the
+    layout of ``pack_square``: [(Wbar, bbar)], the padded entries dropped."""
+    *hidden, (WF, _) = mids
+    lw = width * width + width
+    out = []
+    for k, (W, b) in enumerate(hidden):
+        layer = flat[k * lw: (k + 1) * lw]
+        out.append((layer[: width * width].view(width, width)[: W.shape[0], : W.shape[1]],
+                    layer[width * width:][: b.shape[0]]))
+    feature = flat[len(hidden) * lw:].view(-1, lw)
+    chunks = feature.shape[0]
+    WF_bar = feature[:, : width * width].reshape(chunks, width, width).transpose(0, 1).reshape(width, -1)
+    out.append((WF_bar[: WF.shape[0], : WF.shape[1]], feature[:, width * width:].reshape(-1)[: WF.shape[1]]))
+    return out
+
+
 def k7_splits(nt: int, n: int, m: int, threads: int, resident: int) -> int:
     """Ref splits of K7: the fewest that minimise the wave-rounded work,
     ceil(splits x blocks / resident) x ceil(m / splits), where blocks =
@@ -426,9 +526,9 @@ class _Launch:
             raise ValueError(f"{name}: sizes nt={self.nt}, n={self.n}, m={self.m} out of range")
         self.name, self.layers, self.widths, self.dev = name, layers, widths, dev
         self.act = _ACTS[act_name]
-        self.device = dev.index if dev.index is not None else torch.cuda.current_device()
+        self.device = device_index(ax)
         self.c_widths = (ctypes.c_int * len(widths))(*widths)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.stream = current_stream(self.device)
 
     def params(self):
         """(params, params_t): [W_k, b_k] and [W_k^T] of every layer, packed."""
@@ -527,8 +627,45 @@ def _check_cotangents(L: _Launch, ax, g_val, g_hess, g_dz0) -> None:
         raise ValueError(f"{L.name}: cotangents must be [{L.nt}, {L.n}] and {tuple(ax.shape)}")
 
 
+def _k6_launch(name, mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
+    """K6 through k6_kernel: the chain padded to its plan's width, the
+    feature layer in the plan's chunks, the refs split by ``k7_splits`` over
+    the plan's points a block; the gradients of the padded entries are
+    dropped."""
+    L = _Launch(name, mids, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
+    _check_cotangents(L, ax, g_val, g_hess, g_dz0)
+    plan = k6_plan(L.widths)
+    points = plan.threads // 4
+    w0, n_blk = L.widths[0], -(-L.n // points)
+    if n_blk * L.nt * L.m * w0 >= 2**31:
+        raise ValueError(f"{name}: sizes nt={L.nt}, n={L.n}, m={L.m} out of range")
+    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
+    g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
+    lib = _library()
+    n_layers = len(mids) - 1
+    per_sm = ctypes.c_int(0)
+    _raise(lib.k6_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks,
+                             ctypes.byref(per_sm)), f"{name} occupancy query")
+    n_split = k7_splits(L.nt, L.n, L.m, points, L.resident(per_sm.value))
+    weights = pad_square(mids, plan.width)[0]
+    w_partials = L.empty(n_split * L.nt * n_blk, weights.numel())
+    grads = L.empty(weights.numel())
+    x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
+    axv_bar = L.empty(2, L.nt, L.n, w0)
+    ar_partials = L.empty(n_blk, L.nt * L.m * w0)
+    ar_bar = L.empty(L.nt, L.m, w0)
+    _raise(_counting_sum_rows(lib, lib.k6_sums_bwd,
+        L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks, w0, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
+        g_hess.data_ptr(), g_dz0.data_ptr(), weights.data_ptr(), w_partials.data_ptr(),
+        grads.data_ptr(), x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(),
+        ar_bar.data_ptr(), L.stream,
+    ), name)
+    return unpad_square(grads, mids, plan.width), axv_bar[0], axv_bar[1], ar_bar
+
+
 def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K6."""
+    """K6 through pw_bwd_kernel (hidden widths > 32)."""
     L = _Launch(name, layers, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
     _check_cotangents(L, ax, g_val, g_hess, g_dz0)
     ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
@@ -577,13 +714,20 @@ def mlp_pairwise_sums(mids: Layers, act_name: str, ax, av, ar, mask):
 
 
 def mlp_pairwise_sums_bwd(mids: Layers, act_name: str, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K6: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar).  CUDA tensors: the
-    kernel (per-block partials summed in a fixed order: two calls give
-    bitwise-equal results); CPU tensors: ``mlp_pairwise_sums_bwd_plain``."""
+    """K6: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar).  CUDA tensors: by shape
+    (``k6_takes``), k6_kernel where every width before the feature layer is
+    <= 32 (counted in ``.launches``), else pw_bwd_kernel (counted in
+    ``.launches_wide``); per-block partials summed in a fixed order, so two
+    calls give bitwise-equal results.  CPU tensors:
+    ``mlp_pairwise_sums_bwd_plain``."""
     if not _on_cuda("K6", ax):
         return mlp_pairwise_sums_bwd_plain(mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
-    out = _bwd_launch("K6", mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
-    mlp_pairwise_sums_bwd.launches += 1
+    if k6_takes([ax.shape[-1]] + [W.shape[1] for W, _ in mids]):
+        out = _k6_launch("K6", mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
+        mlp_pairwise_sums_bwd.launches += 1
+    else:
+        out = _bwd_launch("K6", mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
+        mlp_pairwise_sums_bwd.launches_wide += 1
     return out
 
 
@@ -663,10 +807,6 @@ def s1_pair_rows_plain(ax, av, ar):
     return ax[None] - ar[:, None], av[None].expand(ar.shape[0], *av.shape).contiguous()
 
 
-def _device_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
-
-
 def _checked(name: str, *tensors: torch.Tensor):
     dev = tensors[0].device
     for t in tensors:
@@ -687,9 +827,9 @@ def s1_pair_rows(ax, av, ar):
         raise ValueError(f"S1 pair rows: need ax, av [n <= {_TILE}, w0] and ar [m, w0]")
     out = torch.empty((2, m, n, w0), dtype=torch.float32, device=ax.device)  # z | dz
     z_ptr = out.data_ptr()
-    _raise(_library().s1_pair_rows(_device_index(ax), w0, n, m, ax.data_ptr(), av.data_ptr(),
+    _raise(_library().s1_pair_rows(device_index(ax), w0, n, m, ax.data_ptr(), av.data_ptr(),
                                    ar.data_ptr(), z_ptr, z_ptr + 4 * m * n * w0,
-                                   torch.cuda.current_stream(ax.device).cuda_stream), "S1 pair rows")
+                                   current_stream(device_index(ax))), "S1 pair rows")
     s1_pair_rows.launches += 1
     return out.unbind(0)
 
@@ -711,8 +851,8 @@ def s1_m_layer(g3, M):
         raise ValueError(f"S1 M layer: need g3 [3, n <= {_TILE}, w] and M [w, w]")
     params = torch.cat([M.reshape(-1), torch.zeros(w, dtype=M.dtype, device=M.device)])
     out = torch.empty_like(g3)
-    _raise(_library().s1_m_layer(_device_index(g3), w, n, g3.data_ptr(), params.data_ptr(),
-                                 out.data_ptr(), torch.cuda.current_stream(g3.device).cuda_stream),
+    _raise(_library().s1_m_layer(device_index(g3), w, n, g3.data_ptr(), params.data_ptr(),
+                                 out.data_ptr(), current_stream(device_index(g3))),
            "S1 M layer")
     s1_m_layer.launches += 1
     return out
@@ -740,9 +880,9 @@ def sum_rows(part):
         raise ValueError(f"sum_rows: need part [rows, len], got {tuple(part.shape)}")
     out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
     lib = _library()
-    _raise(_counting_sum_rows(lib, lib.pw_sum_rows, _device_index(part), part.data_ptr(), out.data_ptr(),
+    _raise(_counting_sum_rows(lib, lib.pw_sum_rows, device_index(part), part.data_ptr(), out.data_ptr(),
                               part.shape[0], part.shape[1],
-                              torch.cuda.current_stream(part.device).cuda_stream), "sum_rows")
+                              current_stream(device_index(part))), "sum_rows")
     return out
 
 
@@ -780,5 +920,6 @@ for _fn in S1_WRAPPERS:
     _fn.launches = 0
 mlp_pairwise_sums.launches = 0
 mlp_pairwise_sums_bwd.launches = 0
+mlp_pairwise_sums_bwd.launches_wide = 0
 mlp_pairwise_sums_packed.launches = 0
 mlp_pairwise_sums_packed_bwd.launches = 0

@@ -34,7 +34,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from pde_inverse_torch.ops.activations import ACT_D012, ACT_D0123, supported_activation
-from pde_inverse_torch.ops.cuda import build
+from pde_inverse_torch.ops.cuda import build, current_stream, device_index
 
 Mids = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -283,11 +283,11 @@ def mlp_grad_quad(mids: Mids, act_name: str, z1, dz1, d2z1):
     delta = torch.empty((n, plan.widths[0]), dtype=torch.float32, device=z1.device)
     c_widths = (ctypes.c_int * len(plan.widths))(*plan.widths)
     err = _library().k3_mlp_grad_quad(
-        z1.device.index if z1.device.index is not None else torch.cuda.current_device(),
+        device_index(z1),
         _ACTS[act_name], len(mids), c_widths, n, plan.tile, plan.chunk,
         z1.data_ptr(), dz1.data_ptr(), d2z1.data_ptr(), params.data_ptr(),
         params_t.data_ptr(), quad.data_ptr(), delta.data_ptr(),
-        torch.cuda.current_stream(z1.device).cuda_stream,
+        current_stream(device_index(z1)),
     )
     _raise(err, "K3")
     mlp_grad_quad.launches += 1
@@ -318,7 +318,7 @@ def mlp_grad_quad_bwd(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_delta)
         layers, rows = pad_chain(mids, plan.widths, rows)
         _, params, params_t = _check(layers, act_name, (*rows, g_quad), "K4")
     z1, dz1, d2z1, g_delta = rows
-    device = z1.device.index if z1.device.index is not None else torch.cuda.current_device()
+    device = device_index(z1)
     lib = _library()
     per_sm = ctypes.c_int(0)
     _raise(lib.k4_max_blocks(device, _ACTS[act_name], plan.shared_bytes, ctypes.byref(per_sm)),
@@ -338,7 +338,7 @@ def mlp_grad_quad_bwd(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_delta)
         z1.data_ptr(), dz1.data_ptr(), d2z1.data_ptr(), g_quad.data_ptr(), g_delta.data_ptr(),
         params.data_ptr(), params_t.data_ptr(), partials.data_ptr(), grads.data_ptr(),
         *(o.data_ptr() for o in outs),
-        torch.cuda.current_stream(z1.device).cuda_stream,
+        current_stream(device),
     )
     _raise(err, "K4")
     mlp_grad_quad_bwd.launches += 1

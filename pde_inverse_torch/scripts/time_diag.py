@@ -1,4 +1,4 @@
-"""Time the diagnostics' kernels S1 and S2 and the fixed-order row sum
+"""Time the diagnostics' kernels S1-S3 and the fixed-order row sum
 ``sum_rows`` on the card, and print one JSON line.
 
 Each timed function gets three numbers: its device time (``torch.profiler``,
@@ -12,6 +12,9 @@ two times.  What is timed:
               (``pairwise.s1_pair_rows``; ``ax[None] - ar[:, None]``)
     s2        S2's three axis-0 sums of [2048, 120]: sum (``sum_rows``), dot
               and dot_hi (``mma_tf32.column_sum``; ``x.sum(0)``)
+    s3        S3's block-diagonal [2048, 120] x [120, 120] products x @ W and
+              x @ W^T in TF32 and 3xTF32 (``mma_tf32.tf32_matmul``;
+              ``x @ W`` with TF32 allowed and disallowed)
     sum_rows  ``sum_rows`` at the partial rows that K7 and K8 finish at the
               KMV MLP's full width (7 stamps x 2,000 points x 2,000 refs,
               PotentialMLP 2 -> 20 x 8 -> 128): K8's weight gradients, its
@@ -22,7 +25,7 @@ two times.  What is timed:
 Only ``csrc/pairwise.cu`` and ``csrc/mma_tf32.cu`` are built (about a
 minute), not the minutes of the whole build.
 
-    python -m pde_inverse_torch.scripts.time_diag [--reps 200] [--what s1 s2 sum_rows kmv_step]
+    python -m pde_inverse_torch.scripts.time_diag [--reps 200] [--what s1 s2 s3 sum_rows kmv_step]
 
 To compare two versions on one card, run this file in turns (A, B, B, A)
 with PYTHONPATH pointing at each checkout's root, giving the file's path
@@ -46,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-WHAT = ("s1", "s2", "sum_rows", "kmv_step")
+WHAT = ("s1", "s2", "s3", "sum_rows", "kmv_step")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 KMV_NT, KMV_N, KMV_W = 7, 2_000, 20  # stamps, points (= refs), hidden width
 KMV_LAYERS = 7  # hidden layers before the collapsed head
@@ -161,6 +164,18 @@ def main(argv=None) -> int:
             "dot": times(lambda: mma_tf32.column_sum(x, "tf32"), args.reps),
             "dot_hi": times(lambda: mma_tf32.column_sum(x, "3xtf32"), args.reps),
             "library": times(lambda: x.sum(0), args.reps)}
+    if "s3" in args.what:
+        from pde_inverse_torch.scripts import microtest_blkdiag_dot as s3
+
+        x3, W3 = (torch.from_numpy(a).to(dev) for a in s3.inputs(2048, 20, 6))
+        res = {f"{prec} {mode}": times(lambda: mma_tf32.tf32_matmul(x3, W3, prec, mode == "x @ W^T"),
+                                       args.reps)
+               for prec in ("tf32", "3xtf32") for mode in ("x @ W", "x @ W^T")}
+        for allow in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            res[f"library x @ W, TF32 {'allowed' if allow else 'disallowed'}"] = times(lambda: x3 @ W3, args.reps)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out["S3 [2048,120] x [120,120]"] = res
     if "sum_rows" in args.what:
         for what, (rows, cols) in kmv_partial_shapes(dev).items():
             part = torch.randn((rows, cols), generator=gen).to(dev)

@@ -1,11 +1,15 @@
 """Time the pairwise kernels on the card at the KMV MLP configuration's full
 width with CUDA events, and print one JSON line: the collapsed-head K7 and
-K8 by default, the square-head K5 and K6 on request.
+K8 by default, the square-head K5 and K6 on request, and K6 at a chain with
+hidden width 64 (``K6-wide``: what ``kmv_pallas=auto`` runs for wide nets,
+through pw_bwd_kernel).
 
 Shape: 7 stamps x 2,000 points x 2,000 refs (28 million pairs), the
 PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
 (K7/K8: hidden 20 x 7 layers, M = W_F W_F^T, u = 2 W_F b_F; K5/K6: the
-layers with the feature layer last), inputs from a seed.  Only
+layers with the feature layer last), inputs from a seed.  ``K6-wide``:
+the same 28 million pairs through 64 -> 64 -> 128, the deepest chain of
+hidden width 64 whose 32-point tile fits pw_bwd_kernel's shared memory.  Only
 ``csrc/pairwise.cu`` is built (about a minute: 15 instantiations each of
 K7 and K8), not the minutes of the whole build.
 
@@ -31,14 +35,15 @@ import sys
 import torch
 
 NT, N, WIDTHS = 7, 2_000, (20,) * 8 + (128,)
+WIDE = (64, 64, 128)
 
 
-def _inputs(dev, seed: int = 10):
+def _inputs(dev, seed: int = 10, widths=WIDTHS):
     """(mids, mids_m, M, u, ax, av, ar, mask, cotangents) at the full width."""
     gen = torch.Generator().manual_seed(seed)
     mids = [(torch.randn((a, b), generator=gen) / a**0.5, torch.randn(b, generator=gen) * 0.1)
-            for a, b in zip(WIDTHS, WIDTHS[1:])]
-    w0 = WIDTHS[0]
+            for a, b in zip(widths, widths[1:])]
+    w0 = widths[0]
     ax, av, ar = (torch.randn((NT, N, w0), generator=gen) * s for s in (1.0, 0.7, 1.0))
     cot = [torch.randn((NT, N), generator=gen), torch.randn((NT, N), generator=gen),
            torch.randn((NT, N, w0), generator=gen)]
@@ -52,7 +57,7 @@ def _inputs(dev, seed: int = 10):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K5", "K6", "K7", "K8"])
+    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K5", "K6", "K7", "K8", "K6-wide"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_pairwise: needs a CUDA device")
@@ -62,10 +67,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     mids, mids_m, M, u, ax, av, ar, mask, cot = _inputs(dev)
+    wide, _, _, _, wax, wav, war, wmask, wcot = _inputs(dev, widths=WIDE)
     calls = {"K5": lambda: pw.mlp_pairwise_sums(mids, "tanh", ax, av, ar, mask),
              "K6": lambda: pw.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot),
              "K7": lambda: pw.mlp_pairwise_sums_packed(mids_m, M, u, "tanh", ax, av, ar, mask),
-             "K8": lambda: pw.mlp_pairwise_sums_packed_bwd(mids_m, M, u, "tanh", ax, av, ar, mask, *cot)}
+             "K8": lambda: pw.mlp_pairwise_sums_packed_bwd(mids_m, M, u, "tanh", ax, av, ar, mask, *cot),
+             "K6-wide": lambda: pw.mlp_pairwise_sums_bwd(wide, "tanh", wax, wav, war, wmask, *wcot)}
     times = {}
     for kid in args.kernels:
         fn = calls[kid]
@@ -81,7 +88,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     print(json.dumps({"package": pde_inverse_torch.__file__, "card": smi[0] if smi else None,
-                      "shape": f"{NT}x{N}x{N}", "reps": args.reps, "ms": times}))
+                      "shape": f"{NT}x{N}x{N}", "reps": args.reps, "ms": times,
+                      "K6 launches": {"k6_kernel": pw.mlp_pairwise_sums_bwd.launches,
+                                      "pw_bwd_kernel": getattr(pw.mlp_pairwise_sums_bwd, "launches_wide", None)}}))
     return 0
 
 

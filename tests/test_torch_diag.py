@@ -11,7 +11,7 @@ from pde_inverse_torch.ops.cuda import pairwise as pw
 from pde_inverse_torch.scripts import diag_packed_onchip as s1
 from pde_inverse_torch.scripts import microtest_blkdiag_dot as s3
 from pde_inverse_torch.scripts import microtest_sublane_reduce as s2
-from pde_inverse_torch.scripts import profile_step, time_langevin
+from pde_inverse_torch.scripts import ablate_s3, profile_step, time_langevin
 
 torch.set_num_threads(1)
 
@@ -127,6 +127,8 @@ def test_time_langevin_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         time_langevin.main(["--pack", "1", "2"])
+    with pytest.raises(SystemExit, match="CUDA"):
+        ablate_s3.main([])
 
 
 def test_profile_step_runs_offline_steps_on_the_cpu(capsys):

@@ -138,6 +138,43 @@ def test_tf32_kernel_matches_plain(cuda, precision, shape, transpose_b):
     assert float(((got - want).abs() / scale).max()) <= 8 * K * 2.0**-24
 
 
+@pytest.mark.parametrize("precision", ["tf32", "3xtf32"])
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("M", [1, 17, 2049])
+@pytest.mark.parametrize("N", [1, 7, 120, 130])
+@pytest.mark.parametrize("K", [1, 7, 121])
+def test_tf32_kernel_at_edge_shapes(cuda, precision, transpose_b, M, N, K):
+    """The staged kernel at rows, columns and k that end inside a block, a
+    tile, a k-step and a 16-byte load (N = 130: a second column block of
+    two columns), against the plain version as above; outputs past the
+    edges stay unwritten."""
+    gen = torch.Generator().manual_seed(M * 1_000 + N * 10 + K)
+    a = torch.randn((M, K), generator=gen).to(cuda)
+    b = torch.randn((N, K) if transpose_b else (K, N), generator=gen).to(cuda)
+    before = mma_tf32.tf32_matmul.launches
+    got = mma_tf32.tf32_matmul(a, b, precision, transpose_b)
+    assert mma_tf32.tf32_matmul.launches == before + 1 and got.shape == (M, N)
+    want = mma_tf32.tf32_matmul_plain(a, b, precision, transpose_b)
+    scale = (a.abs() @ (b.abs().T if transpose_b else b.abs()))
+    assert float(((got - want).abs() / scale).max()) <= 8 * K * 2.0**-24
+    assert torch.equal(mma_tf32.tf32_matmul(a, b, precision, transpose_b), got)
+    if K == 1 and precision == "tf32":  # one exact product: the rounding is the plain version's, bit for bit
+        assert torch.equal(got, want)
+
+
+def test_tf32_kernel_takes_strided_and_unaligned_rows(cuda):
+    """Operands whose rows are not 16-byte aligned (K = 121, and a view one
+    float into a buffer) take the scalar staging path."""
+    gen = torch.Generator().manual_seed(3)
+    buf = torch.randn(1 + 300 * 120, generator=gen).to(cuda)
+    a = buf[1:].view(300, 120)  # contiguous, 4 bytes past an aligned start
+    w = torch.randn((120, 120), generator=gen).to(cuda)
+    for precision in ("tf32", "3xtf32"):
+        got = mma_tf32.tf32_matmul(a, w, precision)
+        want = mma_tf32.tf32_matmul_plain(a, w, precision)
+        assert float(((got - want).abs() / (a.abs() @ w.abs())).max()) <= 8 * 120 * 2.0**-24
+
+
 def test_s2_s3_within_their_bounds_on_the_card(cuda):
     before = (pw.sum_rows.launches, mma_tf32.column_sum.launches, mma_tf32.tf32_matmul.launches)
     out2, out3 = s2.run("cuda"), s3.run("cuda")

@@ -1,6 +1,8 @@
 """K5-K8, the CUDA pairwise kernels, against their plain PyTorch versions on
-the card, with ragged n and m and masks, and K7 and K8 at each of their
-width instantiations and paddings.  The gates repeat ``chip_smoke.py``'s.
+the card, with ragged n and m and masks, K7, K8 and K6's k6_kernel at each
+of their width instantiations and paddings (k6_kernel also at ragged
+chunks of the feature layer), and a hidden-64 chain through K6's
+pw_bwd_kernel.  The gates repeat ``chip_smoke.py``'s.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -199,6 +201,97 @@ def test_k8_plan_matches_the_kernel(cuda):
     assert lib.k8_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
                              ctypes.byref(per_sm)) == 0
     assert per_sm.value >= 1
+
+
+# k6_kernel at each width instantiation and at feature widths whose chunks of
+# `width` features end ragged (100 at 8, 24, 32; 128 at 20, 24) or in one
+# padded chunk (4): (w0, hidden layers, feature width) chains
+K6_CHAINS = [(h,) * 3 + (f,) for h in pk.K7_WIDTHS for f in (128, 100, 4)]
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("widths", K6_CHAINS)
+def test_k6_widths_and_feature_chunks_match_the_f64_plain_version(cuda, act, widths):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,))
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,),
+                                                      dtype=torch.float64)
+    before = (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide)
+    kernel = pk.mlp_pairwise_sums_bwd(mids, act, ax, av, ar, mask, *cot)
+    assert (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide) == \
+        (before[0] + 1, before[1])
+    assert all(g.shape == t.shape for pair, layer in zip(kernel[0], mids) for g, t in zip(pair, layer))
+    _gate(kernel, pk.mlp_pairwise_sums_bwd_plain(mids, act, ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids64, act, ax64, av64, ar64, mask64, *cot64))
+
+
+@pytest.mark.parametrize("widths,nt,n,m,zero_refs", [((12, 20, 20, 100), 2, 70, 33, ()),
+                                                     ((20, 32, 8, 20, 128), 2, 129, 37, (0, 36)),
+                                                     ((20, 128), 3, 57, 5, (2,)),
+                                                     ((20, 20, 128), 1, 1, 1, ())])
+def test_k6_padding_and_depths_match_the_f64_plain_version(cuda, widths, nt, n, m, zero_refs):
+    """w0 = 12 padded to 20; an unequal chain padded to 32; no hidden layer
+    (the feature layer right after the first, layer 0's rows in H); one
+    point and one ref."""
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs)
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs,
+                                                      dtype=torch.float64)
+    before = pk.mlp_pairwise_sums_bwd.launches
+    _gate(pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids, "tanh", ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids64, "tanh", ax64, av64, ar64, mask64, *cot64))
+    assert pk.mlp_pairwise_sums_bwd.launches == before + 1
+
+
+def test_k6_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's, and the main
+    path's plan (224 lanes, 56 points a block) fits on an SM."""
+    lib = pk._library()
+    for width in pk.K7_WIDTHS:
+        for threads, n_layers, chunks in ((224, 7, 7), (256, 0, 1), (96, 15, 16), (32, 1, 4)):
+            assert lib.k6_shared_bytes_c(width, threads, n_layers, chunks) == \
+                pk.k6_shared_bytes(width, threads, n_layers, chunks)
+    for widths in ([20] * 8 + [128], [8] * 4 + [100], [32] * 8 + [128], [24, 128]):
+        plan = pk.k6_plan(widths)
+        per_sm = ctypes.c_int(0)
+        for act in range(3):
+            assert lib.k6_max_blocks(torch.cuda.current_device(), act, plan.width, plan.threads,
+                                     len(widths) - 2, plan.chunks, ctypes.byref(per_sm)) == 0
+            assert per_sm.value >= 1, (widths, act)
+
+
+# a chain with a hidden width above 32: K6 through pw_bwd_kernel, K6's first
+# design (64 -> 64 -> 128 is the deepest hidden-64 chain whose tile fits a
+# block's shared memory)
+WIDE = (64, 64, 128)
+
+
+def test_wide_chain_runs_pw_bwd_kernel(cuda):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,))
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,),
+                                                      dtype=torch.float64)
+    before = (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide)
+    kernel = pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot)
+    assert (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide) == \
+        (before[0], before[1] + 1)
+    _gate(kernel, pk.mlp_pairwise_sums_bwd_plain(mids, "tanh", ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids64, "tanh", ax64, av64, ar64, mask64, *cot64))
+    again = pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot)
+    assert all(torch.equal(x, y) for x, y in zip(_flat(kernel), _flat(again)))
+
+
+def test_k6_launch_counts_are_one_a_kernel(cuda):
+    """Each K6 kernel has its own count: k6_kernel in ``.launches``,
+    pw_bwd_kernel in ``.launches_wide``; a CPU call counts in neither."""
+    fn = pk.mlp_pairwise_sums_bwd
+    for widths, k6, wide in (((8, 8, 4), 1, 0), ((40, 40, 8), 0, 1), ((32, 33, 8), 0, 1)):
+        mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 1, 10, 9)
+        before = (fn.launches, fn.launches_wide)
+        fn(mids, "tanh", ax, av, ar, mask, *cot)
+        assert (fn.launches - before[0], fn.launches_wide - before[1]) == (k6, wide), widths
+    cpu = lambda ts: [t.cpu() for t in ts]
+    before = (fn.launches, fn.launches_wide)
+    fn([(W.cpu(), b.cpu()) for W, b in mids], "tanh", *cpu((ax, av, ar, mask)), *cpu(cot))
+    assert (fn.launches, fn.launches_wide) == before
 
 
 def test_s1_packed_sums_bwd_runs_k8_with_one_split(cuda):

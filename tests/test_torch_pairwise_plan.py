@@ -1,8 +1,9 @@
-"""K7's and K8's plans (``pde_inverse_torch.ops.cuda.pairwise``) on the CPU:
-the width instantiation, the points a block, the shared memory and the ref
-splits that the kernels' header comment (``csrc/pairwise.cu``) states, and
-the zero-padding of the hidden layers, M and u to each instantiated width,
-which must leave the collapsed-head sums and their VJP unchanged.
+"""K7's, K8's and K6's k6_kernel plans (``pde_inverse_torch.ops.cuda.pairwise``)
+on the CPU: the width instantiation, the points a block, the shared memory,
+the feature layer's chunks and the ref splits that the kernels' header
+comment (``csrc/pairwise.cu``) states, and the zero-padding of the hidden
+layers, M and u (K6: the feature layer, to whole chunks) to each
+instantiated width, which must leave the sums and their VJP unchanged.
 
 The padding is held against the JAX package's independent collapsed-head
 composition (tests/test_pallas_packed.py::_jnp_packed_composition) on the
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from pde_inverse_tpu.losses import pairwise_blockwise as jbw
 from pde_inverse_tpu.models.mlp import _ACTIVATIONS
 from pde_inverse_torch.ops.cuda import pairwise as pk
 from tests.test_pallas_packed import _collapse, _jnp_packed_composition
@@ -210,6 +212,131 @@ def test_zero_padding_leaves_the_vjp_unchanged(act, hidden, width):
 
     close(got_M + got_M.T, want_M + want_M.T, "M")
     close(got_u, want_u, "u")
+    for (gw, gb), (ww, wb) in zip(got_mids, want_mids):
+        close(gw, ww, "W")
+        close(gb, wb, "b")
+    for got, want, what in zip(got_x, want_x, ("ax", "av", "ar")):
+        close(got[..., :w0], want, what)
+        assert not bool(got[..., w0:].any()), what
+
+
+# -- K6's k6_kernel -----------------------------------------------------------------
+
+
+def test_k6_plan_and_splits_are_the_header_comments():
+    """The KMV main path (w0 = 20, seven 20 x 20 layers, feature layer 20 x
+    128): the feature layer in 7 chunks of 20 (128 padded to 140), 224 lanes
+    (56 points) a block and 216,944 B (47,040 of weights and accumulators,
+    169,344 of rows, 560 of ref-row partials), one block an SM; 256 lanes
+    would need 241,216 B; 1 ref split for 132 resident blocks on 7 x 36 point
+    blocks."""
+    plan = pk.k6_plan([20] * 8 + [128])
+    assert plan == pk.K6Plan(20, 224, 216_944, 7)
+    assert 2 * 4 * 14 * 420 == 47_040 and 4 * 9 * 56 * 84 == 169_344 and 4 * 7 * 20 == 560
+    assert pk.k6_shared_bytes(20, 256, 7, 7) == 241_216 > 227 * 1024
+    assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
+    assert pk.k7_splits(7, 2_000, 2_000, plan.threads // 4, 132) == 1 and 7 * -(-2_000 // 56) == 252
+    for text in ("47,040 B of weights and accumulators + 169,344 B of rows + 560 B of ref-row partials = "
+                 "216,944 B", "1 split (252 blocks, 1.91 waves)", "4 (L + chunks) (W^2 + W) bytes",
+                 "128 -> 140 at W = 20, 7 chunks", "Barriers a ref: L + chunks + 2"):
+        assert text in HEADER, text
+
+
+@pytest.mark.parametrize("feature", [4, 100, 128])
+@pytest.mark.parametrize("n_layers", [0, 7, 15])
+@pytest.mark.parametrize("width", pk.K7_WIDTHS)
+def test_k6_plan_fits_shared_memory(width, n_layers, feature):
+    """k6_kernel's plan at every width instantiation, depth and feature
+    width: the feature layer in ceil(F / width) chunks, the most lanes a
+    block (of K6_THREADS) whose shared memory fits 227 KB, or a refusal
+    where none does (15 layers at width 32 and 100 or 128 features)."""
+    widths = [width] * (n_layers + 1) + [feature]
+    chunks = -(-feature // width)
+    fits = [t for t in pk.K6_THREADS if pk.k6_shared_bytes(width, t, n_layers, chunks) <= 227 * 1024]
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            pk.k6_plan(widths)
+        return
+    plan = pk.k6_plan(widths)
+    row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
+    weights = (n_layers + chunks) * (width * width + width)
+    want = 4 * (2 * weights + (max(n_layers, 1) + 2) * (plan.threads // 4) * (4 * row + 4)
+                + plan.threads // 32 * width)
+    assert plan == pk.K6Plan(width, fits[0], want, chunks) and plan.threads % 32 == 0
+
+
+def test_k6_takes_chains_by_their_widths_before_the_feature_layer():
+    assert pk.k6_takes([20] * 8 + [128]) and pk.k6_takes([32, 32, 4096]) and pk.k6_takes([2, 128])
+    assert not pk.k6_takes([64, 64, 128]) and not pk.k6_takes([20, 33, 8]) and not pk.k6_takes([20])
+    assert pk.k6_plan([12, 20, 17, 100]) == pk.k6_plan([20, 20, 20, 100])
+    with pytest.raises(ValueError, match="widths <= 32"):
+        pk.k6_plan([64, 64, 128])
+    with pytest.raises(ValueError, match="chain"):
+        pk.k6_plan([20])
+
+
+def test_k6_weight_layout_round_trips():
+    """pad_square lays out every hidden (W_k, b_k), then each chunk of
+    `width` feature columns ([width, width] of W_F, then its biases);
+    unpad_square reads the unpadded chain back out of that layout."""
+    gen = torch.Generator().manual_seed(0)
+    mids = [(torch.randn((12, 16), generator=gen), torch.randn(16, generator=gen)),
+            (torch.randn((16, 9), generator=gen), torch.randn(9, generator=gen)),
+            (torch.randn((9, 50), generator=gen), torch.randn(50, generator=gen))]
+    flat, padded = pk.pad_square(mids, 16)
+    assert [tuple(W.shape) for W, _ in padded] == [(16, 16), (16, 16), (16, 64)]
+    assert flat.numel() == (2 + 4) * (16 * 16 + 16)
+    chunk1 = flat[3 * 272: 4 * 272]  # the second chunk: columns 16..31 of W_F, then b_F[16:32]
+    assert torch.equal(chunk1[:256].view(16, 16)[:9], mids[2][0][:, 16:32])
+    assert torch.equal(chunk1[256:], mids[2][1][16:32])
+    assert torch.equal(pk.pack_square(padded, 16), flat)
+    for (W, b), (Wu, bu) in zip(pk.unpad_square(flat, mids, 16), mids):
+        assert torch.equal(W, Wu) and torch.equal(b, bu)
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("hidden,feat,width", [((16, 16), 8, 16), ((16, 16), 20, 24), ((8, 8, 8), 12, 20),
+                                               ((20, 32, 8, 20), 30, 32), ((12,), 7, 20)])
+def test_k6_zero_padding_leaves_the_vjp_unchanged(act, hidden, feat, width):
+    """K6's plain version on the chain padded as k6_kernel takes it (hidden
+    layers to `width`, the feature layer to whole chunks of `width`
+    columns), its gradients passed through k6_kernel's weight layout
+    (``pack_square``, ``unpad_square``), gives ``jax.vjp`` of the JAX tile
+    math on the unpadded chain within GRAD_REL of each gradient's max-abs;
+    the padded entries' gradients of ax, av and ar are exactly 0.  (12,):
+    no hidden layer after the first."""
+    net, params, x, v, refs = _setup(jax.random.PRNGKey(11), n=9, m=7, act=act, hidden=hidden, feat=feat)
+    mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
+    mask = jnp.asarray([1, 0, 1, 1, 1, 0, 1], jnp.float32)
+    act_fn = _ACTIVATIONS[act]
+    w0 = ax.shape[-1]
+    dummy0 = (jnp.zeros((2, w0)), jnp.zeros((w0,)))
+
+    def f(mids_, ax_, av_, ar_):
+        out = jbw._tile_stats([dummy0] + list(mids_), act_fn, jnp.float32, jnp.swapaxes(ax_, 0, 1),
+                              jnp.swapaxes(ar_, 0, 1), jnp.swapaxes(av_, 0, 1), None, None, None, mask)
+        n_, nt_ = ax_.shape[1], ax_.shape[0]
+        out = {k: w.reshape((n_, nt_) + w.shape[1:]) for k, w in out.items()}
+        return {"value": out["value"].T, "hess": out["hess"].T, "s_dz0": jnp.swapaxes(out["s_dz0"], 0, 1)}
+
+    rs = np.random.default_rng(17)
+    g = [rs.normal(size=s).astype(np.float32) for s in (ax.shape[:2], ax.shape[:2], ax.shape)]
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(f, mids, ax, av, ar)
+        want_mids, *want_x = vjp({"value": jnp.asarray(g[0]), "hess": jnp.asarray(g[1]),
+                                  "s_dz0": jnp.asarray(g[2])})
+    unpadded = [(T(W), T(b)) for W, b in mids]
+    _, padded = pk.pad_square(unpadded, width)
+    pad = lambda a: torch.nn.functional.pad(T(a), (0, width - w0))
+    got_padded, *got_x = pk.mlp_pairwise_sums_bwd_plain(padded, act, pad(ax), pad(av), pad(ar), T(mask),
+                                                        T(g[0]), T(g[1]), pad(g[2]))
+    got_mids = pk.unpad_square(pk.pack_square(got_padded, width), unpadded, width)
+
+    def close(got, want, what):
+        got, want = got.numpy(), np.asarray(want)
+        assert got.shape == want.shape, what
+        assert np.abs(got - want).max() <= GRAD_REL * max(np.abs(want).max(), 1e-30), what
+
     for (gw, gb), (ww, wb) in zip(got_mids, want_mids):
         close(gw, ww, "W")
         close(gb, wb, "b")
