@@ -11,8 +11,9 @@ Phases, each printing its own line:
 2. build: compiles K1/K2 (``pde_inverse_torch/csrc/langevin.cu``), K3/K4
    (``csrc/pointwise.cu``), K5-K8 and S1 (``csrc/pairwise.cu``) and S2/S3
    (``csrc/mma_tf32.cu``) with nvcc, one process per source, together, and
-   prints registers, the Langevin kernels that spill and every K3, K4, K7
-   and K6 (``k6_kernel``), K7 and K8 instantiation's registers and spill;
+   prints registers, the Langevin kernels that spill and every K3, K4, K5
+   (``k5_kernel``), K6 (``k6_kernel``), K7 and K8 instantiation's registers
+   and spill;
 3. K1 and K2 (pack=2) against their plain PyTorch version on the card, at
    the KGMM main path's shapes (d=4; GMM with k=3 and a Quadratic
    potential; 2,500 particles with a trajectory and 75,000 without; 200
@@ -28,10 +29,11 @@ Phases, each printing its own line:
    K5-K8 against their plain versions, held the same way, at the KMV main
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
-   and K7 and K8 also at width 32 and on a chain 20 -> 32 -> 8 -> 20 padded
-   to 32; K6 runs ``k6_kernel`` at these widths, and ``pw_bwd_kernel`` on
-   a chain of hidden width 64 (64 -> 64 -> 128), held the same way;
-   K6's (both kernels), K7's and K8's outputs bitwise equal on two calls;
+   and K5, K7 and K8 also at width 32 and on a chain 20 -> 32 -> 8 -> 20
+   padded to 32; K5 runs ``k5_kernel`` and K6 ``k6_kernel`` at these
+   widths, and ``pw_fwd_kernel`` and ``pw_bwd_kernel`` on a chain of hidden
+   width 64 (64 -> 64 -> 128), held the same way; K5's, K6's (both kernels
+   each), K7's and K8's outputs bitwise equal on two calls;
 5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM (K1), on
    preset KGMM with langevin_pack=2 (K2), then on preset
    KGMM-nonparametric-online, each at full width with the launch counts set
@@ -41,9 +43,10 @@ Phases, each printing its own line:
    against the same step on the CPU.  Then the KMV paths, each read the
    same way: the MLP configuration (the JAX package's ``mlp_pairwise``
    bench row) with kmv_pallas=auto (K7/K8), a shorter run with
-   kmv_pallas=on (K5/K6 through k6_kernel), two steps of the same
-   configuration at hidden width 64 (64 x 2 -> 128) with kmv_pallas=auto
-   (K5/K6 through pw_bwd_kernel), preset KMV (parametric, closed form); the KMV
+   kmv_pallas=on (K5/K6 through k5_kernel and k6_kernel), two steps of the
+   same configuration at hidden width 64 (64 x 2 -> 128) with
+   kmv_pallas=auto (K5/K6 through pw_fwd_kernel and pw_bwd_kernel), preset
+   KMV (parametric, closed form); the KMV
    step's split by kmv_pallas mode; one np KMV step on the card against the
    CPU.  Then the offline paths: preset KGMM-offline with langevin_pack 0
    (K1) and 2 (K2), dataset generation included; preset
@@ -55,7 +58,7 @@ Phases, each printing its own line:
    counts read the same way;
 7. timing of every kernel against its plain version with CUDA events, K2
    against K1 at the offline shapes, K3 and K4 also at the XL and offline
-   steps' shapes, K6 also at the hidden-64 chain, S1-S3 beside one PyTorch
+   steps' shapes, K5 and K6 also at the hidden-64 chain, S1-S3 beside one PyTorch
    call that computes the same function (also by their device time,
    ``torch.profiler``), and
    ``sum_rows``, the fixed-order row sum that finishes K7's and K8's partial
@@ -145,9 +148,10 @@ KMV_MLP = ["preset=KMV-nonparametric-fourier", "neural_network.model=mlp",
            "logging.writer=none"]
 KMV_RUN = KMV_MLP + ["train.number_of_iterations=20", "train.steps_per_chunk=10", "test.frequency=20"]
 KMV_ON_STEPS = 4
-# K6 where a width before the feature layer exceeds 32 (pw_bwd_kernel): the
-# KMV MLP at hidden width 64 with neural_network.layers=2, the deepest
-# hidden-64 chain whose 32-point tile fits a block's shared memory
+# K5 and K6 where a width before the feature layer exceeds 32 (pw_fwd_kernel,
+# pw_bwd_kernel): the KMV MLP at hidden width 64 with
+# neural_network.layers=2, the deepest hidden-64 chain whose 32-point tile
+# fits a block's shared memory
 K6_WIDE = (64, 64, 128)
 KMV_WIDE = ["neural_network.hidden_dim=64", "neural_network.layers=2", "train.number_of_iterations=2",
             "train.steps_per_chunk=1", "test.frequency=2", "solver.train.kmv_pallas=auto"]
@@ -373,7 +377,7 @@ def main() -> None:
         check(len(res) == 3, f"{kid} instantiations in the build report: {sorted(res)}")
         print(f"[build] {kid} instantiations (registers, spill-store bytes): "
               + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items())), flush=True)
-    for kid, kernel in (("K6", "k6_kernel"), ("K7", "k7_kernel"), ("K8", "k8_kernel")):
+    for kid, kernel in (("K5", "k5_kernel"), ("K6", "k6_kernel"), ("K7", "k7_kernel"), ("K8", "k8_kernel")):
         res = {k7_name(k, kernel): v for k, v in resources(lib_pair).items() if k7_name(k, kernel)}
         check(len(res) == 15, f"{kid} instantiations in the build report: {sorted(res)}")
         print(f"[build] {kid} instantiations (registers, spill-store bytes): " + "; ".join(
@@ -545,16 +549,19 @@ def main() -> None:
     pair_cases = (("tanh", KMV_NT, KMV_N, KMV_N, (), KMV_WIDTHS),
                   ("tanh", KMV_NT, 1_999, 1_013, (0, 7, 500, 1_012), KMV_WIDTHS),
                   ("silu", 2, 300, 257, (3,), KMV_WIDTHS), ("softplus", 2, 300, 257, (3,), KMV_WIDTHS))
-    # K7 and K8 also at their widest instantiation and on an unequal chain padded to it
+    # K5, K7 and K8 also at their widest instantiation and on an unequal chain padded to it
     k7_cases = (("tanh", 2, 300, 257, (3,), (32,) * 8 + (128,)),
                 ("silu", 2, 300, 257, (3,), (20, 32, 8, 20, 128)))
     pair_err = {kid: 0.0 for kid in kernels}
     for kid, (kernel, plain) in kernels.items():
         rows = []
-        for act, nt_, n_, m_, zeros, widths in pair_cases + (k7_cases if kid in ("K7", "K8") else ()):
+        for act, nt_, n_, m_, zeros, widths in pair_cases + (k7_cases if kid in ("K5", "K7", "K8") else ()):
             mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, widths)
             mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, widths)
+            before = (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide)
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
+            check(kid != "K5" or (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide)
+                  == (before[0] + 1, before[1]), f"K5 {act} {nt_}x{n_}x{m_} did not run k5_kernel")
             want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
             ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
             torch.cuda.synchronize()
@@ -575,7 +582,7 @@ def main() -> None:
         print(f"[{kid.lower()}-vs-plain] layers 20x8->128, worst output error relative to its max-abs, "
               f"kernel vs f64 / plain f32 vs f64: {'; '.join(rows)}; gate <= {F64_FACTOR} x plain + "
               f"{F64_FLOOR}: pass; max abs err kernel vs plain {pair_err[kid]:.3e}", flush=True)
-    for kid in ("K6", "K7", "K8"):
+    for kid in ("K5", "K6", "K7", "K8"):
         mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9)
         a = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
         b = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
@@ -583,9 +590,10 @@ def main() -> None:
         print(f"[{kid.lower()}-repeat] {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal in all "
               f"{len(a)} outputs", flush=True)
         del a, b
-    # the hidden-64 chain of [main-path-kmv-wide]: K5 (pw_fwd_kernel) and K6
-    # through pw_bwd_kernel, held the same way at the path's own 7 x 2,000 x
-    # 2,000 and at two small ragged, masked shapes; K6 also repeated bitwise
+    # the hidden-64 chain of [main-path-kmv-wide]: K5 through pw_fwd_kernel and
+    # K6 through pw_bwd_kernel, held the same way at the path's own 7 x 2,000
+    # x 2,000 and at two small ragged, masked shapes; both also repeated
+    # bitwise
     rows = {"K5": [], "K6": []}
     wide_err = {"K5": 0.0, "K6": 0.0}
     for kid in ("K5", "K6"):
@@ -594,13 +602,12 @@ def main() -> None:
                                         ("silu", 1, 77, 45, (0, 44))):
             mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, K6_WIDE)
             mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, K6_WIDE)
-            before = (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums_bwd.launches,
-                      pw.mlp_pairwise_sums_bwd.launches_wide)
+            counts = lambda: (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide,
+                              pw.mlp_pairwise_sums_bwd.launches, pw.mlp_pairwise_sums_bwd.launches_wide)
+            before = counts()
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
-            after = (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums_bwd.launches,
-                     pw.mlp_pairwise_sums_bwd.launches_wide)
-            check(after == ((before[0] + 1, before[1], before[2]) if kid == "K5"
-                            else (before[0], before[1], before[2] + 1)),
+            check(counts() == ((before[0], before[1] + 1, before[2], before[3]) if kid == "K5"
+                               else (before[0], before[1], before[2], before[3] + 1)),
                   f"{kid} at hidden width 64 did not run {'pw_fwd_kernel' if kid == 'K5' else 'pw_bwd_kernel'}")
             want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
             ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
@@ -616,16 +623,17 @@ def main() -> None:
                 wide_err[kid] = max(wide_err[kid], float((k_ - p_).abs().max()))
             rows[kid].append(f"{act}/{nt_}x{n_}x{m_}{'/masked' if zeros else ''}: {worst_k:.2e} vs {worst_p:.2e}")
             del got, want, ref
-    pair_err["K5"] = max(pair_err["K5"], wide_err["K5"])
     mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9, (), K6_WIDE)
-    a = flat(pairwise_call("K6", pw.mlp_pairwise_sums_bwd, "tanh", mids, tens, cot))
-    b = flat(pairwise_call("K6", pw.mlp_pairwise_sums_bwd, "tanh", mids, tens, cot))
-    check(all(torch.equal(x, y) for x, y in zip(a, b)), "K6 (pw_bwd_kernel) outputs differ between two calls")
-    del a, b
+    for kid, name in (("K5", "pw_fwd_kernel"), ("K6", "pw_bwd_kernel")):
+        a = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
+        b = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{kid} ({name}) outputs differ between two calls")
+        del a, b
     layers = '->'.join(map(str, K6_WIDE))
     print(f"[k5-wide-vs-plain] layers {layers} through pw_fwd_kernel, worst output error relative to its "
           f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K5'])}; gate <= {F64_FACTOR} x plain + "
-          f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K5']:.3e}", flush=True)
+          f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K5']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two "
+          f"calls bitwise equal", flush=True)
     print(f"[k6-wide-vs-plain] layers {layers} through pw_bwd_kernel, worst output error relative to its "
           f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K6'])}; gate <= {F64_FACTOR} x plain + "
           f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K6']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two "
@@ -814,7 +822,8 @@ def main() -> None:
           f"gradient leaf rel err {g_rel:.3e} <= {NP_GRAD_RTOL}", flush=True)
 
     # the KMV MLP path (K7/K8 with kmv_pallas=auto), then K5/K6 (kmv_pallas=on)
-    pair_launch = lambda: {"K5": pw.mlp_pairwise_sums.launches, "K6": pw.mlp_pairwise_sums_bwd.launches,
+    pair_launch = lambda: {"K5": pw.mlp_pairwise_sums.launches, "K5-wide": pw.mlp_pairwise_sums.launches_wide,
+                           "K6": pw.mlp_pairwise_sums_bwd.launches,
                            "K6-wide": pw.mlp_pairwise_sums_bwd.launches_wide,
                            "K7": pw.mlp_pairwise_sums_packed.launches,
                            "K8": pw.mlp_pairwise_sums_packed_bwd.launches}
@@ -823,7 +832,7 @@ def main() -> None:
         for fn in (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_packed,
                    pw.mlp_pairwise_sums_packed_bwd, pw.sum_rows):
             fn.launches = 0
-        pw.mlp_pairwise_sums_bwd.launches_wide = 0
+        pw.mlp_pairwise_sums.launches_wide = pw.mlp_pairwise_sums_bwd.launches_wide = 0
 
     kmv_launches, sum_rows_launches = {}, {}
     for mode, extra, n_iter in (("auto", [], 20),
@@ -865,8 +874,8 @@ def main() -> None:
               f"({peak_k / 2**30:.3f} GiB); result "
               + " ".join(f"{k}={v:.4e}" for k, v in result_k.result_metrics.items()), flush=True)
 
-    # the KMV MLP at hidden width 64: kmv_pallas=auto takes K5 and K6's
-    # pw_bwd_kernel
+    # the KMV MLP at hidden width 64: kmv_pallas=auto takes K5's pw_fwd_kernel
+    # and K6's pw_bwd_kernel
     cfg_w, _ = parse_args(KMV_MLP + KMV_WIDE)
     check(cfg_w.neural_network.hidden_dim == 64 and cfg_w.solver.train.sample_per_time == KMV_N,
           "KMV MLP hidden-64 configuration changed")
@@ -877,8 +886,8 @@ def main() -> None:
     launches_w = pair_launch()
     n_iter = cfg_w.train.number_of_iterations
     check(len(result_w.losses) == n_iter and bool(np.isfinite(result_w.losses).all())
-          and launches_w["K5"] >= n_iter and launches_w["K6-wide"] >= n_iter
-          and launches_w["K6"] == launches_w["K7"] == launches_w["K8"] == 0,
+          and launches_w["K5-wide"] >= n_iter and launches_w["K6-wide"] >= n_iter
+          and launches_w["K5"] == launches_w["K6"] == launches_w["K7"] == launches_w["K8"] == 0,
           f"KMV hidden 64: losses {result_w.losses}, launches {launches_w}")
     kmv_launches["wide"] = launches_w
     print(f"[main-path-kmv-wide] KMV MLP at hidden width 64 ({KMV_NT} stamps x {KMV_N} samples, PotentialMLP "
@@ -1201,14 +1210,15 @@ def main() -> None:
               f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
 
     mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 10, (), K6_WIDE)
-    k_fn = lambda: pairwise_call("K6", pw.mlp_pairwise_sums_bwd, "tanh", mids, tens, cot)
-    p_fn = lambda: pairwise_call("K6", pw.mlp_pairwise_sums_bwd_plain, "tanh", mids, tens, cot)
-    p1, k1, k2, p2 = time_ms(p_fn, 1), time_ms(k_fn, 2), time_ms(k_fn, 2), time_ms(p_fn, 1)
-    times["K6-wide"] = ((k1 + k2) / 2, (p1 + p2) / 2)
-    print(f"[timing] K6 hidden 64 through pw_bwd_kernel ({KMV_NT}x{KMV_N}x{KMV_N} pairs, layers "
-          f"{'->'.join(map(str, K6_WIDE))}, tanh): kernel {times['K6-wide'][0]:.4f} ms, plain torch "
-          f"{times['K6-wide'][1]:.4f} ms (runs: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain "
-          f"{p2:.4f})", flush=True)
+    for kid, name in (("K5", "pw_fwd_kernel"), ("K6", "pw_bwd_kernel")):
+        k_fn = lambda: pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot)
+        p_fn = lambda: pairwise_call(kid, kernels[kid][1], "tanh", mids, tens, cot)
+        p1, k1, k2, p2 = time_ms(p_fn, 1), time_ms(k_fn, 2), time_ms(k_fn, 2), time_ms(p_fn, 1)
+        times[f"{kid}-wide"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[timing] {kid} hidden 64 through {name} ({KMV_NT}x{KMV_N}x{KMV_N} pairs, layers "
+              f"{'->'.join(map(str, K6_WIDE))}, tanh): kernel {times[f'{kid}-wide'][0]:.4f} ms, plain torch "
+              f"{times[f'{kid}-wide'][1]:.4f} ms (runs: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, "
+              f"plain {p2:.4f})", flush=True)
     del mids, tens, cot
 
     # S1-S3 at their scripts' shapes, beside one PyTorch call for the same function
@@ -1297,8 +1307,9 @@ def main() -> None:
     bounds["K5"] = bound(x_bytes, 2 * pairs * 4 * F5)
     bounds["K6"] = bound(x_bytes, 2 * pairs * 12 * F5)
     w0w = K6_WIDE[0]
-    bounds["K6-wide"] = bound(4 * (3 * KMV_NT * KMV_N * w0w + KMV_N + 2 * KMV_NT * KMV_N + KMV_NT * KMV_N * w0w),
-                              2 * pairs * 12 * mlp_products(K6_WIDE))
+    x_bytes_wide = 4 * (3 * KMV_NT * KMV_N * w0w + KMV_N + 2 * KMV_NT * KMV_N + KMV_NT * KMV_N * w0w)
+    bounds["K5-wide"] = bound(x_bytes_wide, 2 * pairs * 4 * mlp_products(K6_WIDE))
+    bounds["K6-wide"] = bound(x_bytes_wide, 2 * pairs * 12 * mlp_products(K6_WIDE))
     # K7: 3 streams through the hidden layers, Mg and M gp, 1 reverse stream
     bounds["K7"] = bound(x_bytes, 2 * pairs * (3 * Fh + 2 * wm + Fh))
     bounds["K8"] = bound(x_bytes, 2 * pairs * (4 * (Fh + wm) + 2 * wm + 8 * Fh))
@@ -1340,7 +1351,8 @@ def main() -> None:
                             f"pde_inverse_tpu/ops/pallas/pointwise_kernel.py:{line}", np_launches[kid],
                             k34_err[kid], *times[kid]))
     for kid, name, replaces in (
-        ("K5", "K5 pairwise mean-field sums, |f|^2 head (value, vHv, dPhi/dz0 over refs)",
+        ("K5", "K5 pairwise mean-field sums, |f|^2 head (value, vHv, dPhi/dz0 over refs) through k5_kernel "
+         "(hidden widths <= 32: K7's thread per point, the feature layer streamed in chunks of 4)",
          "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:136"),
         ("K6", "K6 VJP of K5 through k6_kernel (hidden widths <= 32: K8's lane quads, the feature layer "
          "streamed in chunks)", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340"),
@@ -1354,6 +1366,10 @@ def main() -> None:
                             kmv_launches["auto" if kid in ("K7", "K8") else "on"][kid], pair_err[kid],
                             *times[kid]))
     # launches: the hidden-64 KMV run's (kmv_pallas=auto)
+    rows_out.append(row("K5-wide", "K5 hidden > 32: pairwise sums, |f|^2 head, through pw_fwd_kernel (timed: "
+                        f"layers {'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
+                        "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:136",
+                        kmv_launches["wide"]["K5-wide"], wide_err["K5"], *times["K5-wide"]))
     rows_out.append(row("K6-wide", "K6 hidden > 32: VJP of K5 through pw_bwd_kernel (timed: layers "
                         f"{'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
                         "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340",

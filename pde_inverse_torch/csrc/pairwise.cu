@@ -10,9 +10,9 @@
 // for the cotangents (g_val, g_hess [nt, n], g_dz0 [nt, n, w0]).
 //
 // Two heads:
-// * the square head (K5 forward pw_fwd_kernel, K6 backward k6_kernel or,
-//   where a width before the feature layer exceeds 32, pw_bwd_kernel)
-//   replaces
+// * the square head (K5 forward k5_kernel, K6 backward k6_kernel or, where
+//   a width before the feature layer exceeds 32, pw_fwd_kernel and
+//   pw_bwd_kernel) replaces
 //   pde_inverse_tpu/ops/pallas/pairwise_kernel.py::_kernel and ::_bwd_kernel:
 //   the layers end with the feature layer and Phi = |z_L|^2;
 // * the collapsed head (K7 forward, K8 backward) replaces
@@ -29,7 +29,8 @@
 // 4-stream forward pass and one reverse sweep (the TPU kernels' formulation,
 // and K4's in csrc/pointwise.cu).
 //
-// Design of K5 and of pw_bwd_kernel (K6 where a width exceeds 32).  A block
+// Design of pw_fwd_kernel and pw_bwd_kernel (K5 and K6 where a width before
+// the feature layer exceeds 32).  A block
 // owns (ref split s, stamp t, block of kTile points) and walks the refs j of
 // its split in order; a tile is its
 // kTile points against one ref.  Every layer's streams of the tile live in
@@ -58,8 +59,9 @@
 // feature 128) K5 does about 21,000 FMAs a pair (three forward streams and
 // one reverse), 1.2 TFLOP a call, and K6 about three times that; K7/K8 skip
 // the 128-wide layer and do a little over half as much.  The inputs are a
-// few MB.  K5/K6's design keeps one float4 shared-memory read per four FMAs
-// and, at width 20, only 160 of a block's 256 threads busy in the products.
+// few MB.  The first design (pw_fwd_kernel, pw_bwd_kernel) keeps one float4
+// shared-memory read per four FMAs and, at width 20, only 160 of a block's 256
+// threads busy in the products.
 //
 // K7: one thread per point, the refs walked in registers (k7_kernel).  K7's
 // outputs are per-point sums over refs, so a thread owns one point (t, i)
@@ -235,6 +237,48 @@
 //   33,600 = 67,200 (64,320 without the padding), and 160 tanhf.  Barriers
 //   a ref: L + chunks + 2.  What bounds it: operations, and under them the
 //   shared-memory operands as in K8.
+//
+// K5 on K7's thread per point (k5_kernel), for chains whose widths before the
+// feature layer are <= 32; wider chains keep pw_fwd_kernel, K5's first design
+// (the 32-point tiles above), chosen by shape in the wrapper.  K5 is K7's
+// function with the square head Phi = |z_F|^2 in place of the collapsed one,
+// so it takes K7's design whole: a thread owns one point (t, i) and walks the
+// refs of its split in order with no block barrier, the splits from
+// k7_splits, the hidden layers through k7_layer unchanged (the streams (z, p,
+// q) in registers, act'(z_k) in the thread's shared-memory row k, weights read
+// as broadcast float4s) and the reverse sweep through k7_sweep, as K7's.  The
+// head is not collapsed into M = W_F W_F^T (that is K7's function): the
+// feature layer W_F [W, F] (F = 128 at the KMV MLP) is streamed in chunks of 4
+// features, in feature order, and nothing F-wide is ever held:
+// * layer L's streams are activated in place and act'(z_L) stays in
+//   registers, as K7's head keeps it;
+// * for each chunk, one pass over W_F's W rows at the chunk's 4 columns (a
+//   broadcast float4 each, feeding 12 FMAs) gives the chunk's (z, p, q)_F, the
+//   bias added last; the thread adds z_F^2 to its value sum and p_F^2 +
+//   z_F q_F to its hess sum, and a second pass over the same rows (4 FMAs a
+//   float4) adds 2 z_F W_F^T to a W-wide register array hbar.  After the last
+//   chunk, delta = hbar * act'(z_L) = dPhi/dz_L starts the reverse sweep;
+// * weights in shared memory, loaded once per block: L x (W_k, b_k), then W_F
+//   [W, F4] row-major and b_F [F4], F zero-padded to F4, a multiple of 4 (a
+//   padded feature adds exactly 0.0): 4 (L (W^2 + W) + (W + 1) F4) bytes; the
+//   rows of act' and the s_dz0 sums as K7's, 4 (L + 1) `threads` R bytes;
+// * shared memory at the KMV main path (W = 20, L = 7, F = 128, 128 threads):
+//   22,512 B of weights + 81,920 B of act' and s_dz0 rows = 104,432 B, so two
+//   blocks (256 threads) fit an SM, as K7's.  The wrapper's splits: with 264
+//   resident blocks and 7 x 16 point blocks, 7 splits (784 blocks, 2.97
+//   waves).  Where the rows would not fit (many layers at width 32), the block
+//   takes 64 or 32 points;
+// * registers: about 112 live values at W = 20 (60 stream values, 20 of
+//   act'(z_L), 20 of hbar, 12 chunk outputs), against K7's 120;
+// * f32 throughout, with act_d's precise tanhf / expf / log1pf; widths,
+//   padding, masked refs (skipped: they add exactly 0.0), points past n
+//   (compute and write nothing) and the fixed order of the sums as K7's.
+//   FMAs a pair at width 20, L = 7 and F = 128: 3 x 7 x 400 forward, 3 x 2,560
+//   for the head's streams and 2,560 for hbar, 7 x 400 in the reverse sweep =
+//   21,440 (K7: 12,000), and 160 tanhf; broadcast float4 loads 700 + 640 +
+//   640 + 700 = 2,680 (K7: 1,500).  What bounds it: operations (the inputs
+//   are a few MB), and under them the broadcast loads, one per 8 FMAs on
+//   average (12 in the forward products, 4 in hbar and the reverse sweep).
 //
 // sum_rows, the fixed-order row sum that finishes every kernel's partial rows
 // (K5 and K7 one launch a call, K6 and K8 three), keeps its order a function
@@ -480,7 +524,8 @@ __device__ void delta_sweep(const Smem& S, const Net& net, int k_top, float top_
   }
 }
 
-// K5: the square head's forward.
+// K5 where a width before the feature layer exceeds 32: the square head's
+// forward on 32-point tiles.
 template <int ACT>
 __global__ void __launch_bounds__(kThreads)
     pw_fwd_kernel(Net net, int nt, int n, int m, int chunk, const float* __restrict__ ax,
@@ -630,6 +675,67 @@ __device__ __forceinline__ void k7_layer(const float* __restrict__ Wk, float* __
   }
 }
 
+// The reverse sweep for one point and ref: delta = dPhi/dz_L becomes dPhi/dz0
+// through delta_k = (delta_{k+1} W_k^T) * act'(z_k) for k = L - 1 .. 0 (W_k's
+// rows read as they are, act'(z_k) from the thread's row dk0 + k stride), and
+// is added, times the ref's mask mk, to the thread's s_dz0 sums at acc.
+template <int W>
+__device__ __forceinline__ void k7_sweep(const float* __restrict__ sw, const float* dk0, int stride, int L,
+                                         float mk, float (&delta)[W], float* acc) {
+#pragma unroll 1
+  for (int k = L - 1; k >= 0; --k) {
+    const float* __restrict__ Wk = sw + k * (W * W + W);
+    const float* dk = dk0 + k * stride;
+    float nd[W];
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < W; c += 4) {
+        const float4 w = ld4(Wk + r * W + c);
+        s = fmaf(delta[c], w.x, s);
+        s = fmaf(delta[c + 1], w.y, s);
+        s = fmaf(delta[c + 2], w.z, s);
+        s = fmaf(delta[c + 3], w.w, s);
+      }
+      nd[r] = s;
+    }
+#pragma unroll
+    for (int f = 0; f < W; f += 4) {
+      const float4 d = ld4(dk + f);
+      delta[f] = nd[f] * d.x;
+      delta[f + 1] = nd[f + 1] * d.y;
+      delta[f + 2] = nd[f + 2] * d.z;
+      delta[f + 3] = nd[f + 3] * d.w;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < W; f += 4) {
+    float4 a = ld4(acc + f);
+    a.x += mk * delta[f];
+    a.y += mk * delta[f + 1];
+    a.z += mk * delta[f + 2];
+    a.w += mk * delta[f + 3];
+    st4(acc + f, a);
+  }
+}
+
+// One point's sums over the refs of a split into the split's partial row:
+// value | hess | s_dz0, each [nt, n(, w0)].
+template <int W>
+__device__ __forceinline__ void k7_write(float* __restrict__ partials, int split, int nt, int n, int w0,
+                                         size_t ti, float val, float hess, const float* acc) {
+  const size_t tn = static_cast<size_t>(nt) * n;
+  float* out = partials + static_cast<size_t>(split) * tn * (2 + w0);
+  out[ti] = val;
+  out[tn + ti] = hess;
+  float* o = out + 2 * tn + ti * w0;
+#pragma unroll
+  for (int f = 0; f < W; ++f) {
+    if (f < w0) o[f] = acc[f];
+  }
+}
+
 // K7: for the point (t, i) of this thread and the refs of this block's
 // split, value, hess and s_dz0 into the split's partial row (see the header).
 // weights: the zero-padded [L x (W_k [W, W], b_k [W]), M [W, W], u [W]].
@@ -727,55 +833,9 @@ __global__ void __launch_bounds__(kK7MaxThreads)
     val += mk * sv;
     hess += mk * sh;
 
-    // reverse sweep: delta_k = (delta_{k+1} W_k^T) * act'(z_k)
-#pragma unroll 1
-    for (int k = L - 1; k >= 0; --k) {
-      const float* __restrict__ Wk = sw + k * (W * W + W);
-      const float* dk = dk0 + k * T * R;
-      float nd[W];
-#pragma unroll
-      for (int r = 0; r < W; ++r) {
-        float s = 0.0f;
-#pragma unroll
-        for (int c = 0; c < W; c += 4) {
-          const float4 w = ld4(Wk + r * W + c);
-          s = fmaf(delta[c], w.x, s);
-          s = fmaf(delta[c + 1], w.y, s);
-          s = fmaf(delta[c + 2], w.z, s);
-          s = fmaf(delta[c + 3], w.w, s);
-        }
-        nd[r] = s;
-      }
-#pragma unroll
-      for (int f = 0; f < W; f += 4) {
-        const float4 d = ld4(dk + f);
-        delta[f] = nd[f] * d.x;
-        delta[f + 1] = nd[f + 1] * d.y;
-        delta[f + 2] = nd[f + 2] * d.z;
-        delta[f + 3] = nd[f + 3] * d.w;
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < W; f += 4) {
-      float4 a = ld4(acc + f);
-      a.x += mk * delta[f];
-      a.y += mk * delta[f + 1];
-      a.z += mk * delta[f + 2];
-      a.w += mk * delta[f + 3];
-      st4(acc + f, a);
-    }
+    k7_sweep<W>(sw, dk0, T * R, L, mk, delta, acc);
   }
-
-  // this split's sums: value | hess | s_dz0, each [nt, n(, w0)]
-  const size_t tn = static_cast<size_t>(nt) * n;
-  float* out = partials + static_cast<size_t>(split) * tn * (2 + w0);
-  out[ti] = val;
-  out[tn + ti] = hess;
-  float* o = out + 2 * tn + ti * w0;
-#pragma unroll
-  for (int f = 0; f < W; ++f) {
-    if (f < w0) o[f] = acc[f];
-  }
+  k7_write<W>(partials, split, nt, n, w0, ti, val, hess, acc);
 }
 
 struct K7Kernel {
@@ -783,8 +843,8 @@ struct K7Kernel {
   static constexpr auto get() { return &k7_kernel<W, ACT>; }
 };
 
-// f(K::get<W, act>()) for the width and activation, K being K7Kernel or
-// K8Kernel; other values return cudaErrorInvalidValue
+// f(K::get<W, act>()) for the width and activation, K being K5Kernel,
+// K6Kernel, K7Kernel or K8Kernel; other values return cudaErrorInvalidValue
 template <typename K, int W, typename F>
 cudaError_t with_act(int act, F&& f) {
   switch (act) {
@@ -1575,6 +1635,155 @@ struct K6Kernel {
   static constexpr auto get() { return &k6_kernel<W, ACT>; }
 };
 
+// -- K5 on K7's thread per point --------------------------------------------------
+
+constexpr int kK5MaxThreads = 128;  // points per block, at most
+constexpr int kK5Chunk = 4;         // features of the feature layer a chunk
+
+// floats of K5's weights: n_layers x (W_k [W, W], b_k [W]), then W_F [W, F4]
+// row-major and b_F [F4], F4 = kK5Chunk n_chunks
+__host__ __device__ constexpr int k5_weight_floats(int w, int n_layers, int n_chunks) {
+  return n_layers * (w * w + w) + (w + 1) * kK5Chunk * n_chunks;
+}
+
+size_t k5_shared_bytes(int w, int threads, int n_layers, int n_chunks) {
+  return sizeof(float) * (static_cast<size_t>(k5_weight_floats(w, n_layers, n_chunks)) +
+                          static_cast<size_t>(n_layers + 1) * threads * k7_row(w));
+}
+
+// K5: for the point (t, i) of this thread and the refs of this block's
+// split, value, hess and s_dz0 into the split's partial row (see the header).
+// weights: the zero-padded [L x (W_k [W, W], b_k [W]), W_F [W, F4], b_F [F4]].
+template <int W, int ACT>
+__global__ void __launch_bounds__(kK5MaxThreads)
+    k5_kernel(int n_layers, int n_chunks, int w0, int nt, int n, int m, int chunk,
+              const float* __restrict__ ax, const float* __restrict__ av, const float* __restrict__ ar,
+              const float* __restrict__ mask, const float* __restrict__ weights,
+              float* __restrict__ partials) {
+  extern __shared__ float4 smem4[];
+  const int L = n_layers;
+  const int T = blockDim.x;
+  const int F4 = kK5Chunk * n_chunks;
+  const int n_w4 = k5_weight_floats(W, L, n_chunks) / 4;  // W and F4 are multiples of 4
+  for (int idx = threadIdx.x; idx < n_w4; idx += T) {
+    smem4[idx] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
+  }
+  __syncthreads();
+  const float* sw = reinterpret_cast<const float*>(smem4);
+  const float* sF = sw + L * (W * W + W);  // W_F, row i at sF + i F4
+  const float* sbF = sF + W * F4;
+  // this thread's rows: act'(z_k) at dk0 + k T R, its s_dz0 sums at acc
+  constexpr int R = k7_row(W);
+  float* dk0 = reinterpret_cast<float*>(smem4 + n_w4) + threadIdx.x * R;
+  float* acc = dk0 + L * T * R;
+
+  const int n_iblk = (n + T - 1) / T;
+  const int iblk = blockIdx.x % n_iblk;
+  const int t = (blockIdx.x / n_iblk) % nt;
+  const int split = blockIdx.x / (n_iblk * nt);
+  const int i = iblk * T + threadIdx.x;
+  if (i >= n) return;
+  const int j_begin = split * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  const size_t ti = static_cast<size_t>(t) * n + i;
+  const float* __restrict__ axi = ax + ti * w0;
+  const float* __restrict__ avi = av + ti * w0;
+  const float* __restrict__ art = ar + static_cast<size_t>(t) * m * w0;
+
+  float val = 0.0f, hess = 0.0f;
+#pragma unroll
+  for (int f = 0; f < W; f += 4) st4(acc + f, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+
+#pragma unroll 1
+  for (int j = j_begin; j < j_end; ++j) {
+    const float mk = __ldg(mask + j);
+    if (mk == 0.0f) continue;  // block-uniform
+    const float* __restrict__ arj = art + static_cast<size_t>(j) * w0;
+    float z[W], p[W], q[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      z[f] = f < w0 ? __ldg(axi + f) - __ldg(arj + f) : 0.0f;
+      p[f] = f < w0 ? __ldg(avi + f) : 0.0f;
+      q[f] = 0.0f;
+    }
+#pragma unroll 1
+    for (int k = 0; k < L; ++k) k7_layer<W, ACT>(sw + k * (W * W + W), dk0 + k * T * R, z, p, q);
+
+    // head: layer L's streams activated in place, act'(z_L) kept in d1
+    float d1[W], hbar[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      float a0, a2, a3;
+      act_d<ACT>(z[f], a0, d1[f], a2, a3);
+      const float pf = p[f];
+      z[f] = a0;
+      p[f] = d1[f] * pf;
+      q[f] = a2 * pf * pf + d1[f] * q[f];
+      hbar[f] = 0.0f;
+    }
+    // the feature layer in chunks of 4 features: their (z, p, q)_F, their
+    // share of value and hess, and of hbar = dPhi/d act(z_L) = 2 z_F W_F^T
+    float sv = 0.0f, sh = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < F4; c += kK5Chunk) {
+      float zc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float qc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        const float4 w = ld4(sF + r * F4 + c);
+        zc[0] = fmaf(z[r], w.x, zc[0]);
+        zc[1] = fmaf(z[r], w.y, zc[1]);
+        zc[2] = fmaf(z[r], w.z, zc[2]);
+        zc[3] = fmaf(z[r], w.w, zc[3]);
+        pc[0] = fmaf(p[r], w.x, pc[0]);
+        pc[1] = fmaf(p[r], w.y, pc[1]);
+        pc[2] = fmaf(p[r], w.z, pc[2]);
+        pc[3] = fmaf(p[r], w.w, pc[3]);
+        qc[0] = fmaf(q[r], w.x, qc[0]);
+        qc[1] = fmaf(q[r], w.y, qc[1]);
+        qc[2] = fmaf(q[r], w.z, qc[2]);
+        qc[3] = fmaf(q[r], w.w, qc[3]);
+      }
+      const float4 b = ld4(sbF + c);
+      zc[0] += b.x;
+      zc[1] += b.y;
+      zc[2] += b.z;
+      zc[3] += b.w;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sv = fmaf(zc[e], zc[e], sv);
+        sh = fmaf(pc[e], pc[e], sh);
+        sh = fmaf(zc[e], qc[e], sh);
+        zc[e] *= 2.0f;  // dPhi/dz_F
+      }
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        const float4 w = ld4(sF + r * F4 + c);
+        float s = hbar[r];
+        s = fmaf(zc[0], w.x, s);
+        s = fmaf(zc[1], w.y, s);
+        s = fmaf(zc[2], w.z, s);
+        s = fmaf(zc[3], w.w, s);
+        hbar[r] = s;
+      }
+    }
+    val += mk * sv;
+    hess += mk * (2.0f * sh);
+
+    // reverse sweep, as K7's, from delta = dPhi/dz_L
+    float delta[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) delta[f] = hbar[f] * d1[f];
+    k7_sweep<W>(sw, dk0, T * R, L, mk, delta, acc);
+  }
+  k7_write<W>(partials, split, nt, n, w0, ti, val, hess, acc);
+}
+
+struct K5Kernel {
+  template <int W, int ACT>
+  static constexpr auto get() { return &k5_kernel<W, ACT>; }
+};
+
 // New cotangents of layer k's inputs for one point, from the products
 // hbar_s = sbar_s W^T and the saved streams (z, p, q, r), written in place.
 template <int ACT>
@@ -1950,8 +2159,8 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
 // packs W_k^T.  Arrays: ax, av [nt, n, w0], ar [nt, m, w0], mask [m],
 // g_val, g_hess [nt, n], g_dz0 [nt, n, w0].
 
-// Resident blocks per SM of K5's forward kernel (bwd = 0) or of K6's
-// backward kernel.
+// Resident blocks per SM of pw_fwd_kernel (bwd = 0) or of pw_bwd_kernel, K5
+// and K6 where a width before the feature layer exceeds 32.
 extern "C" int pw_max_blocks(int device, int act, int bwd, int n_mid, const int* widths,
                              int* blocks) {
   Net net;
@@ -1968,8 +2177,9 @@ extern "C" int pw_max_blocks(int device, int act, int bwd, int n_mid, const int*
   return static_cast<int>(err);
 }
 
-// K5.  partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n *
-// (2 + w0)] = value [nt, n] | hess [nt, n] | s_dz0 [nt, n, w0].
+// K5 for hidden widths > 32 (pw_fwd_kernel).  partials: [n_split, nt * n *
+// (2 + w0)] scratch; out: [nt * n * (2 + w0)] = value [nt, n] | hess [nt, n] |
+// s_dz0 [nt, n, w0].
 extern "C" int pw_sums(int device, int act, int n_mid, const int* widths, int nt, int n, int m,
                        int n_split, const float* ax, const float* av, const float* ar,
                        const float* mask, const float* params, const float* params_t,
@@ -1994,6 +2204,64 @@ extern "C" int pw_sums(int device, int act, int n_mid, const int* widths, int nt
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int w0 = net.w[0];
+  return static_cast<int>(
+      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
+}
+
+// K5's dynamic shared memory for width w, `threads` points a block, n_layers
+// hidden layers and n_chunks chunks of 4 features (bytes; the wrapper's plan
+// computes the same).
+extern "C" long long k5_shared_bytes_c(int width, int threads, int n_layers, int n_chunks) {
+  return static_cast<long long>(k5_shared_bytes(width, threads, n_layers, n_chunks));
+}
+
+static bool k5_valid(int threads, int n_layers, int n_chunks) {
+  return threads >= 1 && threads <= kK5MaxThreads && n_layers >= 0 && n_layers <= kMaxMid - 2 &&
+         n_chunks >= 1;
+}
+
+// Resident K5 blocks per SM for the width instantiation, activation,
+// `threads` points a block, n_layers hidden layers and n_chunks chunks.
+extern "C" int k5_max_blocks(int device, int act, int width, int threads, int n_layers, int n_chunks,
+                             int* blocks) {
+  if (!k5_valid(threads, n_layers, n_chunks)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k5_shared_bytes(width, threads, n_layers, n_chunks);
+  return static_cast<int>(with_kernel<K5Kernel>(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+  }));
+}
+
+// K5 for hidden widths <= 32 (k5_kernel): weights [L x (W_k [W, W], b_k [W]),
+// W_F [W, 4 n_chunks], b_F [4 n_chunks]], zero-padded to `width` and to whole
+// chunks (16-byte aligned); ax, av [nt, n, w0] and ar [nt, m, w0] with w0 <=
+// width; partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n *
+// (2 + w0)] = value [nt, n] | hess [nt, n] | s_dz0 [nt, n, w0].
+extern "C" int k5_sums(int device, int act, int width, int threads, int n_layers, int n_chunks, int w0,
+                       int nt, int n, int m, int n_split, const float* ax, const float* av,
+                       const float* ar, const float* mask, const float* weights, float* partials,
+                       float* out, void* stream) {
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width ||
+      !k5_valid(threads, n_layers, n_chunks) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k5_shared_bytes(width, threads, n_layers, n_chunks);
+  const int chunk = (m + n_split - 1) / n_split;
+  const dim3 grid(n_split * nt * ((n + threads - 1) / threads));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = with_kernel<K5Kernel>(width, act, [&](auto kern) {
+    cudaError_t e = allow_shared(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, threads, smem, st>>>(n_layers, n_chunks, w0, nt, n, m, chunk, ax, av, ar, mask, weights,
+                                      partials);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
 }

@@ -17,9 +17,11 @@ or their VJP.  Counterparts:
 * ``mlp_pairwise_sums`` (K5) and ``mlp_pairwise_sums_bwd`` (K6):
   ``pde_inverse_tpu/ops/pallas/pairwise_kernel.py``, the layers after the
   first (``mids``: [(W [w_in, w_out], b)], the feature layer last) and
-  Phi = |f_L|^2; K6 runs k6_kernel (K8's lane quads, the feature layer
-  streamed in chunks, ``k6_plan``) where every width before the feature
-  layer is <= 32, else pw_bwd_kernel;
+  Phi = |f_L|^2; where every width before the feature layer is <= 32, K5
+  runs k5_kernel (K7's thread per point, the feature layer streamed in
+  chunks of 4, ``k5_plan``) and K6 k6_kernel (K8's lane quads, the feature
+  layer streamed in chunks, ``k6_plan``), else pw_fwd_kernel and
+  pw_bwd_kernel;
 * ``mlp_pairwise_sums_packed`` (K7) and ``mlp_pairwise_sums_packed_bwd``
   (K8): ``pairwise_packed.py``, the hidden layers before the feature layer
   (``mids_m``) and the collapsed head Phi = g.(M g) + u.g with g the last
@@ -65,6 +67,7 @@ K7_WIDTHS = (8, 16, 20, 24, 32)  # k7_kernel's width instantiations
 K7_THREADS = (128, 64, 32)  # points per K7 block: the most whose shared memory fits
 K8_THREADS = (256, 192, 128, 96, 64, 32)  # lanes per K8 block (4 a point), likewise
 K6_THREADS = (256, 224, 192, 160, 128, 96, 64, 32)  # lanes per k6_kernel block, likewise
+K5_CHUNK = 4  # features of the feature layer a k5_kernel chunk (csrc/pairwise.cu kK5Chunk)
 
 
 # -- plain versions ----------------------------------------------------------------
@@ -252,9 +255,12 @@ def _library() -> ctypes.CDLL:
         lib.k7_sums.argtypes = [ci] * 10 + [vp] * 8
         lib.k8_sums_bwd.argtypes = [ci] * 10 + [vp] * 15
         lib.k6_sums_bwd.argtypes = [ci] * 11 + [vp] * 15
-        lib.k6_max_blocks.argtypes = [ci] * 6 + [pi]
-        lib.k6_shared_bytes_c.argtypes = [ci] * 4
-        lib.k6_shared_bytes_c.restype = ctypes.c_longlong
+        lib.k5_sums.argtypes = [ci] * 11 + [vp] * 8
+        for fn in (lib.k5_max_blocks, lib.k6_max_blocks):
+            fn.argtypes = [ci] * 6 + [pi]
+        for fn in (lib.k5_shared_bytes_c, lib.k6_shared_bytes_c):
+            fn.argtypes = [ci] * 4
+            fn.restype = ctypes.c_longlong
         for fn in (lib.k7_max_blocks, lib.k8_max_blocks):
             fn.argtypes = [ci] * 5 + [pi]
         for fn in (lib.k7_shared_bytes_c, lib.k8_shared_bytes_c):
@@ -268,8 +274,9 @@ def _library() -> ctypes.CDLL:
         lib.sum_rows_plan_c.restype = None
         lib.pw_sum_rows_launches.argtypes = []
         lib.pw_sum_rows_launches.restype = ctypes.c_longlong
-        for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k7_sums, lib.k7_max_blocks,
-                   lib.k8_sums_bwd, lib.k8_max_blocks, lib.k6_sums_bwd, lib.k6_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
+        for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k5_sums, lib.k5_max_blocks,
+                   lib.k7_sums, lib.k7_max_blocks, lib.k8_sums_bwd, lib.k8_max_blocks, lib.k6_sums_bwd,
+                   lib.k6_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
             fn.restype = ci
     return lib
 
@@ -414,20 +421,25 @@ def pack_square(layers: Layers, width: int) -> torch.Tensor:
     return torch.cat([x.reshape(-1) for W, b in hidden for x in (W, b)] + [feature.reshape(-1)])
 
 
-def pad_square(mids: Layers, width: int):
-    """The square-head chain `mids` zero-padded for k6_kernel: (flat weights
-    of ``pack_square``, the padded layers [(W_k [width, width], b_k), (W_F
-    [width, chunks x width], b_F)])."""
-    *hidden, (WF, _) = mids
-    f_pad = -(-WF.shape[1] // width) * width
+def _pad_chain(mids: Layers, width: int, f_pad: int):
+    """The square-head chain `mids` zero-padded: the hidden layers to [width,
+    width] and [width], the feature layer to [width, f_pad] and [f_pad]."""
     padded = []
     for k, (W, b) in enumerate(mids):
-        cols = width if k < len(hidden) else f_pad
+        cols = width if k < len(mids) - 1 else f_pad
         Wp = W.new_zeros((width, cols))
         Wp[: W.shape[0], : W.shape[1]] = W
         bp = b.new_zeros(cols)
         bp[: b.shape[0]] = b
         padded.append((Wp, bp))
+    return padded
+
+
+def pad_square(mids: Layers, width: int):
+    """The square-head chain `mids` zero-padded for k6_kernel: (flat weights
+    of ``pack_square``, the padded layers [(W_k [width, width], b_k), (W_F
+    [width, chunks x width], b_F)])."""
+    padded = _pad_chain(mids, width, -(-mids[-1][0].shape[1] // width) * width)
     return pack_square(padded, width), padded
 
 
@@ -446,6 +458,60 @@ def unpad_square(flat: torch.Tensor, mids: Layers, width: int):
     WF_bar = feature[:, : width * width].reshape(chunks, width, width).transpose(0, 1).reshape(width, -1)
     out.append((WF_bar[: WF.shape[0], : WF.shape[1]], feature[:, width * width:].reshape(-1)[: WF.shape[1]]))
     return out
+
+
+class K5Plan(NamedTuple):
+    """How k5_kernel runs a square-head chain: the hidden layers zero-padded
+    to `width`, the feature layer to `chunks` chunks of K5_CHUNK features,
+    `threads` points a block (one a thread), `shared_bytes` a block."""
+
+    width: int
+    threads: int
+    shared_bytes: int
+    chunks: int
+
+
+def k5_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
+    """k5_kernel's shared memory a block (csrc/pairwise.cu): the padded
+    weights, n_layers x (W_k, b_k) then W_F [width, F4] and b_F [F4] (F4 =
+    K5_CHUNK x chunks), and K7's rows of act' and of the s_dz0 sums."""
+    weights = n_layers * (width * width + width) + (width + 1) * K5_CHUNK * chunks
+    row = width + 4 if width % 8 == 0 else width
+    return 4 * (weights + (n_layers + 1) * threads * row)
+
+
+def k5_takes(widths: Sequence[int]) -> bool:
+    """Whether the square-head chain `widths` runs through k5_kernel rather
+    than pw_fwd_kernel: the chains k6_kernel takes (``k6_takes``)."""
+    return k6_takes(widths)
+
+
+def k5_plan(widths: Sequence[int]) -> K5Plan:
+    """k5_kernel's plan for the chain `widths` (as ``k6_takes``): the least
+    instantiated width that holds every width before the feature layer, the
+    feature layer in chunks of K5_CHUNK features, and the most points a
+    block (of K7_THREADS) whose shared memory fits."""
+    n_layers = len(widths) - 2
+    if n_layers < 0 or min(widths) < 1:
+        raise ValueError(f"K5: widths {list(widths)} are not a chain ending with the feature width")
+    width = next((w for w in K7_WIDTHS if w >= max(widths[:-1])), None)
+    if width is None:
+        raise ValueError(f"K5 takes widths <= {K7_WIDTHS[-1]} before the feature layer, got {list(widths)}")
+    chunks = -(-widths[-1] // K5_CHUNK)
+    for threads in K7_THREADS:
+        smem = k5_shared_bytes(width, threads, n_layers, chunks)
+        if smem <= _MAX_SHARED_BYTES:
+            return K5Plan(width, threads, smem, chunks)
+    raise ValueError(f"K5: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+
+
+def pad_k5(mids: Layers, width: int):
+    """The square-head chain `mids` zero-padded for k5_kernel: (flat weights,
+    every hidden (W_k [width, width], b_k) then W_F [width, F4] row-major and
+    b_F [F4], F4 the feature width rounded up to K5_CHUNK; the padded
+    layers)."""
+    padded = _pad_chain(mids, width, -(-mids[-1][0].shape[1] // K5_CHUNK) * K5_CHUNK)
+    return torch.cat([x.reshape(-1) for W, b in padded for x in (W, b)]), padded
 
 
 def k7_splits(nt: int, n: int, m: int, threads: int, resident: int) -> int:
@@ -575,7 +641,7 @@ def _sums_out(L: _Launch, out: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def _fwd_launch(name, layers, act_name, ax, av, ar, mask) -> Dict[str, torch.Tensor]:
-    """K5."""
+    """K5 through pw_fwd_kernel (hidden widths > 32)."""
     L = _Launch(name, layers, act_name, ax, av, ar, mask)
     ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
     lib = _library()
@@ -589,6 +655,32 @@ def _fwd_launch(name, layers, act_name, ax, av, ar, mask) -> Dict[str, torch.Ten
         L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
         ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), params.data_ptr(),
         params_t.data_ptr(), partials.data_ptr(), out.data_ptr(), L.stream,
+    ), name)
+    return _sums_out(L, out)
+
+
+def _k5_launch(name, mids, act_name, ax, av, ar, mask) -> Dict[str, torch.Tensor]:
+    """K5 through k5_kernel: the chain padded to its plan's width, the
+    feature layer to whole chunks, the refs split by ``k7_splits`` over the
+    plan's points a block."""
+    L = _Launch(name, mids, act_name, ax, av, ar, mask)
+    plan = k5_plan(L.widths)
+    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
+    lib = _library()
+    n_layers = len(mids) - 1
+    per_sm = ctypes.c_int(0)
+    _raise(lib.k5_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks,
+                             ctypes.byref(per_sm)), f"{name} occupancy query")
+    n_split = k7_splits(L.nt, L.n, L.m, plan.threads, L.resident(per_sm.value))
+    weights = pad_k5(mids, plan.width)[0]
+    w0 = L.widths[0]
+    tn = L.nt * L.n
+    partials = L.empty(n_split, tn * (2 + w0))
+    out = L.empty(tn * (2 + w0))
+    _raise(_counting_sum_rows(lib, lib.k5_sums,
+        L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks, w0, L.nt, L.n, L.m, n_split,
+        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), L.stream,
     ), name)
     return _sums_out(L, out)
 
@@ -704,12 +796,19 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
 
 
 def mlp_pairwise_sums(mids: Layers, act_name: str, ax, av, ar, mask):
-    """K5: {value, hess, s_dz0}.  CUDA tensors: the kernel; CPU tensors:
-    ``mlp_pairwise_sums_plain``."""
+    """K5: {value, hess, s_dz0}.  CUDA tensors: by shape (``k5_takes``),
+    k5_kernel where every width before the feature layer is <= 32 (counted
+    in ``.launches``), else pw_fwd_kernel (counted in ``.launches_wide``);
+    per-split partials summed in a fixed order, so two calls give
+    bitwise-equal results.  CPU tensors: ``mlp_pairwise_sums_plain``."""
     if not _on_cuda("K5", ax):
         return mlp_pairwise_sums_plain(mids, act_name, ax, av, ar, mask)
-    out = _fwd_launch("K5", mids, act_name, ax, av, ar, mask)
-    mlp_pairwise_sums.launches += 1
+    if k5_takes([ax.shape[-1]] + [W.shape[1] for W, _ in mids]):
+        out = _k5_launch("K5", mids, act_name, ax, av, ar, mask)
+        mlp_pairwise_sums.launches += 1
+    else:
+        out = _fwd_launch("K5", mids, act_name, ax, av, ar, mask)
+        mlp_pairwise_sums.launches_wide += 1
     return out
 
 
@@ -919,6 +1018,7 @@ S1_WRAPPERS = (s1_pair_rows, s1_m_layer, sum_rows, s1_packed_sums, s1_packed_sum
 for _fn in S1_WRAPPERS:
     _fn.launches = 0
 mlp_pairwise_sums.launches = 0
+mlp_pairwise_sums.launches_wide = 0
 mlp_pairwise_sums_bwd.launches = 0
 mlp_pairwise_sums_bwd.launches_wide = 0
 mlp_pairwise_sums_packed.launches = 0

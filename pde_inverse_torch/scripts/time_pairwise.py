@@ -1,17 +1,18 @@
 """Time the pairwise kernels on the card at the KMV MLP configuration's full
 width with CUDA events, and print one JSON line: the collapsed-head K7 and
-K8 by default, the square-head K5 and K6 on request, and K6 at a chain with
-hidden width 64 (``K6-wide``: what ``kmv_pallas=auto`` runs for wide nets,
-through pw_bwd_kernel).
+K8 by default, the square-head K5 and K6 on request, and K5 and K6 at a
+chain with hidden width 64 (``K5-wide``, ``K6-wide``: what
+``kmv_pallas=auto`` runs for wide nets, through pw_fwd_kernel and
+pw_bwd_kernel).
 
 Shape: 7 stamps x 2,000 points x 2,000 refs (28 million pairs), the
 PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
 (K7/K8: hidden 20 x 7 layers, M = W_F W_F^T, u = 2 W_F b_F; K5/K6: the
-layers with the feature layer last), inputs from a seed.  ``K6-wide``:
-the same 28 million pairs through 64 -> 64 -> 128, the deepest chain of
-hidden width 64 whose 32-point tile fits pw_bwd_kernel's shared memory.  Only
-``csrc/pairwise.cu`` is built (about a minute: 15 instantiations each of
-K7 and K8), not the minutes of the whole build.
+layers with the feature layer last), inputs from a seed.  ``K5-wide`` and
+``K6-wide``: the same 28 million pairs through 64 -> 64 -> 128, the deepest
+chain of hidden width 64 whose 32-point tile fits pw_bwd_kernel's shared
+memory.  Only ``csrc/pairwise.cu`` is built (about a minute: 15
+instantiations each of K5-K8), not the minutes of the whole build.
 
     python -m pde_inverse_torch.scripts.time_pairwise [--reps 5] [--kernels K7 K8]
 
@@ -57,7 +58,7 @@ def _inputs(dev, seed: int = 10, widths=WIDTHS):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K5", "K6", "K7", "K8", "K6-wide"])
+    parser.add_argument("--kernels", nargs="+", default=["K7", "K8"], choices=["K5", "K6", "K7", "K8", "K5-wide", "K6-wide"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_pairwise: needs a CUDA device")
@@ -72,6 +73,7 @@ def main(argv=None) -> int:
              "K6": lambda: pw.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot),
              "K7": lambda: pw.mlp_pairwise_sums_packed(mids_m, M, u, "tanh", ax, av, ar, mask),
              "K8": lambda: pw.mlp_pairwise_sums_packed_bwd(mids_m, M, u, "tanh", ax, av, ar, mask, *cot),
+             "K5-wide": lambda: pw.mlp_pairwise_sums(wide, "tanh", wax, wav, war, wmask),
              "K6-wide": lambda: pw.mlp_pairwise_sums_bwd(wide, "tanh", wax, wav, war, wmask, *wcot)}
     times = {}
     for kid in args.kernels:
@@ -89,6 +91,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     print(json.dumps({"package": pde_inverse_torch.__file__, "card": smi[0] if smi else None,
                       "shape": f"{NT}x{N}x{N}", "reps": args.reps, "ms": times,
+                      "K5 launches": {"k5_kernel": pw.mlp_pairwise_sums.launches,
+                                      "pw_fwd_kernel": getattr(pw.mlp_pairwise_sums, "launches_wide", None)},
                       "K6 launches": {"k6_kernel": pw.mlp_pairwise_sums_bwd.launches,
                                       "pw_bwd_kernel": getattr(pw.mlp_pairwise_sums_bwd, "launches_wide", None)}}))
     return 0

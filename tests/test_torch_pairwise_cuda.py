@@ -1,8 +1,9 @@
 """K5-K8, the CUDA pairwise kernels, against their plain PyTorch versions on
-the card, with ragged n and m and masks, K7, K8 and K6's k6_kernel at each
-of their width instantiations and paddings (k6_kernel also at ragged
-chunks of the feature layer), and a hidden-64 chain through K6's
-pw_bwd_kernel.  The gates repeat ``chip_smoke.py``'s.
+the card, with ragged n and m and masks, K7, K8, K6's k6_kernel and K5's
+k5_kernel at each of their width instantiations and paddings (k6_kernel and
+k5_kernel also at ragged chunks of the feature layer, k5_kernel at depths
+0, 7 and 15), and a hidden-64 chain through K6's pw_bwd_kernel and K5's
+pw_fwd_kernel.  The gates repeat ``chip_smoke.py``'s.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -294,6 +295,104 @@ def test_k6_launch_counts_are_one_a_kernel(cuda):
     assert (fn.launches, fn.launches_wide) == before
 
 
+# k5_kernel at each width instantiation and depth (0, 7 and 15 hidden layers
+# after the first) and at feature widths in one chunk of 4 (4), in whole
+# chunks (100, 128) and padded to whole chunks (130 -> 132); n = 130 is not
+# a multiple of a block's points, refs 3 and 32 are masked
+K5_CHAINS = [(w,) * (d + 1) + (f,) for w in pk.K7_WIDTHS for d in (0, 7, 15) for f in (4, 100, 128, 130)]
+
+
+def _k5_gate(cuda, widths, act, nt, n, m, zero_refs):
+    """K5 through k5_kernel (one launch in ``.launches``, none in
+    ``.launches_wide``) against the f64 plain version."""
+    mids, ax, av, ar, mask, _ = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs)
+    mids64, ax64, av64, ar64, mask64, _ = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs,
+                                                  dtype=torch.float64)
+    fn = pk.mlp_pairwise_sums
+    before = (fn.launches, fn.launches_wide)
+    kernel = fn(mids, act, ax, av, ar, mask)
+    assert (fn.launches, fn.launches_wide) == (before[0] + 1, before[1])
+    _gate(kernel, pk.mlp_pairwise_sums_plain(mids, act, ax, av, ar, mask),
+          pk.mlp_pairwise_sums_plain(mids64, act, ax64, av64, ar64, mask64))
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("widths", K5_CHAINS)
+def test_k5_widths_depths_and_feature_chunks_match_the_f64_plain_version(cuda, act, widths):
+    _k5_gate(cuda, widths, act, 2, 130, 33, (3, 32))
+
+
+@pytest.mark.parametrize("widths,nt,n,m,zero_refs", [((12, 20, 20, 100), 2, 70, 33, ()),
+                                                     ((20, 32, 8, 20, 128), 2, 129, 37, (0, 36)),
+                                                     ((20, 128), 3, 57, 5, (2,)),
+                                                     ((20,) * 4 + (48,), 2, 129, 1, ()),
+                                                     ((20, 20, 128), 1, 1, 1, ())])
+def test_k5_padding_and_depths_match_the_f64_plain_version(cuda, widths, nt, n, m, zero_refs):
+    """w0 = 12 padded to 20 in registers; an unequal chain padded to 32; no
+    hidden layer (the feature layer right after the first); a ragged n
+    against one ref; one point and one ref."""
+    _k5_gate(cuda, widths, "tanh", nt, n, m, zero_refs)
+
+
+def test_k5_forward_is_bitwise_repeatable(cuda):
+    mids, ax, av, ar, mask, _ = _inputs(cuda, FULL, 3, 500, 400, zero_refs=(5,))
+    a = _flat(pk.mlp_pairwise_sums(mids, "tanh", ax, av, ar, mask))
+    b = _flat(pk.mlp_pairwise_sums(mids, "tanh", ax, av, ar, mask))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_k5_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's, and two blocks of
+    the main path's plan (128 points, 104,432 B) fit on an SM for every
+    activation, as the kernel's header comment says."""
+    lib = pk._library()
+    for width in pk.K7_WIDTHS:
+        for threads, n_layers, chunks in ((128, 7, 32), (64, 15, 33), (32, 0, 1), (128, 1, 25)):
+            assert lib.k5_shared_bytes_c(width, threads, n_layers, chunks) == \
+                pk.k5_shared_bytes(width, threads, n_layers, chunks)
+    plan = pk.k5_plan(list(FULL))
+    per_sm = ctypes.c_int(0)
+    for act in range(3):
+        assert lib.k5_max_blocks(torch.cuda.current_device(), act, plan.width, plan.threads, 7, plan.chunks,
+                                 ctypes.byref(per_sm)) == 0
+        assert per_sm.value >= 2, act
+    for widths in ([8] * 4 + [100], [32] * 16 + [130], [24, 4]):
+        plan = pk.k5_plan(widths)
+        assert lib.k5_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, len(widths) - 2,
+                                 plan.chunks, ctypes.byref(per_sm)) == 0
+        assert per_sm.value >= 1, widths
+
+
+def test_wide_chain_runs_pw_fwd_kernel(cuda):
+    """A hidden width above 32 takes pw_fwd_kernel, counted in
+    ``.launches_wide``; it holds to the f64 plain version and repeats
+    bitwise."""
+    mids, ax, av, ar, mask, _ = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,))
+    mids64, ax64, av64, ar64, mask64, _ = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,), dtype=torch.float64)
+    fn = pk.mlp_pairwise_sums
+    before = (fn.launches, fn.launches_wide)
+    kernel = fn(mids, "tanh", ax, av, ar, mask)
+    assert (fn.launches, fn.launches_wide) == (before[0], before[1] + 1)
+    _gate(kernel, pk.mlp_pairwise_sums_plain(mids, "tanh", ax, av, ar, mask),
+          pk.mlp_pairwise_sums_plain(mids64, "tanh", ax64, av64, ar64, mask64))
+    again = fn(mids, "tanh", ax, av, ar, mask)
+    assert all(torch.equal(x, y) for x, y in zip(_flat(kernel), _flat(again)))
+
+
+def test_k5_launch_counts_are_one_a_kernel(cuda):
+    """Each K5 kernel has its own count: k5_kernel in ``.launches``,
+    pw_fwd_kernel in ``.launches_wide``; a CPU call counts in neither."""
+    fn = pk.mlp_pairwise_sums
+    for widths, k5, wide in (((8, 8, 4), 1, 0), ((40, 40, 8), 0, 1), ((32, 33, 8), 0, 1), ((32, 130), 1, 0)):
+        mids, ax, av, ar, mask, _ = _inputs(cuda, widths, 1, 10, 9)
+        before = (fn.launches, fn.launches_wide)
+        fn(mids, "tanh", ax, av, ar, mask)
+        assert (fn.launches - before[0], fn.launches_wide - before[1]) == (k5, wide), widths
+    before = (fn.launches, fn.launches_wide)
+    fn([(W.cpu(), b.cpu()) for W, b in mids], "tanh", ax.cpu(), av.cpu(), ar.cpu(), mask.cpu())
+    assert (fn.launches, fn.launches_wide) == before
+
+
 def test_s1_packed_sums_bwd_runs_k8_with_one_split(cuda):
     mids, ax, av, ar, mask, cot = _inputs(cuda, FULL, 2, 70, 33, zero_refs=(4,))
     mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, FULL, 2, 70, 33, zero_refs=(4,),
@@ -365,8 +464,12 @@ def test_wrappers_check_their_inputs(cuda):
         pk.mlp_pairwise_sums(mids, "gelu", ax, av, ar, mask)
     with pytest.raises(ValueError, match="mask"):
         pk.mlp_pairwise_sums(mids, "tanh", ax, av, ar, mask[:5])
-    with pytest.raises(ValueError, match="shared memory"):
-        pk.mlp_pairwise_sums([(torch.zeros((8, 4096), device=cuda), torch.zeros(4096, device=cuda))],
+    with pytest.raises(ValueError, match="shared memory"):  # k5_kernel: W_F alone is 288 KB
+        pk.mlp_pairwise_sums([(torch.zeros((8, 8192), device=cuda), torch.zeros(8192, device=cuda))],
+                             "tanh", ax, av, ar, mask)
+    with pytest.raises(ValueError, match="shared memory"):  # pw_fwd_kernel
+        pk.mlp_pairwise_sums([(torch.zeros((8, 64), device=cuda), torch.zeros(64, device=cuda)),
+                              (torch.zeros((64, 4096), device=cuda), torch.zeros(4096, device=cuda))],
                              "tanh", ax, av, ar, mask)
     with pytest.raises(ValueError, match="cotangents"):
         pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, cot[0][:, :5], *cot[1:])

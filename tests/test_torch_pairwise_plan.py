@@ -1,16 +1,19 @@
-"""K7's, K8's and K6's k6_kernel plans (``pde_inverse_torch.ops.cuda.pairwise``)
-on the CPU: the width instantiation, the points a block, the shared memory,
-the feature layer's chunks and the ref splits that the kernels' header
-comment (``csrc/pairwise.cu``) states, and the zero-padding of the hidden
-layers, M and u (K6: the feature layer, to whole chunks) to each
-instantiated width, which must leave the sums and their VJP unchanged.
+"""K7's, K8's, K6's k6_kernel and K5's k5_kernel plans
+(``pde_inverse_torch.ops.cuda.pairwise``) on the CPU: the width
+instantiation, the points a block, the shared memory, the feature layer's
+chunks and the ref splits that the kernels' header comment
+(``csrc/pairwise.cu``) states, and the zero-padding of the hidden layers, M
+and u (K6 and K5: the feature layer, to whole chunks) to each instantiated
+width, which must leave the sums and their VJP unchanged.
 
 The padding is held against the JAX package's independent collapsed-head
 composition (tests/test_pallas_packed.py::_jnp_packed_composition) on the
 unpadded layers, with the tolerances tests/test_torch_pairwise.py uses: for
 the sums rtol 2e-4 / atol 1e-4 (the JAX package's gate), for the VJP 3e-4
 of each gradient's max-abs against ``jax.vjp`` (both sides are float32
-sums in different orders).
+sums in different orders).  K5's padded sums are held to the JAX tile math
+(``pde_inverse_tpu.losses.pairwise_blockwise._tile_stats``) with K6's
+tolerance, 3e-4 of each output's max-abs.
 """
 
 import re
@@ -223,6 +226,19 @@ def test_zero_padding_leaves_the_vjp_unchanged(act, hidden, width):
 # -- K6's k6_kernel -----------------------------------------------------------------
 
 
+def _tile_sums(act, mids, ax, av, ar, mask):
+    """The JAX tile math's square-head sums {value [nt, n], hess [nt, n],
+    s_dz0 [nt, n, w0]} over the refs, from the layers after the first."""
+    w0 = ax.shape[-1]
+    dummy0 = (jnp.zeros((2, w0)), jnp.zeros((w0,)))
+    out = jbw._tile_stats([dummy0] + list(mids), _ACTIVATIONS[act], jnp.float32, jnp.swapaxes(ax, 0, 1),
+                          jnp.swapaxes(ar, 0, 1), jnp.swapaxes(av, 0, 1), None, None, None, mask)
+    n, nt = ax.shape[1], ax.shape[0]
+    out = {k: w.reshape((n, nt) + w.shape[1:]) for k, w in out.items()}
+    return {"value": out["value"].T, "hess": out["hess"].T, "s_dz0": jnp.swapaxes(out["s_dz0"], 0, 1)}
+
+
+
 def test_k6_plan_and_splits_are_the_header_comments():
     """The KMV main path (w0 = 20, seven 20 x 20 layers, feature layer 20 x
     128): the feature layer in 7 chunks of 20 (128 padded to 140), 224 lanes
@@ -308,17 +324,8 @@ def test_k6_zero_padding_leaves_the_vjp_unchanged(act, hidden, feat, width):
     net, params, x, v, refs = _setup(jax.random.PRNGKey(11), n=9, m=7, act=act, hidden=hidden, feat=feat)
     mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
     mask = jnp.asarray([1, 0, 1, 1, 1, 0, 1], jnp.float32)
-    act_fn = _ACTIVATIONS[act]
     w0 = ax.shape[-1]
-    dummy0 = (jnp.zeros((2, w0)), jnp.zeros((w0,)))
-
-    def f(mids_, ax_, av_, ar_):
-        out = jbw._tile_stats([dummy0] + list(mids_), act_fn, jnp.float32, jnp.swapaxes(ax_, 0, 1),
-                              jnp.swapaxes(ar_, 0, 1), jnp.swapaxes(av_, 0, 1), None, None, None, mask)
-        n_, nt_ = ax_.shape[1], ax_.shape[0]
-        out = {k: w.reshape((n_, nt_) + w.shape[1:]) for k, w in out.items()}
-        return {"value": out["value"].T, "hess": out["hess"].T, "s_dz0": jnp.swapaxes(out["s_dz0"], 0, 1)}
-
+    f = lambda mids_, ax_, av_, ar_: _tile_sums(act, mids_, ax_, av_, ar_, mask)
     rs = np.random.default_rng(17)
     g = [rs.normal(size=s).astype(np.float32) for s in (ax.shape[:2], ax.shape[:2], ax.shape)]
     with jax.default_matmul_precision("highest"):
@@ -343,3 +350,115 @@ def test_k6_zero_padding_leaves_the_vjp_unchanged(act, hidden, feat, width):
     for got, want, what in zip(got_x, want_x, ("ax", "av", "ar")):
         close(got[..., :w0], want, what)
         assert not bool(got[..., w0:].any()), what
+
+
+# -- K5's k5_kernel -----------------------------------------------------------------
+
+
+def test_k5_plan_and_splits_are_the_header_comments():
+    """The KMV main path (w0 = 20, seven 20 x 20 layers, feature layer 20 x
+    128): the feature layer in 32 chunks of 4, 128 points a block and
+    104,432 B (22,512 of weights, 81,920 of act' and s_dz0 rows), two blocks
+    an SM, and 7 ref splits for 264 resident blocks on 7 x 16 point blocks,
+    as K7's."""
+    plan = pk.k5_plan([20] * 8 + [128])
+    assert plan == pk.K5Plan(20, 128, 104_432, 32)
+    assert 4 * (7 * 420 + 21 * 128) == 22_512 and 4 * 8 * 128 * 20 == 81_920
+    assert 2 * (plan.shared_bytes + 1024) <= 228 * 1024 < 3 * (plan.shared_bytes + 1024)
+    assert pk.k7_splits(7, 2_000, 2_000, plan.threads, 2 * 132) == 7 and 7 * 7 * -(-2_000 // 128) == 784
+    assert 3 * 7 * 400 + 3 * 2_560 + 2_560 + 7 * 400 == 21_440 and 700 + 640 + 640 + 700 == 2_680
+    assert pk.K5_CHUNK == 4
+    for text in ("22,512 B of weights + 81,920 B of act' and s_dz0 rows = 104,432 B",
+                 "7 splits (784 blocks, 2.97 waves)", "4 (L (W^2 + W) + (W + 1) F4) bytes",
+                 "4 (L + 1) `threads` R bytes", "= 21,440 (K7: 12,000)", "2,680 (K7: 1,500)"):
+        assert text in HEADER, text
+
+
+@pytest.mark.parametrize("feature", [4, 100, 128, 130])
+@pytest.mark.parametrize("n_layers", [0, 7, 15])
+@pytest.mark.parametrize("width", pk.K7_WIDTHS)
+def test_k5_plan_fits_shared_memory(width, n_layers, feature):
+    """k5_kernel's plan at every width instantiation, depth and feature
+    width: the feature layer in ceil(F / 4) chunks, the most points a block
+    (of K7_THREADS) whose shared memory fits 227 KB: the padded weights,
+    then K7's rows of act' and s_dz0 sums.  Every one of these fits."""
+    plan = pk.k5_plan([width] * (n_layers + 1) + [feature])
+    chunks = -(-feature // 4)
+    row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
+    size = lambda t: 4 * (n_layers * (width * width + width) + (width + 1) * 4 * chunks
+                          + (n_layers + 1) * t * row)
+    fits = [t for t in pk.K7_THREADS if size(t) <= 227 * 1024]
+    assert plan == pk.K5Plan(width, fits[0], size(fits[0]), chunks)
+    assert plan.shared_bytes == pk.k5_shared_bytes(width, plan.threads, n_layers, chunks)
+
+
+@pytest.mark.parametrize("widths", [[20] * 8 + [128], [32, 32, 4096], [2, 128], [64, 64, 128], [20, 33, 8],
+                                    [20], [12, 20, 17, 100], [8, 8, 8, 130], [33, 8, 8], [8, 40]])
+def test_k5_takes_the_chains_k6_takes(widths):
+    """K5 and K6 pick their kernels by the same rule: every width before the
+    feature layer <= 32, whatever the feature width."""
+    assert pk.k5_takes(widths) == pk.k6_takes(widths)
+    assert pk.k5_takes(widths) == (len(widths) >= 2 and max(widths[:-1]) <= 32)
+
+
+def test_k5_plan_refuses_widths_past_32_and_non_chains():
+    assert pk.k5_plan([12, 20, 17, 100]) == pk.k5_plan([20, 20, 20, 100])
+    with pytest.raises(ValueError, match="widths <= 32"):
+        pk.k5_plan([64, 64, 128])
+    with pytest.raises(ValueError, match="chain"):
+        pk.k5_plan([20])
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.k5_plan([8, 8192])
+
+
+def test_k5_weight_layout_round_trips():
+    """pad_k5 lays out every hidden (W_k, b_k), then W_F [width, F4]
+    row-major and b_F [F4] (F4 the feature width rounded up to 4); reading
+    that layout back gives the unpadded chain, with zeros where it was
+    padded."""
+    gen = torch.Generator().manual_seed(0)
+    mids = [(torch.randn((12, 16), generator=gen), torch.randn(16, generator=gen)),
+            (torch.randn((16, 9), generator=gen), torch.randn(9, generator=gen)),
+            (torch.randn((9, 50), generator=gen), torch.randn(50, generator=gen))]
+    flat, padded = pk.pad_k5(mids, 16)
+    assert [tuple(W.shape) for W, _ in padded] == [(16, 16), (16, 16), (16, 52)]
+    lw = 16 * 16 + 16
+    assert flat.numel() == 2 * lw + 17 * 52
+    read = []
+    for k in range(2):
+        layer = flat[k * lw: (k + 1) * lw]
+        read.append((layer[:256].view(16, 16), layer[256:]))
+    feature = flat[2 * lw:]
+    read.append((feature[: 16 * 52].view(16, 52), feature[16 * 52:]))
+    for (W, b), (Wp, bp), (Wu, bu) in zip(read, padded, mids):
+        assert torch.equal(W, Wp) and torch.equal(b, bp)
+        assert torch.equal(W[: Wu.shape[0], : Wu.shape[1]], Wu) and torch.equal(b[: bu.shape[0]], bu)
+        assert not bool(W[Wu.shape[0]:].any()) and not bool(W[:, Wu.shape[1]:].any())
+        assert not bool(b[bu.shape[0]:].any())
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("hidden,feat,width", [((16, 16), 8, 16), ((16, 16), 20, 24), ((8, 8, 8), 12, 20),
+                                               ((20, 32, 8, 20), 30, 32), ((12,), 7, 20), ((16,), 130, 16)])
+def test_k5_zero_padding_leaves_the_sums_unchanged(act, hidden, feat, width):
+    """K5's plain version on the chain padded as k5_kernel takes it (hidden
+    layers to `width`, the feature layer to a multiple of 4 features, the
+    points with zero features) gives the JAX tile math's sums on the
+    unpadded chain within GRAD_REL of each output's max-abs; the padded
+    features' s_dz0 are exactly 0.  (12,): no hidden layer after the first;
+    130 features are padded to 132."""
+    net, params, x, v, refs = _setup(jax.random.PRNGKey(11), n=9, m=7, act=act, hidden=hidden, feat=feat)
+    mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
+    mask = jnp.asarray([1, 0, 1, 1, 1, 0, 1], jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        want = _tile_sums(act, mids, ax, av, ar, mask)
+    w0 = ax.shape[-1]
+    _, padded = pk.pad_k5([(T(W), T(b)) for W, b in mids], width)
+    assert padded[-1][0].shape == (width, -(-feat // 4) * 4)
+    pad = lambda a: torch.nn.functional.pad(T(a), (0, width - w0))
+    got = pk.mlp_pairwise_sums_plain(padded, act, pad(ax), pad(av), pad(ar), T(mask))
+    for k in ("value", "hess", "s_dz0"):
+        g, w = got[k][..., :w0] if k == "s_dz0" else got[k], np.asarray(want[k])
+        assert g.shape == w.shape, k
+        assert np.abs(g.numpy() - w).max() <= GRAD_REL * max(np.abs(w).max(), 1e-30), k
+    assert not bool(got["s_dz0"][..., w0:].any())
