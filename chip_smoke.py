@@ -31,9 +31,10 @@ Phases, each printing its own line:
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
    and K5, K7 and K8 also at width 32 and on a chain 20 -> 32 -> 8 -> 20
    padded to 32; K5 runs ``k5_kernel`` and K6 ``k6_kernel`` at these
-   widths, and ``pw_fwd_kernel`` and ``pw_bwd_kernel`` on a chain of hidden
-   width 64 (64 -> 64 -> 128), held the same way; K5's, K6's (both kernels
-   each), K7's and K8's outputs bitwise equal on two calls;
+   widths; on a chain of hidden width 64 (64 -> 64 -> 128), held the same
+   way, K5 runs ``pw_fwd_kernel`` and K6 ``k6_kernel`` on lane octets, and
+   ``pw_bwd_kernel`` is held on a chain wider than 64 (72 -> 72 -> 16); K5's,
+   K6's (both widths), K7's and K8's outputs bitwise equal on two calls;
 5. the main paths: ``pde_inverse_torch.main.run`` on preset KGMM (K1), on
    preset KGMM with langevin_pack=2 (K2), then on preset
    KGMM-nonparametric-online, each at full width with the launch counts set
@@ -44,9 +45,9 @@ Phases, each printing its own line:
    same way: the MLP configuration (the JAX package's ``mlp_pairwise``
    bench row) with kmv_pallas=auto (K7/K8), a shorter run with
    kmv_pallas=on (K5/K6 through k5_kernel and k6_kernel), two steps of the
-   same configuration at hidden width 64 (64 x 2 -> 128) with
-   kmv_pallas=auto (K5/K6 through pw_fwd_kernel and pw_bwd_kernel), preset
-   KMV (parametric, closed form); the KMV
+   same configuration at hidden width 64 with kmv_pallas=auto (K5 through
+   pw_fwd_kernel, K6 through k6_kernel on lane octets), at 64 x 2 -> 128 and
+   64 x 3 -> 128, preset KMV (parametric, closed form); the KMV
    step's split by kmv_pallas mode; one np KMV step on the card against the
    CPU.  Then the offline paths: preset KGMM-offline with langevin_pack 0
    (K1) and 2 (K2), dataset generation included; preset
@@ -148,13 +149,18 @@ KMV_MLP = ["preset=KMV-nonparametric-fourier", "neural_network.model=mlp",
            "logging.writer=none"]
 KMV_RUN = KMV_MLP + ["train.number_of_iterations=20", "train.steps_per_chunk=10", "test.frequency=20"]
 KMV_ON_STEPS = 4
-# K5 and K6 where a width before the feature layer exceeds 32 (pw_fwd_kernel,
-# pw_bwd_kernel): the KMV MLP at hidden width 64 with
-# neural_network.layers=2, the deepest hidden-64 chain whose 32-point tile
-# fits a block's shared memory
+# K5 and K6 where a width before the feature layer exceeds 32 (K5's
+# pw_fwd_kernel, K6's k6_kernel on lane octets): the KMV MLP at hidden width
+# 64 with neural_network.layers=2 (64 x 2 -> 128, the chain of K6_WIDE) and
+# with layers=3 (64 x 3 -> 128, the chain of K6_WIDE3, which pw_bwd_kernel's
+# 32-point tile cannot hold); pw_bwd_kernel itself at a chain wider than 64,
+# which k6_kernel does not take
 K6_WIDE = (64, 64, 128)
+K6_WIDE3 = (64, 64, 64, 128)
+K6_WIDER = (72, 72, 16)
 KMV_WIDE = ["neural_network.hidden_dim=64", "neural_network.layers=2", "train.number_of_iterations=2",
             "train.steps_per_chunk=1", "test.frequency=2", "solver.train.kmv_pallas=auto"]
+KMV_WIDE3 = [o if o != "neural_network.layers=2" else "neural_network.layers=3" for o in KMV_WIDE]
 NP_RUN = ["preset=KGMM-nonparametric-online", "train.number_of_iterations=20",
           "train.steps_per_chunk=10", "test.frequency=20", "logging.writer=none",
           "train.optimizer.ema_switch_step=10"]
@@ -379,7 +385,8 @@ def main() -> None:
               + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items())), flush=True)
     for kid, kernel in (("K5", "k5_kernel"), ("K6", "k6_kernel"), ("K7", "k7_kernel"), ("K8", "k8_kernel")):
         res = {k7_name(k, kernel): v for k, v in resources(lib_pair).items() if k7_name(k, kernel)}
-        check(len(res) == 15, f"{kid} instantiations in the build report: {sorted(res)}")
+        want = 3 * len(pw.K6_WIDTHS if kid == "K6" else pw.K7_WIDTHS)  # K6 also at 48 and 64
+        check(len(res) == want, f"{kid} instantiations in the build report: {sorted(res)}")
         print(f"[build] {kid} instantiations (registers, spill-store bytes): " + "; ".join(
             f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items(), key=lambda kv: (int(kv[0][2:4]), kv[0]))),
             flush=True)
@@ -590,25 +597,33 @@ def main() -> None:
         print(f"[{kid.lower()}-repeat] {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal in all "
               f"{len(a)} outputs", flush=True)
         del a, b
-    # the hidden-64 chain of [main-path-kmv-wide]: K5 through pw_fwd_kernel and
-    # K6 through pw_bwd_kernel, held the same way at the path's own 7 x 2,000
-    # x 2,000 and at two small ragged, masked shapes; both also repeated
-    # bitwise
-    rows = {"K5": [], "K6": []}
-    wide_err = {"K5": 0.0, "K6": 0.0}
-    for kid in ("K5", "K6"):
+    # the hidden-64 chains of [main-path-kmv-wide] and [main-path-kmv-wide3]:
+    # K5 through pw_fwd_kernel and K6 through k6_kernel on lane octets, held
+    # the same way at the paths' own 7 x 2,000 x 2,000 and at two small
+    # ragged, masked shapes, and repeated bitwise at the full shape;
+    # pw_bwd_kernel, which keeps the chains k6_kernel does not take, at a
+    # chain wider than 64 (small shapes only: no path of the port runs it)
+    rows = {"K5": [], "K6": [], "pw_bwd": []}
+    wide_err = {"K5": 0.0, "K6": 0.0, "pw_bwd": 0.0}
+    counts = lambda: (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide,
+                      pw.mlp_pairwise_sums_bwd.launches, pw.mlp_pairwise_sums_bwd.launches_wide)
+    # (kid, which, widths, the launch count that moves, what runs)
+    for kid, which, widths, moved, what in (("K5", "K5", K6_WIDE, 1, "pw_fwd_kernel"),
+                                            ("K5", "K5", K6_WIDE3, 1, "pw_fwd_kernel"),
+                                            ("K6", "K6", K6_WIDE, 2, "k6_kernel"),
+                                            ("K6", "K6", K6_WIDE3, 2, "k6_kernel"),
+                                            ("K6", "pw_bwd", K6_WIDER, 3, "pw_bwd_kernel")):
         kernel, plain = kernels[kid]
-        for act, nt_, n_, m_, zeros in (("tanh", KMV_NT, KMV_N, KMV_N, ()), ("tanh", 2, 300, 257, (3,)),
-                                        ("silu", 1, 77, 45, (0, 44))):
-            mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, K6_WIDE)
-            mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, K6_WIDE)
-            counts = lambda: (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide,
-                              pw.mlp_pairwise_sums_bwd.launches, pw.mlp_pairwise_sums_bwd.launches_wide)
+        shapes = (("tanh", 2, 300, 257, (3,)), ("silu", 1, 77, 45, (0, 44)))
+        if which != "pw_bwd":
+            shapes = (("tanh", KMV_NT, KMV_N, KMV_N, ()),) + shapes
+        for act, nt_, n_, m_, zeros in shapes:
+            mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, widths)
+            mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, widths)
             before = counts()
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
-            check(counts() == ((before[0], before[1] + 1, before[2], before[3]) if kid == "K5"
-                               else (before[0], before[1], before[2], before[3] + 1)),
-                  f"{kid} at hidden width 64 did not run {'pw_fwd_kernel' if kid == 'K5' else 'pw_bwd_kernel'}")
+            check(counts() == tuple(c + (i == moved) for i, c in enumerate(before)),
+                  f"{kid} at layers {widths} did not run {what} alone: launches {before} -> {counts()}")
             want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
             ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
             worst_k, worst_p = 0.0, 0.0
@@ -617,27 +632,33 @@ def main() -> None:
                 err_k = float((k_.double() - r_).abs().max()) / scale
                 err_p = float((p_.double() - r_).abs().max()) / scale
                 check(bool(torch.isfinite(k_).all()) and err_k <= F64_FACTOR * err_p + F64_FLOOR,
-                      f"{kid} wide {act} {nt_}x{n_}x{m_} output {tuple(k_.shape)}: kernel vs f64 {err_k:.3e} > "
+                      f"{what} {act} {nt_}x{n_}x{m_} output {tuple(k_.shape)}: kernel vs f64 {err_k:.3e} > "
                       f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
                 worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
-                wide_err[kid] = max(wide_err[kid], float((k_ - p_).abs().max()))
-            rows[kid].append(f"{act}/{nt_}x{n_}x{m_}{'/masked' if zeros else ''}: {worst_k:.2e} vs {worst_p:.2e}")
+                wide_err[which] = max(wide_err[which], float((k_ - p_).abs().max()))
+            rows[which].append(f"{'->'.join(map(str, widths))}/{act}/{nt_}x{n_}x{m_}"
+                               f"{'/masked' if zeros else ''}: {worst_k:.2e} vs {worst_p:.2e}")
             del got, want, ref
-    mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9, (), K6_WIDE)
-    for kid, name in (("K5", "pw_fwd_kernel"), ("K6", "pw_bwd_kernel")):
-        a = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
-        b = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
-        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{kid} ({name}) outputs differ between two calls")
-        del a, b
-    layers = '->'.join(map(str, K6_WIDE))
+    for widths in (K6_WIDE, K6_WIDE3):
+        mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 9, (), widths)
+        for kid, name in (("K5", "pw_fwd_kernel"), ("K6", "k6_kernel")):
+            a = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
+            b = flat(pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot))
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{kid} ({name}) at layers {widths} outputs differ between two calls")
+            del a, b
+    layers = ' and '.join('->'.join(map(str, w)) for w in (K6_WIDE, K6_WIDE3))
+    gate = f"gate <= {F64_FACTOR} x plain + {F64_FLOOR}: pass"
     print(f"[k5-wide-vs-plain] layers {layers} through pw_fwd_kernel, worst output error relative to its "
-          f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K5'])}; gate <= {F64_FACTOR} x plain + "
-          f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K5']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two "
-          f"calls bitwise equal", flush=True)
-    print(f"[k6-wide-vs-plain] layers {layers} through pw_bwd_kernel, worst output error relative to its "
-          f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K6'])}; gate <= {F64_FACTOR} x plain + "
-          f"{F64_FLOOR}: pass; max abs err kernel vs plain {wide_err['K6']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two "
-          f"calls bitwise equal", flush=True)
+          f"max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K5'])}; {gate}; max abs err kernel vs "
+          f"plain {wide_err['K5']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal at each", flush=True)
+    print(f"[k6-wide-vs-plain] layers {layers} through k6_kernel (W=64, eight lanes a pair), worst output error "
+          f"relative to its max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K6'])}; {gate}; max abs "
+          f"err kernel vs plain {wide_err['K6']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal at each; "
+          f"launches counted in .launches, none in .launches_wide", flush=True)
+    print(f"[pw-bwd-vs-plain] layers {'->'.join(map(str, K6_WIDER))} through pw_bwd_kernel (.launches_wide), "
+          f"worst output error relative to its max-abs, kernel vs f64 / plain f32 vs f64: "
+          f"{'; '.join(rows['pw_bwd'])}; {gate}; max abs err kernel vs plain {wide_err['pw_bwd']:.3e}", flush=True)
 
     # -- 5. main paths ---------------------------------------------------------------
     cfg, _ = parse_args(["preset=KGMM", "train.number_of_iterations=20",
@@ -875,25 +896,29 @@ def main() -> None:
               + " ".join(f"{k}={v:.4e}" for k, v in result_k.result_metrics.items()), flush=True)
 
     # the KMV MLP at hidden width 64: kmv_pallas=auto takes K5's pw_fwd_kernel
-    # and K6's pw_bwd_kernel
-    cfg_w, _ = parse_args(KMV_MLP + KMV_WIDE)
-    check(cfg_w.neural_network.hidden_dim == 64 and cfg_w.solver.train.sample_per_time == KMV_N,
-          "KMV MLP hidden-64 configuration changed")
-    torch.cuda.synchronize()
-    zero_pair_launches()
-    result_w = run(cfg_w, "cuda")
-    torch.cuda.synchronize()
-    launches_w = pair_launch()
-    n_iter = cfg_w.train.number_of_iterations
-    check(len(result_w.losses) == n_iter and bool(np.isfinite(result_w.losses).all())
-          and launches_w["K5-wide"] >= n_iter and launches_w["K6-wide"] >= n_iter
-          and launches_w["K5"] == launches_w["K6"] == launches_w["K7"] == launches_w["K8"] == 0,
-          f"KMV hidden 64: losses {result_w.losses}, launches {launches_w}")
-    kmv_launches["wide"] = launches_w
-    print(f"[main-path-kmv-wide] KMV MLP at hidden width 64 ({KMV_NT} stamps x {KMV_N} samples, PotentialMLP "
-          f"2->64x2->128 tanh), kmv_pallas=auto: {n_iter} steps, loss {result_w.losses[0]:.4e} -> "
-          f"{result_w.losses[-1]:.4e}, launches {launches_w}; result "
-          + " ".join(f"{k}={v:.4e}" for k, v in result_w.result_metrics.items()), flush=True)
+    # and K6's k6_kernel (eight lanes a pair), at 64 x 2 -> 128 and at 64 x 3
+    # -> 128, which pw_bwd_kernel could not hold
+    for tag, overrides, layers in (("wide", KMV_WIDE, 2), ("wide3", KMV_WIDE3, 3)):
+        cfg_w, _ = parse_args(KMV_MLP + overrides)
+        check(cfg_w.neural_network.hidden_dim == 64 and cfg_w.neural_network.layers == layers
+              and cfg_w.solver.train.sample_per_time == KMV_N, f"KMV MLP hidden-64 x {layers} configuration changed")
+        torch.cuda.synchronize()
+        zero_pair_launches()
+        result_w = run(cfg_w, "cuda")
+        torch.cuda.synchronize()
+        launches_w = pair_launch()
+        n_iter = cfg_w.train.number_of_iterations
+        check(len(result_w.losses) == n_iter and bool(np.isfinite(result_w.losses).all())
+              and launches_w["K5-wide"] >= n_iter and launches_w["K6"] >= n_iter
+              and launches_w["K5"] == launches_w["K6-wide"] == launches_w["K7"] == launches_w["K8"] == 0,
+              f"KMV hidden 64 x {layers}: losses {result_w.losses}, launches {launches_w}")
+        metrics_w = {**result_w.test_metrics, **result_w.result_metrics}
+        check(all(math.isfinite(v) for v in metrics_w.values()), f"KMV hidden 64 x {layers} metrics: {metrics_w}")
+        kmv_launches[tag] = launches_w
+        print(f"[main-path-kmv-{tag}] KMV MLP at hidden width 64 ({KMV_NT} stamps x {KMV_N} samples, PotentialMLP "
+              f"2->64x{layers}->128 tanh), kmv_pallas=auto (K5 pw_fwd_kernel, K6 k6_kernel): {n_iter} steps, loss "
+              f"{result_w.losses[0]:.4e} -> {result_w.losses[-1]:.4e}, launches {launches_w}; result "
+              + " ".join(f"{k}={v:.4e}" for k, v in result_w.result_metrics.items()), flush=True)
 
     # parametric KMV (closed form, no kernel)
     cfg_q, _ = parse_args(["preset=KMV", "train.number_of_iterations=20", "train.steps_per_chunk=10",
@@ -1210,7 +1235,7 @@ def main() -> None:
               f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
 
     mids, tens, cot = pairwise_inputs(dev, KMV_NT, KMV_N, KMV_N, torch.float32, 10, (), K6_WIDE)
-    for kid, name in (("K5", "pw_fwd_kernel"), ("K6", "pw_bwd_kernel")):
+    for kid, name in (("K5", "pw_fwd_kernel"), ("K6", "k6_kernel")):
         k_fn = lambda: pairwise_call(kid, kernels[kid][0], "tanh", mids, tens, cot)
         p_fn = lambda: pairwise_call(kid, kernels[kid][1], "tanh", mids, tens, cot)
         p1, k1, k2, p2 = time_ms(p_fn, 1), time_ms(k_fn, 2), time_ms(k_fn, 2), time_ms(p_fn, 1)
@@ -1365,15 +1390,15 @@ def main() -> None:
         rows_out.append(row(kid, name, "pde_inverse_torch/csrc/pairwise.cu", replaces,
                             kmv_launches["auto" if kid in ("K7", "K8") else "on"][kid], pair_err[kid],
                             *times[kid]))
-    # launches: the hidden-64 KMV run's (kmv_pallas=auto)
+    # launches: the hidden-64 x 2 KMV run's (kmv_pallas=auto)
     rows_out.append(row("K5-wide", "K5 hidden > 32: pairwise sums, |f|^2 head, through pw_fwd_kernel (timed: "
                         f"layers {'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
                         "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:136",
                         kmv_launches["wide"]["K5-wide"], wide_err["K5"], *times["K5-wide"]))
-    rows_out.append(row("K6-wide", "K6 hidden > 32: VJP of K5 through pw_bwd_kernel (timed: layers "
-                        f"{'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
+    rows_out.append(row("K6-wide", "K6 hidden 33-64: VJP of K5 through k6_kernel at W = 48 / 64 (eight lanes a "
+                        f"pair; timed: W = 64, layers {'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
                         "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340",
-                        kmv_launches["wide"]["K6-wide"], wide_err["K6"], *times["K6-wide"]))
+                        kmv_launches["wide"]["K6"], wide_err["K6"], *times["K6-wide"]))
     rows_out += [
         row("S1", "S1 single-block checks of K5-K8's constructs (timed: pair rows)",
             "pde_inverse_torch/csrc/pairwise.cu", "scripts/diag_packed_onchip.py:47", s1_launches,

@@ -10,9 +10,10 @@
 // for the cotangents (g_val, g_hess [nt, n], g_dz0 [nt, n, w0]).
 //
 // Two heads:
-// * the square head (K5 forward k5_kernel, K6 backward k6_kernel or, where
-//   a width before the feature layer exceeds 32, pw_fwd_kernel and
-//   pw_bwd_kernel) replaces
+// * the square head (K5 forward k5_kernel, or pw_fwd_kernel where a width
+//   before the feature layer exceeds 32; K6 backward k6_kernel, or
+//   pw_bwd_kernel where one exceeds 64 or k6_kernel's plan does not fit)
+//   replaces
 //   pde_inverse_tpu/ops/pallas/pairwise_kernel.py::_kernel and ::_bwd_kernel:
 //   the layers end with the feature layer and Phi = |z_L|^2;
 // * the collapsed head (K7 forward, K8 backward) replaces
@@ -29,8 +30,9 @@
 // 4-stream forward pass and one reverse sweep (the TPU kernels' formulation,
 // and K4's in csrc/pointwise.cu).
 //
-// Design of pw_fwd_kernel and pw_bwd_kernel (K5 and K6 where a width before
-// the feature layer exceeds 32).  A block
+// Design of pw_fwd_kernel and pw_bwd_kernel (K5 where a width before the
+// feature layer exceeds 32, K6 where k6_kernel does not take the chain).  A
+// block
 // owns (ref split s, stamp t, block of kTile points) and walks the refs j of
 // its split in order; a tile is its
 // kTile points against one ref.  Every layer's streams of the tile live in
@@ -197,12 +199,13 @@
 //   weight-gradient product still loads one float per two FMAs.
 //
 // K6 on K8's lane quads (k6_kernel), for chains whose widths before the
-// feature layer are <= 32; wider chains keep pw_bwd_kernel, K6's first
-// design (the 32-point tiles above), chosen by shape in the wrapper.  The
-// hidden layers run as in K8, through K8's device functions unchanged
-// (k8_product, k8_product_t, k8_mix, k8_back, k8_weight_grads, k8_save,
-// k8_restore): lane s of a quad owns the features 4 e + s of the four
-// streams, the same row sets, padding and splits.  The square head
+// feature layer are <= 32 (33 to 64: on lane octets, below; wider chains keep
+// pw_bwd_kernel, K6's first design, the 32-point tiles above, chosen by shape
+// in the wrapper).  The hidden layers run as in K8, through K8's device
+// functions with four lanes a pair (k8_product, k8_product_t, k8_mix,
+// k8_back, k8_weight_grads, k8_save, k8_restore): lane s of a quad owns the
+// features 4 e + s of the four streams, the same row sets, padding and
+// splits.  The square head
 // Phi = |z_F|^2 runs through the feature layer W_F [W, F] (F = 128 at the
 // KMV MLP), whose four F-wide streams are never held whole nor saved:
 // * the feature layer is streamed in chunks of W features, in chunk order,
@@ -237,6 +240,63 @@
 //   33,600 = 67,200 (64,320 without the padding), and 160 tanhf.  Barriers
 //   a ref: L + chunks + 2.  What bounds it: operations, and under them the
 //   shared-memory operands as in K8.
+//
+// K6 on lane octets (k6_kernel at W = 48 and 64), for chains whose widths
+// before the feature layer are 33 to 64 and whose plan fits.  Four lanes a
+// pair at W = 64 would hold 16 features of each stream a lane and spill;
+// eight lanes, lane s with the features 8 e + s (e < G = W / 8), hold what
+// the quads hold at W = 24 and 32 (x, hb and cot [4][G]; bz, bp, br, sumz,
+// sump [G]; G = 6 or 8).  The kernel is the quads' k6_kernel with the lanes
+// a pair NL a constant of the width (k8_lanes): K8's device functions take
+// NL as a template parameter, 4 in K8 and in k6_kernel at W <= 32, whose
+// code is unchanged.  What differs at NL = 8:
+// * work split: a warp holds 4 pairs, a block of T lanes T / 8 consecutive
+//   points of one stamp; blocks are (ref split, stamp, point block), the
+//   splits from k7_splits;
+// * row sets: a pair's four rows of R = W + 4 floats in 4 R + 8 floats, so
+//   that the 4 pairs of a warp start 24 banks apart and the scalar stores of
+//   k8_to_rows, 8 consecutive banks a pair, hit 32 different banks (with the
+//   quads' 4 R + 4, 20 banks apart, the fourth pair's banks would overlap
+//   the first's).
+//   A lane saves its 4 G = W / 2 raw values as half of row s / 2 of its
+//   pair's rows (k8_save), where two lanes of an octet share a bank quad:
+//   those float4 stores and loads, 8 (W = 64) or 6 (W = 48) a lane, layer and
+//   ref, take twice the fewest wavefronts, against 2,048 (1,152) FMAs of the
+//   lane in the layer's products;
+// * weights: a [W, W] block is stored with row r's float4 chunk c at c ^
+//   k8_swz(r) (r & 7 at W = 64, (r >> 1) & 3 at W = 48, a permutation inside
+//   aligned groups of 8 or 4 chunks), so that in k8_product_t the rows 8 e +
+//   s that a pair's eight lanes read at once fall on eight bank quads
+//   (unswizzled, rows of 64 floats all start on one quad and rows of 48 on
+//   two: 8 and 4 wavefronts a float4); k8_product's scalar reads of row i at
+//   the columns 8 e + s stay on 8 consecutive banks (two chunks), each
+//   address an immediate plus s or s ^ 4.  Biases and the gradient
+//   accumulators keep the plain layout;
+// * weight gradients: at W = 64 a layer has 16 x 16 = 256 blocks of 4 x 4,
+//   so with 256 lanes every lane owns one (S = 1; at W = 20 the quads keep
+//   200 of 224 busy).  The octets give a thread blocks of 8 x 4 instead
+//   (kK6OctetGradRows, two pair slices at 256 lanes), so that a loaded float
+//   feeds 2.7 FMAs rather than 2: 395.2-397.1 ms against 401.0-401.4 for 4 x
+//   4 at 64 -> 64 -> 128, in turns on an NVIDIA H100 80GB HBM3 at 700 W;
+// * the feature layer in chunks of W as at W <= 32: F = 128 is 2 chunks at W
+//   = 64, 3 padded to 144 at W = 48;
+// * shared memory at 64 -> 64 -> 128 (W = 64, L = 1, 2 chunks, 256 lanes):
+//   99,840 B of weights and accumulators + 107,520 B of rows + 2,048 B of
+//   ref-row partials = 209,408 B, one block (8 warps, 32 pairs) an SM; with 7
+//   x 63 point blocks on 132 resident blocks the wrapper takes 2 splits (882
+//   blocks, 6.68 waves).  At hidden 64 x 3 (L = 2) 160 lanes and 224,000 B
+//   (192 lanes would need 242,176 B); 64 lanes at L = 3, 32 at L = 4; at L =
+//   5 the weights and accumulators alone (232,960 B with 2 chunks) exceed a
+//   block's 232,448 B, and the wrapper sends the chain to pw_bwd_kernel,
+//   which raises for want of shared memory;
+// * the ref's row of ar cotangents: the warp's 4 pairs summed by shuffles at
+//   lane offsets 8 and 16; w0 <= W <= 2 T, so a lane writes up to two of its
+//   w0 entries;
+// * FMAs a pair at 64 -> 64 -> 128: 4 streams x 4,096 forward, 3 x 4 x 64 x
+//   128 in the head (product, hbar and weight gradients), 2 x 4 x 4,096 in
+//   the reverse sweep = 147,456 FMAs a pair (no padding), and 128 tanhf in
+//   the forward pass.  What bounds it: operations (123.247 ms at 28 million
+//   pairs), and under them the shared-memory operands, as at W <= 32.
 //
 // K5 on K7's thread per point (k5_kernel), for chains whose widths before the
 // feature layer are <= 32; wider chains keep pw_fwd_kernel, K5's first design
@@ -839,6 +899,7 @@ __global__ void __launch_bounds__(kK7MaxThreads)
 }
 
 struct K7Kernel {
+  static constexpr bool kOctets = false;
   template <int W, int ACT>
   static constexpr auto get() { return &k7_kernel<W, ACT>; }
 };
@@ -863,8 +924,16 @@ cudaError_t with_kernel(int width, int act, F&& f) {
     case 20: return with_act<K, 20>(act, f);
     case 24: return with_act<K, 24>(act, f);
     case 32: return with_act<K, 32>(act, f);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (K::kOctets) {  // k6_kernel's eight lanes a pair
+    switch (width) {
+      case 48: return with_act<K, 48>(act, f);
+      case 64: return with_act<K, 64>(act, f);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // -- K8 ------------------------------------------------------------------------
@@ -875,9 +944,17 @@ constexpr int kK8MaxThreads = 256;  // lanes per block, at most: 64 pairs x 4 la
 // set H and the two sets S
 __host__ __device__ constexpr int k8_rows(int n_layers) { return (n_layers > 1 ? n_layers : 1) + 2; }
 
-// floats of one pair's four rows in a row set: 4 k7_row(W) + 4, so that the
-// pairs of a warp start 20 banks apart and their scalar accesses do not collide
-__host__ __device__ constexpr int k8_quad(int w) { return 4 * k7_row(w) + 4; }
+// lanes a pair: four (K8, and k6_kernel at W <= 32) or eight (k6_kernel at
+// W = 48 and 64)
+__host__ __device__ constexpr int k8_lanes(int w) { return w > 32 ? 8 : 4; }
+
+// floats of one pair's four rows in a row set: 4 k7_row(W) + 4 for four lanes
+// a pair, so that the 8 pairs of a warp start 20 banks apart, and 4 k7_row(W)
+// + 8 for eight, so that the 4 pairs of a warp start 24 banks apart: either
+// way the scalar accesses of a warp hit 32 different banks
+__host__ __device__ constexpr int k8_quad(int w, int lanes = 4) {
+  return 4 * k7_row(w) + (lanes == 4 ? 4 : 8);
+}
 
 size_t k8_shared_bytes(int w, int threads, int n_layers) {
   return sizeof(float) * (2 * static_cast<size_t>(k7_weight_floats(w, n_layers)) +
@@ -910,34 +987,47 @@ __device__ __forceinline__ void act_of_core(float c, float& a0, float& a1, float
   }
 }
 
-// A lane's values v[stream][e] of the features 4 e + s into the pair's four
-// rows (qrow: the pair's rows of a row set), and the lane's own row (row s,
-// as G values a stream) to and from registers.
-template <int W>
-__device__ __forceinline__ void k8_to_rows(float* qrow, int s, const float (&v)[4][W / 4]) {
+// Row r of a [W, W] weight block in shared memory holds W's row r with its
+// float4 chunk c at chunk c ^ k8_swz(r): 0 for four lanes a pair (the plain
+// layout); for eight, a permutation within aligned groups of 4 (W = 48) or 8
+// (W = 64) chunks, so that the rows 8 e + s that a pair's eight lanes read at
+// once in k8_product_t fall on eight different bank quads (unswizzled, W = 64
+// puts all eight on one quad and W = 48 on two).
+template <int W, int NL>
+__host__ __device__ constexpr int k8_swz(int r) {
+  static_assert(NL == 4 || W == 48 || W == 64, "eight lanes a pair at W = 48 or 64 only");
+  return NL == 4 ? 0 : (W == 64 ? (r & 7) : ((r >> 1) & 3));
+}
+
+// A lane's values v[stream][e] of the features NL e + s into the pair's four
+// rows (qrow: the pair's rows of a row set), and the lane's own share of the
+// pair's rows (its 4 W / NL values, the streams in order) to and from
+// registers.
+template <int W, int NL>
+__device__ __forceinline__ void k8_to_rows(float* qrow, int s, const float (&v)[4][W / NL]) {
   constexpr int R = k7_row(W);
 #pragma unroll
   for (int st = 0; st < 4; ++st) {
 #pragma unroll
-    for (int e = 0; e < W / 4; ++e) qrow[st * R + 4 * e + s] = v[st][e];
+    for (int e = 0; e < W / NL; ++e) qrow[st * R + NL * e + s] = v[st][e];
   }
 }
 
-template <int W>
-__device__ __forceinline__ void k8_save(float* own, const float (&v)[4][W / 4]) {
-  constexpr int G = W / 4;
+template <int W, int NL>
+__device__ __forceinline__ void k8_save(float* own, const float (&v)[4][W / NL]) {
+  constexpr int G = W / NL;
 #pragma unroll
-  for (int f = 0; f < W; f += 4) {
+  for (int f = 0; f < 4 * G; f += 4) {
     st4(own + f, make_float4(v[f / G][f % G], v[(f + 1) / G][(f + 1) % G], v[(f + 2) / G][(f + 2) % G],
                              v[(f + 3) / G][(f + 3) % G]));
   }
 }
 
-template <int W>
-__device__ __forceinline__ void k8_restore(const float* own, float (&v)[4][W / 4]) {
-  constexpr int G = W / 4;
+template <int W, int NL>
+__device__ __forceinline__ void k8_restore(const float* own, float (&v)[4][W / NL]) {
+  constexpr int G = W / NL;
 #pragma unroll
-  for (int f = 0; f < W; f += 4) {
+  for (int f = 0; f < 4 * G; f += 4) {
     const float4 x = ld4(own + f);
     v[f / G][f % G] = x.x;
     v[(f + 1) / G][(f + 1) % G] = x.y;
@@ -946,13 +1036,13 @@ __device__ __forceinline__ void k8_restore(const float* own, float (&v)[4][W / 4
   }
 }
 
-// out[stream][e] = sum_i h_stream[i] Wk[i][4 e + s]: the pair's four
+// out[stream][e] = sum_i h_stream[i] Wk[i][NL e + s]: the pair's four
 // activated rows read as float4s, each weight used for the four streams
-template <int W>
+template <int W, int NL>
 __device__ __forceinline__ void k8_product(const float* __restrict__ Wk, const float* qrow, int s,
-                                           float (&out)[4][W / 4]) {
+                                           float (&out)[4][W / NL]) {
   constexpr int R = k7_row(W);
-  constexpr int G = W / 4;
+  constexpr int G = W / NL;
 #pragma unroll
   for (int st = 0; st < 4; ++st) {
 #pragma unroll
@@ -973,7 +1063,13 @@ __device__ __forceinline__ void k8_product(const float* __restrict__ Wk, const f
     for (int ii = 0; ii < 4; ++ii) {
 #pragma unroll
       for (int e = 0; e < G; ++e) {
-        const float w = Wk[(i + ii) * W + 4 * e + s];
+        float w;
+        if constexpr (NL == 4) {
+          w = Wk[(i + ii) * W + 4 * e + s];
+        } else {  // column 8 e + s of a swizzled row: an immediate plus s or s ^ 4
+          const int x = 4 * k8_swz<W, NL>(i + ii);  // a constant once the loops unroll
+          w = Wk[(i + ii) * W + ((8 * e) ^ (x & ~7)) + (s ^ (x & 4))];
+        }
 #pragma unroll
         for (int st = 0; st < 4; ++st) out[st][e] = fmaf(h[st][ii], w, out[st][e]);
       }
@@ -981,13 +1077,14 @@ __device__ __forceinline__ void k8_product(const float* __restrict__ Wk, const f
   }
 }
 
-// out[stream][e] = sum_j c_stream[j] Wk[4 e + s][j]: the product with W_k^T
+// out[stream][e] = sum_j c_stream[j] Wk[NL e + s][j]: the product with W_k^T
 // from W_k's rows, the pair's four cotangent rows read as float4s
-template <int W>
+template <int W, int NL>
 __device__ __forceinline__ void k8_product_t(const float* __restrict__ Wk, const float* qrow, int s,
-                                             float (&out)[4][W / 4]) {
+                                             float (&out)[4][W / NL]) {
   constexpr int R = k7_row(W);
-  constexpr int G = W / 4;
+  constexpr int G = W / NL;
+  const int fs = k8_swz<W, NL>(s);  // the swizzle of every row NL e + s
 #pragma unroll
   for (int st = 0; st < 4; ++st) {
 #pragma unroll
@@ -998,9 +1095,10 @@ __device__ __forceinline__ void k8_product_t(const float* __restrict__ Wk, const
     float4 c[4];
 #pragma unroll
     for (int st = 0; st < 4; ++st) c[st] = ld4(qrow + st * R + j);
+    const int jo = NL == 4 ? j : 4 * ((j >> 2) ^ fs);
 #pragma unroll
     for (int e = 0; e < G; ++e) {
-      const float4 w = ld4(Wk + (4 * e + s) * W + j);
+      const float4 w = ld4(Wk + (NL * e + s) * W + jo);
 #pragma unroll
       for (int st = 0; st < 4; ++st) {
         out[st][e] = fmaf(c[st].x, w.x, out[st][e]);
@@ -1036,47 +1134,56 @@ __device__ __forceinline__ void k8_back(float a1, float a2, float a3, float p, f
 // ([W, W], then the bias's [W]): gW[i][j] += sum over the block's rows (pair,
 // stream) of hset[row][i] sset[row][j], and the bias += the sum of sset over
 // the rows of stream `bias_stream`; only the first n_prod streams have
-// hset rows other than zero.  A thread owns a 4 x 4 block of gW and
-// one of S slices of the pairs (S a power of two, S lanes side by side); the
-// slices are summed by shuffles in a fixed order and lane 0 of the slices
-// adds to the accumulators, which no other thread touches.
-template <int W>
+// hset rows other than zero.  A thread owns a BR x 4 block of gW (BR = 4
+// in K8) and one of S slices of the T / NL pairs (S a power of two, S lanes
+// side by side); the slices are summed by shuffles in a fixed order and lane
+// 0 of the slices adds to the accumulators, which no other thread touches.
+template <int W, int NL, int BR>
 __device__ __forceinline__ void k8_weight_grads(const float* __restrict__ hset,
                                                 const float* __restrict__ sset, float* gW,
                                                 int bias_stream, int n_prod, int T, int S) {
   constexpr int R = k7_row(W);
-  constexpr int Q = k8_quad(W);
+  constexpr int Q = k8_quad(W, NL);
   constexpr int NB1 = W / 4;
-  constexpr int NB = NB1 * NB1;
+  constexpr int NB = (W / BR) * NB1;
   const int slice = threadIdx.x & (S - 1);
   const int groups = T / S;
-  const int P = T / 4;
+  const int P = T / NL;
   for (int b0 = 0; b0 < NB; b0 += groups) {
     const int blk = b0 + threadIdx.x / S;
     const bool active = blk < NB;
     const int ib = blk / NB1;
     const int jb = blk - ib * NB1;
-    float acc[4][4], bacc[4];
+    float acc[BR][4], bacc[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      bacc[a] = 0.0f;
+    for (int b = 0; b < 4; ++b) bacc[b] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < BR; ++a) {
 #pragma unroll
       for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
     }
     if (active) {
 #pragma unroll 1
       for (int st = 0; st < 4; ++st) {
-        const float* hp = hset + st * R + 4 * ib;
+        const float* hp = hset + st * R + BR * ib;
         const float* sp = sset + st * R + 4 * jb;
         const bool bias = ib == 0 && st == bias_stream;
         if (st >= n_prod && !bias) continue;
 #pragma unroll 4
         for (int q = slice; q < P; q += S) {
-          const float4 h4 = ld4(hp + q * Q), c4 = ld4(sp + q * Q);
-          const float h[4] = {h4.x, h4.y, h4.z, h4.w};
+          float h[BR];
+#pragma unroll
+          for (int a = 0; a < BR; a += 4) {
+            const float4 h4 = ld4(hp + q * Q + a);
+            h[a] = h4.x;
+            h[a + 1] = h4.y;
+            h[a + 2] = h4.z;
+            h[a + 3] = h4.w;
+          }
+          const float4 c4 = ld4(sp + q * Q);
           const float c[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
+          for (int a = 0; a < BR; ++a) {
 #pragma unroll
             for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(h[a], c[b], acc[a][b]);
           }
@@ -1089,16 +1196,16 @@ __device__ __forceinline__ void k8_weight_grads(const float* __restrict__ hset,
     }
     for (int o = S >> 1; o > 0; o >>= 1) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        bacc[a] += __shfl_xor_sync(0xffffffffu, bacc[a], o);
+      for (int a = 0; a < BR; ++a) {
+        if (a < 4) bacc[a] += __shfl_xor_sync(0xffffffffu, bacc[a], o);
 #pragma unroll
         for (int b = 0; b < 4; ++b) acc[a][b] += __shfl_xor_sync(0xffffffffu, acc[a][b], o);
       }
     }
     if (active && slice == 0) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        float* g = gW + (4 * ib + a) * W + 4 * jb;
+      for (int a = 0; a < BR; ++a) {
+        float* g = gW + (BR * ib + a) * W + 4 * jb;
         float4 v = ld4(g);
         v.x += acc[a][0];
         v.y += acc[a][1];
@@ -1219,12 +1326,12 @@ __global__ void __launch_bounds__(kK8MaxThreads)
 #pragma unroll
         for (int st = 0; st < 4; ++st) h[st][e] = he[st];
       }
-      if (k > 0) k8_save<W>(sets + (k - 1) * P * Q + own, x);
+      if (k > 0) k8_save<W, 4>(sets + (k - 1) * P * Q + own, x);
       __syncwarp();  // the pair's lanes have read H for the layer before
-      k8_to_rows<W>(setH + qoff, s, h);
+      k8_to_rows<W, 4>(setH + qoff, s, h);
       __syncwarp();
       const float* Wk = sw + k * LW;
-      k8_product<W>(Wk, setH + qoff, s, x);
+      k8_product<W, 4>(Wk, setH + qoff, s, x);
 #pragma unroll
       for (int e = 0; e < G; ++e) x[0][e] += Wk[W * W + 4 * e + s];
     }
@@ -1245,10 +1352,10 @@ __global__ void __launch_bounds__(kK8MaxThreads)
         for (int st = 0; st < 4; ++st) hs[st][e] = he[st];
       }
       __syncwarp();
-      k8_to_rows<W>(setH + qoff, s, hs);
+      k8_to_rows<W, 4>(setH + qoff, s, hs);
       __syncwarp();
       float Mh[4][G];
-      k8_product<W>(sM, setH + qoff, s, Mh);
+      k8_product<W, 4>(sM, setH + qoff, s, Mh);
       float hr[4][G], sr[4][G];
 #pragma unroll
       for (int e = 0; e < G; ++e) {
@@ -1272,10 +1379,10 @@ __global__ void __launch_bounds__(kK8MaxThreads)
       }
       float* st_set = setS + (L & 1) * P * Q;
       __syncwarp();  // the pair's lanes have read H
-      k8_to_rows<W>(setH + qoff, s, hr);
-      k8_to_rows<W>(st_set + qoff, s, sr);
+      k8_to_rows<W, 4>(setH + qoff, s, hr);
+      k8_to_rows<W, 4>(st_set + qoff, s, sr);
       __syncthreads();
-      k8_weight_grads<W>(setH, st_set, gacc + L * LW, 2, 2, T, S);
+      k8_weight_grads<W, 4, 4>(setH, st_set, gacc + L * LW, 2, 2, T, S);
     }
 
     // reverse sweep: cot is the cotangent of layer k's outputs
@@ -1283,10 +1390,10 @@ __global__ void __launch_bounds__(kK8MaxThreads)
     for (int k = L - 1; k >= 0; --k) {
       if (k == 0 && L < 2) __syncthreads();  // the head's product still reads H
       float* sk = setS + (k & 1) * P * Q;
-      k8_to_rows<W>(sk + qoff, s, cot);
+      k8_to_rows<W, 4>(sk + qoff, s, cot);
       __syncwarp();
       float hb[4][G];
-      k8_product_t<W>(sw + k * LW, sk + qoff, s, hb);
+      k8_product_t<W, 4>(sw + k * LW, sk + qoff, s, hb);
       float* hk = k == 0 ? setH : sets + (k - 1) * P * Q;
       if (k == 0) {  // layer 0's inputs are not saved
 #pragma unroll
@@ -1297,7 +1404,7 @@ __global__ void __launch_bounds__(kK8MaxThreads)
           x[3][e] = br[e];
         }
       } else {
-        k8_restore<W>(hk + own, x);
+        k8_restore<W, 4>(hk + own, x);
       }
       float h[4][G];
 #pragma unroll
@@ -1314,9 +1421,9 @@ __global__ void __launch_bounds__(kK8MaxThreads)
         }
       }
       __syncwarp();  // the pair's lanes have read their saved rows
-      k8_to_rows<W>(hk + qoff, s, h);
+      k8_to_rows<W, 4>(hk + qoff, s, h);
       __syncthreads();
-      k8_weight_grads<W>(hk, sk, gacc + k * LW, 0, 4, T, S);
+      k8_weight_grads<W, 4, 4>(hk, sk, gacc + k * LW, 0, 4, T, S);
     }
 
     // cot is (z0bar | p0bar | q0bar | r0bar): the point's sums, and the ref's
@@ -1358,13 +1465,18 @@ __global__ void __launch_bounds__(kK8MaxThreads)
 }
 
 struct K8Kernel {
+  static constexpr bool kOctets = false;
   template <int W, int ACT>
   static constexpr auto get() { return &k8_kernel<W, ACT>; }
 };
 
-// -- K6 on K8's lane quads -------------------------------------------------------
+// -- K6 on K8's lane quads (W <= 32) and lane octets (W = 48, 64) ------------------
 
 constexpr int kK6MaxThreads = 256;  // lanes per block, at most
+// rows of the blocks of a layer's weight gradient that a thread owns in
+// k8_weight_grads at eight lanes a pair (4 at four lanes, as K8): 8 x 4
+// blocks ran faster than 4 x 4 in every turn at 64 -> 64 -> 128
+constexpr int kK6OctetGradRows = 8;
 
 // floats of K6's weights: n_layers x (W_k [W, W], b_k [W]) and the feature
 // layer as n_chunks chunks of W features, each a [W, W] block of W_F's
@@ -1374,15 +1486,17 @@ __host__ __device__ constexpr int k6_weight_floats(int w, int n_layers, int n_ch
 }
 
 size_t k6_shared_bytes(int w, int threads, int n_layers, int n_chunks) {
+  const int lanes = k8_lanes(w);
   return sizeof(float) * (2 * static_cast<size_t>(k6_weight_floats(w, n_layers, n_chunks)) +
-                          static_cast<size_t>(k8_rows(n_layers)) * (threads / 4) * k8_quad(w) +
+                          static_cast<size_t>(k8_rows(n_layers)) * (threads / lanes) * k8_quad(w, lanes) +
                           static_cast<size_t>(threads / 32) * w);
 }
 
-// K6: the VJP of K5 for hidden widths <= 32 (see the header).  weights: the
-// zero-padded [L x (W_k, b_k), n_chunks x (W_F chunk, b_F chunk)];
-// w_partials: one row of that layout per block; x_partials: [n_split, 2, nt,
-// n, w0]; ar_partials: [ceil(n / (threads / 4)), nt, m, w0].
+// K6: the VJP of K5 for hidden widths <= 64 (see the header), NL = 4 lanes a
+// pair at W <= 32 and 8 at W = 48, 64.  weights: the zero-padded [L x (W_k,
+// b_k), n_chunks x (W_F chunk, b_F chunk)]; w_partials: one row of that
+// layout per block; x_partials: [n_split, 2, nt, n, w0]; ar_partials:
+// [ceil(n / (threads / NL)), nt, m, w0].
 template <int W, int ACT>
 __global__ void __launch_bounds__(kK6MaxThreads)
     k6_kernel(int n_layers, int n_chunks, int w0, int nt, int n, int m, int chunk,
@@ -1392,14 +1506,17 @@ __global__ void __launch_bounds__(kK6MaxThreads)
               const float* __restrict__ weights, float* __restrict__ w_partials,
               float* __restrict__ x_partials, float* __restrict__ ar_partials) {
   extern __shared__ float4 smem4[];
+  constexpr int NL = k8_lanes(W);  // lanes a pair
+  constexpr int LOG_NL = NL == 4 ? 2 : 3;
+  constexpr int BR = NL == 4 ? 4 : kK6OctetGradRows;
   constexpr int R = k7_row(W);
-  constexpr int Q = k8_quad(W);
-  constexpr int G = W / 4;       // features per lane: 4 e + s
+  constexpr int Q = k8_quad(W, NL);
+  constexpr int G = W / NL;      // features per lane: NL e + s
   constexpr int LW = W * W + W;  // floats of one layer's (or chunk's) weights and bias
   const int L = n_layers;
   const int T = blockDim.x;
   const int tid = threadIdx.x;
-  const int P = T / 4;  // pairs (points) per block
+  const int P = T / NL;  // pairs (points) per block
   const int n_wf = k6_weight_floats(W, L, n_chunks);
   float* sw = reinterpret_cast<float*>(smem4);
   float* gacc = sw + n_wf;
@@ -1407,7 +1524,15 @@ __global__ void __launch_bounds__(kK6MaxThreads)
   const int n_sets = k8_rows(L);
   float* arw = sets + n_sets * P * Q;
   for (int idx = tid; idx < n_wf / 4; idx += T) {
-    smem4[idx] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
+    int at = idx;  // where the float4 goes: the [W, W] blocks' rows swizzled (k8_swz)
+    if constexpr (NL == 8) {
+      const int layer = idx / (LW / 4), off = idx - layer * (LW / 4);
+      if (off < W * W / 4) {
+        const int r = off / (W / 4), c = off - r * (W / 4);
+        at = layer * (LW / 4) + r * (W / 4) + (c ^ k8_swz<W, NL>(r));
+      }
+    }
+    smem4[at] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
     smem4[n_wf / 4 + idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   const float* sF = sw + L * LW;  // chunk c of the feature layer at sF + c LW
@@ -1415,17 +1540,19 @@ __global__ void __launch_bounds__(kK6MaxThreads)
   float* setH = sets + (n_sets - 3) * P * Q;
   float* setS = sets + (n_sets - 2) * P * Q;  // S[b] at setS + b P Q
   int S = 1;  // pair slices of the weight-gradient product
-  while (2 * S <= 32 && 2 * S * (W / 4) * (W / 4) <= T) S *= 2;
+  while (2 * S <= 32 && 2 * S * (W / BR) * (W / 4) <= T) S *= 2;
 
   const int lane = tid & 31;
-  const int s = tid & 3;             // this lane's features: 4 e + s
-  const int qoff = (tid >> 2) * Q;   // the pair's rows in a row set
-  const int own = qoff + s * R;      // the lane's own row there
+  const int s = tid & (NL - 1);       // this lane's features: NL e + s
+  const int qoff = (tid >> LOG_NL) * Q;  // the pair's rows in a row set
+  // the lane's own share there, 4 G floats: row s (four lanes), half of row
+  // s / 2 (eight lanes)
+  const int own = qoff + (NL == 4 ? s * R : (s >> 1) * R + (s & 1) * 4 * G);
   const int n_iblk = (n + P - 1) / P;
   const int iblk = blockIdx.x % n_iblk;
   const int t = (blockIdx.x / n_iblk) % nt;
   const int split = blockIdx.x / (n_iblk * nt);
-  const int i = iblk * P + (tid >> 2);
+  const int i = iblk * P + (tid >> LOG_NL);
   const bool valid = i < n;
   const int j_begin = split * chunk;
   const int j_end = min(m, j_begin + chunk);
@@ -1436,7 +1563,7 @@ __global__ void __launch_bounds__(kK6MaxThreads)
   float bz[G], bp[G], br[G], sumz[G], sump[G];
 #pragma unroll
   for (int e = 0; e < G; ++e) {
-    const int f = 4 * e + s;
+    const int f = NL * e + s;
     const bool in = valid && f < w0;
     bz[e] = in ? __ldg(ax + ti * w0 + f) : 0.0f;
     bp[e] = in ? __ldg(av + ti * w0 + f) : 0.0f;
@@ -1453,6 +1580,9 @@ __global__ void __launch_bounds__(kK6MaxThreads)
     float* __restrict__ ar_row = ar_partials + ((static_cast<size_t>(iblk) * nt + t) * m + j) * w0;
     if (mk == 0.0f) {  // block-uniform: this ref adds nothing
       if (tid < w0) ar_row[tid] = 0.0f;
+      if constexpr (W > 32) {  // w0 <= W <= 2 T: a lane may own a second entry
+        if (tid + T < w0) ar_row[tid + T] = 0.0f;
+      }
       continue;
     }
     const float cm = valid ? mk : 0.0f;
@@ -1460,7 +1590,7 @@ __global__ void __launch_bounds__(kK6MaxThreads)
     float x[4][G];  // the raw streams z, p, q, r
 #pragma unroll
     for (int e = 0; e < G; ++e) {
-      x[0][e] = bz[e] - (4 * e + s < w0 ? __ldg(arj + 4 * e + s) : 0.0f);
+      x[0][e] = bz[e] - (NL * e + s < w0 ? __ldg(arj + NL * e + s) : 0.0f);
       x[1][e] = bp[e];
       x[2][e] = 0.0f;
       x[3][e] = br[e];
@@ -1480,14 +1610,14 @@ __global__ void __launch_bounds__(kK6MaxThreads)
 #pragma unroll
         for (int st = 0; st < 4; ++st) h[st][e] = he[st];
       }
-      if (k > 0) k8_save<W>(sets + (k - 1) * P * Q + own, x);
+      if (k > 0) k8_save<W, NL>(sets + (k - 1) * P * Q + own, x);
       __syncwarp();  // the pair's lanes have read H for the layer before
-      k8_to_rows<W>(setH + qoff, s, h);
+      k8_to_rows<W, NL>(setH + qoff, s, h);
       __syncwarp();
       const float* Wk = sw + k * LW;
-      k8_product<W>(Wk, setH + qoff, s, x);
+      k8_product<W, NL>(Wk, setH + qoff, s, x);
 #pragma unroll
-      for (int e = 0; e < G; ++e) x[0][e] += Wk[W * W + 4 * e + s];
+      for (int e = 0; e < G; ++e) x[0][e] += Wk[W * W + NL * e + s];
     }
 
     // the square head, streamed: layer L's activated streams stay in H; each
@@ -1510,16 +1640,16 @@ __global__ void __launch_bounds__(kK6MaxThreads)
         }
       }
       __syncwarp();
-      k8_to_rows<W>(setH + qoff, s, hs);
+      k8_to_rows<W, NL>(setH + qoff, s, hs);
       __syncwarp();
 #pragma unroll 1
       for (int c = 0; c < n_chunks; ++c) {
         const float* Wc = sF + c * LW;
         float y[4][G];
-        k8_product<W>(Wc, setH + qoff, s, y);
+        k8_product<W, NL>(Wc, setH + qoff, s, y);
 #pragma unroll
         for (int e = 0; e < G; ++e) {
-          const float z = y[0][e] + Wc[W * W + 4 * e + s];
+          const float z = y[0][e] + Wc[W * W + NL * e + s];
           const float pp = y[1][e], q = y[2][e], r = y[3][e];
           y[0][e] = cm * (2.0f * gv * z + 2.0f * gh * q + 2.0f * r);
           y[1][e] = cm * (4.0f * gh * pp);
@@ -1527,17 +1657,17 @@ __global__ void __launch_bounds__(kK6MaxThreads)
           y[3][e] = cm * (2.0f * z);
         }
         float* sc = setS + (c & 1) * P * Q;
-        k8_to_rows<W>(sc + qoff, s, y);
+        k8_to_rows<W, NL>(sc + qoff, s, y);
         __syncwarp();
         float part[4][G];
-        k8_product_t<W>(Wc, sc + qoff, s, part);
+        k8_product_t<W, NL>(Wc, sc + qoff, s, part);
 #pragma unroll
         for (int st = 0; st < 4; ++st) {
 #pragma unroll
           for (int e = 0; e < G; ++e) hb[st][e] += part[st][e];
         }
         __syncthreads();
-        k8_weight_grads<W>(setH, sc, gacc + (L + c) * LW, 0, 4, T, S);
+        k8_weight_grads<W, NL, BR>(setH, sc, gacc + (L + c) * LW, 0, 4, T, S);
       }
 #pragma unroll
       for (int e = 0; e < G; ++e) {
@@ -1556,21 +1686,21 @@ __global__ void __launch_bounds__(kK6MaxThreads)
 #pragma unroll 1
     for (int k = L - 1; k >= 0; --k) {
       float* sk = setS + (k & 1) * P * Q;
-      k8_to_rows<W>(sk + qoff, s, cot);
+      k8_to_rows<W, NL>(sk + qoff, s, cot);
       __syncwarp();
       float hb[4][G];
-      k8_product_t<W>(sw + k * LW, sk + qoff, s, hb);
+      k8_product_t<W, NL>(sw + k * LW, sk + qoff, s, hb);
       float* hk = k == 0 ? setH : sets + (k - 1) * P * Q;
       if (k == 0) {  // layer 0's inputs are not saved
 #pragma unroll
         for (int e = 0; e < G; ++e) {
-          x[0][e] = act_core<ACT>(bz[e] - (4 * e + s < w0 ? __ldg(arj + 4 * e + s) : 0.0f));
+          x[0][e] = act_core<ACT>(bz[e] - (NL * e + s < w0 ? __ldg(arj + NL * e + s) : 0.0f));
           x[1][e] = bp[e];
           x[2][e] = 0.0f;
           x[3][e] = br[e];
         }
       } else {
-        k8_restore<W>(hk + own, x);
+        k8_restore<W, NL>(hk + own, x);
       }
       float h[4][G];
 #pragma unroll
@@ -1587,9 +1717,9 @@ __global__ void __launch_bounds__(kK6MaxThreads)
         }
       }
       __syncwarp();  // the pair's lanes have read their saved rows
-      k8_to_rows<W>(hk + qoff, s, h);
+      k8_to_rows<W, NL>(hk + qoff, s, h);
       __syncthreads();
-      k8_weight_grads<W>(hk, sk, gacc + k * LW, 0, 4, T, S);
+      k8_weight_grads<W, NL, BR>(hk, sk, gacc + k * LW, 0, 4, T, S);
     }
 
     // cot is (z0bar | p0bar | q0bar | r0bar): the point's sums, and the ref's
@@ -1599,16 +1729,23 @@ __global__ void __launch_bounds__(kK6MaxThreads)
       sumz[e] += cot[0][e];
       sump[e] += cot[1][e];
       float v = cot[0][e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      if constexpr (NL == 4) v += __shfl_xor_sync(0xffffffffu, v, 4);
       v += __shfl_xor_sync(0xffffffffu, v, 8);
       v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < 4) arw[(tid >> 5) * W + 4 * e + s] = v;
+      if (lane < NL) arw[(tid >> 5) * W + NL * e + s] = v;
     }
     __syncthreads();
     if (tid < w0) {
       float v = 0.0f;
       for (int w = 0; w < T / 32; ++w) v += arw[w * W + tid];
       ar_row[tid] = -v;
+    }
+    if constexpr (W > 32) {
+      if (tid + T < w0) {
+        float v = 0.0f;
+        for (int w = 0; w < T / 32; ++w) v += arw[w * W + tid + T];
+        ar_row[tid + T] = -v;
+      }
     }
   }
 
@@ -1619,9 +1756,9 @@ __global__ void __launch_bounds__(kK6MaxThreads)
     float* o = x_partials + static_cast<size_t>(split) * 2 * tnw + ti * w0;
 #pragma unroll
     for (int e = 0; e < G; ++e) {
-      if (4 * e + s < w0) {
-        o[4 * e + s] = sumz[e];
-        o[tnw + 4 * e + s] = sump[e];
+      if (NL * e + s < w0) {
+        o[NL * e + s] = sumz[e];
+        o[tnw + NL * e + s] = sump[e];
       }
     }
   }
@@ -1631,6 +1768,7 @@ __global__ void __launch_bounds__(kK6MaxThreads)
 }
 
 struct K6Kernel {
+  static constexpr bool kOctets = true;  // also W = 48 and 64
   template <int W, int ACT>
   static constexpr auto get() { return &k6_kernel<W, ACT>; }
 };
@@ -1780,6 +1918,7 @@ __global__ void __launch_bounds__(kK5MaxThreads)
 }
 
 struct K5Kernel {
+  static constexpr bool kOctets = false;
   template <int W, int ACT>
   static constexpr auto get() { return &k5_kernel<W, ACT>; }
 };
@@ -2413,11 +2552,12 @@ extern "C" int k6_max_blocks(int device, int act, int width, int threads, int n_
   }));
 }
 
-// K6 for hidden widths <= 32 (k6_kernel): weights [L x (W_k [W, W], b_k [W]),
+// K6 for hidden widths <= 64 (k6_kernel): weights [L x (W_k [W, W], b_k [W]),
 // n_chunks x (W_F chunk [W, W], b_F chunk [W])], zero-padded to `width`
-// (16-byte aligned); `threads` lanes a block, threads / 4 points.  Scratch:
+// (16-byte aligned); `threads` lanes a block, threads / k8_lanes(width)
+// points (4 lanes a point at width <= 32, 8 at 48 and 64).  Scratch:
 // w_partials [n_split * nt * n_blk, n_w] (n_w the floats of `weights`, n_blk =
-// ceil(n / (threads / 4))), x_partials [n_split, 2, nt, n, w0], ar_partials
+// ceil(n / points)), x_partials [n_split, 2, nt, n, w0], ar_partials
 // [n_blk, nt, m, w0].  grads: [n_w] in the layout of `weights`; axv_bar: [2,
 // nt, n, w0] = ax_bar | av_bar; ar_bar: [nt, m, w0].
 extern "C" int k6_sums_bwd(int device, int act, int width, int threads, int n_layers, int n_chunks,
@@ -2434,7 +2574,8 @@ extern "C" int k6_sums_bwd(int device, int act, int width, int threads, int n_la
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = k6_shared_bytes(width, threads, n_layers, n_chunks);
   const int chunk = (m + n_split - 1) / n_split;
-  const int n_iblk = (n + threads / 4 - 1) / (threads / 4);
+  const int points = threads / k8_lanes(width);
+  const int n_iblk = (n + points - 1) / points;
   const int blocks = n_split * nt * n_iblk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = with_kernel<K6Kernel>(width, act, [&](auto kern) {
@@ -2454,7 +2595,7 @@ extern "C" int k6_sums_bwd(int device, int act, int width, int threads, int n_la
       launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
 }
 
-// K6 for hidden widths > 32 (pw_bwd_kernel).  w_partials: [n_split * nt *
+// K6 where k6_kernel cannot take the chain (pw_bwd_kernel).  w_partials: [n_split * nt *
 // n_blk, n_params]; x_partials: [n_split, 2, nt, n, w0]; ar_partials: [n_blk,
 // nt, m, w0] (n_blk = ceil(n / 32)) scratch.
 // grads: [n_params] in the params layout; axv_bar: [2, nt, n, w0] = ax_bar |

@@ -19,9 +19,10 @@ or their VJP.  Counterparts:
   first (``mids``: [(W [w_in, w_out], b)], the feature layer last) and
   Phi = |f_L|^2; where every width before the feature layer is <= 32, K5
   runs k5_kernel (K7's thread per point, the feature layer streamed in
-  chunks of 4, ``k5_plan``) and K6 k6_kernel (K8's lane quads, the feature
-  layer streamed in chunks, ``k6_plan``), else pw_fwd_kernel and
-  pw_bwd_kernel;
+  chunks of 4, ``k5_plan``), else pw_fwd_kernel; where every such width is
+  <= 64 and its plan fits, K6 runs k6_kernel (K8's lane quads at widths <=
+  32, lane octets at 48 and 64, the feature layer streamed in chunks,
+  ``k6_plan``), else pw_bwd_kernel;
 * ``mlp_pairwise_sums_packed`` (K7) and ``mlp_pairwise_sums_packed_bwd``
   (K8): ``pairwise_packed.py``, the hidden layers before the feature layer
   (``mids_m``) and the collapsed head Phi = g.(M g) + u.g with g the last
@@ -46,7 +47,7 @@ All arithmetic is float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -67,6 +68,7 @@ K7_WIDTHS = (8, 16, 20, 24, 32)  # k7_kernel's width instantiations
 K7_THREADS = (128, 64, 32)  # points per K7 block: the most whose shared memory fits
 K8_THREADS = (256, 192, 128, 96, 64, 32)  # lanes per K8 block (4 a point), likewise
 K6_THREADS = (256, 224, 192, 160, 128, 96, 64, 32)  # lanes per k6_kernel block, likewise
+K6_WIDTHS = K7_WIDTHS + (48, 64)  # k6_kernel's width instantiations: 4 lanes a pair, 8 at 48 and 64
 K5_CHUNK = 4  # features of the feature layer a k5_kernel chunk (csrc/pairwise.cu kK5Chunk)
 
 
@@ -362,51 +364,81 @@ def k8_plan(widths: Sequence[int]) -> K7Plan:
     return _plan("K8", widths, K8_THREADS, k8_shared_bytes)
 
 
+def k6_lanes(width: int) -> int:
+    """Lanes a pair of k6_kernel at an instantiated width: four (K8's
+    quads) up to 32, eight at 48 and 64 (csrc/pairwise.cu k8_lanes)."""
+    return 8 if width > 32 else 4
+
+
 class K6Plan(NamedTuple):
     """How k6_kernel runs a square-head chain: the hidden layers zero-padded
     to `width`, the feature layer to `chunks` chunks of `width` features,
-    `threads` lanes a block (four a point), `shared_bytes` a block."""
+    `threads` lanes a block (``k6_lanes(width)`` a point), `shared_bytes` a
+    block."""
 
     width: int
     threads: int
     shared_bytes: int
     chunks: int
 
+    @property
+    def points(self) -> int:
+        """Points (pairs at one ref) a block."""
+        return self.threads // k6_lanes(self.width)
+
 
 def k6_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
     """k6_kernel's shared memory a block (csrc/pairwise.cu): the padded
     weights, n_layers x (W_k, b_k) then `chunks` x (a [width, width] block
     of W_F, its biases), as many gradient accumulators, K8's ``k8_rows``
-    row sets and one ref-row partial a warp."""
+    row sets (a pair's four rows of width floats, width + 4 where width is
+    a multiple of 8, and 4 floats of padding, 8 at eight lanes a pair) and
+    one ref-row partial a warp."""
     weights = (n_layers + chunks) * (width * width + width)
     row = width + 4 if width % 8 == 0 else width
-    return 4 * (2 * weights + k8_rows(n_layers) * (threads // 4) * (4 * row + 4) + threads // 32 * width)
+    lanes = k6_lanes(width)
+    pair = 4 * row + (4 if lanes == 4 else 8)
+    return 4 * (2 * weights + k8_rows(n_layers) * (threads // lanes) * pair + threads // 32 * width)
+
+
+def _k6_fit(widths: Sequence[int]) -> Optional[K6Plan]:
+    """k6_kernel's plan for the chain `widths`, or None where no block's
+    shared memory fits; raises for a width past 64 or a non-chain."""
+    n_layers = len(widths) - 2
+    if n_layers < 0 or min(widths) < 1:
+        raise ValueError(f"K6: widths {list(widths)} are not a chain ending with the feature width")
+    width = next((w for w in K6_WIDTHS if w >= max(widths[:-1])), None)
+    if width is None:
+        raise ValueError(f"K6 takes widths <= {K6_WIDTHS[-1]} before the feature layer, got {list(widths)}")
+    chunks = -(-widths[-1] // width)
+    threads = next((t for t in K6_THREADS if k6_shared_bytes(width, t, n_layers, chunks) <= _MAX_SHARED_BYTES),
+                   None)
+    return None if threads is None else K6Plan(width, threads, k6_shared_bytes(width, threads, n_layers, chunks),
+                                               chunks)
 
 
 def k6_takes(widths: Sequence[int]) -> bool:
     """Whether the square-head chain `widths` = [w0, the hidden layers'
-    output widths..., the feature width] runs through k6_kernel (every
-    width before the feature layer <= 32) rather than pw_bwd_kernel."""
-    return len(widths) >= 2 and max(widths[:-1]) <= K7_WIDTHS[-1]
+    output widths..., the feature width] runs through k6_kernel rather than
+    pw_bwd_kernel: every width before the feature layer <= 32 (on lane
+    quads; ``k6_plan`` raises where the plan does not fit), or <= 64 where
+    the plan on eight lanes a pair fits.  pw_bwd_kernel keeps the wider
+    chains, and those at 33-64 that its 32-point tile holds and the octets,
+    which pad every layer to the widest, do not (e.g. [1] + [56] x 6 + [8])."""
+    if len(widths) < 2 or min(widths) < 1 or max(widths[:-1]) > K6_WIDTHS[-1]:
+        return False
+    return max(widths[:-1]) <= K7_WIDTHS[-1] or _k6_fit(widths) is not None
 
 
 def k6_plan(widths: Sequence[int]) -> K6Plan:
     """k6_kernel's plan for the chain `widths` (as ``k6_takes``): the least
-    instantiated width that holds every width before the feature layer, the
-    feature layer in chunks of that width, and the most lanes a block (of
-    K6_THREADS) whose shared memory fits."""
-    n_layers = len(widths) - 2
-    if n_layers < 0 or min(widths) < 1:
-        raise ValueError(f"K6: widths {list(widths)} are not a chain ending with the feature width")
-    width = next((w for w in K7_WIDTHS if w >= max(widths[:-1])), None)
-    if width is None:
-        raise ValueError(f"K6 takes widths <= {K7_WIDTHS[-1]} before the feature layer, got {list(widths)}")
-    chunks = -(-widths[-1] // width)
-    for threads in K6_THREADS:
-        smem = k6_shared_bytes(width, threads, n_layers, chunks)
-        if smem <= _MAX_SHARED_BYTES:
-            return K6Plan(width, threads, smem, chunks)
-    raise ValueError(f"K6: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+    instantiated width (of K6_WIDTHS) that holds every width before the
+    feature layer, the feature layer in chunks of that width, and the most
+    lanes a block (of K6_THREADS) whose shared memory fits."""
+    plan = _k6_fit(widths)
+    if plan is None:
+        raise ValueError(f"K6: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
+    return plan
 
 
 def pack_square(layers: Layers, width: int) -> torch.Tensor:
@@ -482,12 +514,13 @@ def k5_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int
 
 def k5_takes(widths: Sequence[int]) -> bool:
     """Whether the square-head chain `widths` runs through k5_kernel rather
-    than pw_fwd_kernel: the chains k6_kernel takes (``k6_takes``)."""
-    return k6_takes(widths)
+    than pw_fwd_kernel: every width before the feature layer <= 32 (k5_kernel
+    has no instantiation past 32; ``k6_takes`` also takes 48 and 64)."""
+    return len(widths) >= 2 and max(widths[:-1]) <= K7_WIDTHS[-1]
 
 
 def k5_plan(widths: Sequence[int]) -> K5Plan:
-    """k5_kernel's plan for the chain `widths` (as ``k6_takes``): the least
+    """k5_kernel's plan for the chain `widths` (as ``k5_takes``): the least
     instantiated width that holds every width before the feature layer, the
     feature layer in chunks of K5_CHUNK features, and the most points a
     block (of K7_THREADS) whose shared memory fits."""
@@ -727,7 +760,7 @@ def _k6_launch(name, mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
     L = _Launch(name, mids, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
     _check_cotangents(L, ax, g_val, g_hess, g_dz0)
     plan = k6_plan(L.widths)
-    points = plan.threads // 4
+    points = plan.points
     w0, n_blk = L.widths[0], -(-L.n // points)
     if n_blk * L.nt * L.m * w0 >= 2**31:
         raise ValueError(f"{name}: sizes nt={L.nt}, n={L.n}, m={L.m} out of range")
@@ -757,7 +790,7 @@ def _k6_launch(name, mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
 
 
 def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K6 through pw_bwd_kernel (hidden widths > 32)."""
+    """K6 through pw_bwd_kernel (the chains ``k6_takes`` refuses)."""
     L = _Launch(name, layers, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
     _check_cotangents(L, ax, g_val, g_hess, g_dz0)
     ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
@@ -815,9 +848,9 @@ def mlp_pairwise_sums(mids: Layers, act_name: str, ax, av, ar, mask):
 def mlp_pairwise_sums_bwd(mids: Layers, act_name: str, ax, av, ar, mask, g_val, g_hess, g_dz0):
     """K6: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar).  CUDA tensors: by shape
     (``k6_takes``), k6_kernel where every width before the feature layer is
-    <= 32 (counted in ``.launches``), else pw_bwd_kernel (counted in
-    ``.launches_wide``); per-block partials summed in a fixed order, so two
-    calls give bitwise-equal results.  CPU tensors:
+    <= 64 and its plan fits (counted in ``.launches``), else pw_bwd_kernel
+    (counted in ``.launches_wide``); per-block partials summed
+    in a fixed order, so two calls give bitwise-equal results.  CPU tensors:
     ``mlp_pairwise_sums_bwd_plain``."""
     if not _on_cuda("K6", ax):
         return mlp_pairwise_sums_bwd_plain(mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)

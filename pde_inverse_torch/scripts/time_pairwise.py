@@ -2,8 +2,9 @@
 width with CUDA events, and print one JSON line: the collapsed-head K7 and
 K8 by default, the square-head K5 and K6 on request, and K5 and K6 at a
 chain with hidden width 64 (``K5-wide``, ``K6-wide``: what
-``kmv_pallas=auto`` runs for wide nets, through pw_fwd_kernel and
-pw_bwd_kernel).
+``kmv_pallas=auto`` runs for wide nets, through pw_fwd_kernel and through
+k6_kernel on eight lanes a pair; a checkout older than that runs
+pw_bwd_kernel there, and the launch counts say which ran).
 
 Shape: 7 stamps x 2,000 points x 2,000 refs (28 million pairs), the
 PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
@@ -11,8 +12,9 @@ PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
 layers with the feature layer last), inputs from a seed.  ``K5-wide`` and
 ``K6-wide``: the same 28 million pairs through 64 -> 64 -> 128, the deepest
 chain of hidden width 64 whose 32-point tile fits pw_bwd_kernel's shared
-memory.  Only ``csrc/pairwise.cu`` is built (about a minute: 15
-instantiations each of K5-K8), not the minutes of the whole build.
+memory, so that both versions of K6 run it.  Only ``csrc/pairwise.cu`` is
+built (about two minutes: 15 instantiations each of K5, K7 and K8, 21 of
+K6), not the minutes of the whole build.
 
     python -m pde_inverse_torch.scripts.time_pairwise [--reps 5] [--kernels K7 K8]
 

@@ -113,6 +113,45 @@ def test_k6_plain_matches_jax_vjp(act, rows):
     _close_rel(got_ar, want_ar, what="ar")
 
 
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("hidden,feat", [((64, 64), 128), ((48, 48, 48), 100), ((64,), 8)])
+def test_k6_plain_matches_jax_vjp_at_widths_past_32(act, hidden, feat):
+    """K6's plain version, which the card holds k6_kernel's eight lanes a
+    pair to, against jax.vjp of the jnp tile math at the chains k6_kernel
+    now takes past width 32 (64 -> 64 -> 128, the KMV MLP at hidden 64 x 2;
+    48 x 3 -> 100; one 64-wide layer), with masked refs and ragged sizes,
+    within GRAD_REL of each gradient's max-abs."""
+    net, params, x, v, refs = _setup(jax.random.PRNGKey(21), n=6, m=5, nt=2, act=act, hidden=hidden, feat=feat)
+    mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
+    mask = jnp.asarray(_mask(5, (1,)))
+    w0 = ax.shape[-1]
+    assert w0 == hidden[0] and pk.k6_takes([w0] + [W.shape[1] for W, _ in mids])
+    dummy0 = (jnp.zeros((2, w0)), jnp.zeros((w0,)))
+    act_fn = _ACTIVATIONS[act]
+
+    def f(mids_, ax_, av_, ar_):
+        out = jbw._tile_stats([dummy0] + list(mids_), act_fn, jnp.float32, jnp.swapaxes(ax_, 0, 1),
+                              jnp.swapaxes(ar_, 0, 1), jnp.swapaxes(av_, 0, 1), None, None, None, mask)
+        n_, nt_ = ax_.shape[1], ax_.shape[0]
+        out = {k: w.reshape((n_, nt_) + w.shape[1:]) for k, w in out.items()}
+        return {"value": out["value"].T, "hess": out["hess"].T, "s_dz0": jnp.swapaxes(out["s_dz0"], 0, 1)}
+
+    with jax.default_matmul_precision("highest"):
+        out, vjp = jax.vjp(f, mids, ax, av, ar)
+        rs = np.random.default_rng(19)
+        g = {k: rs.normal(size=np.shape(out[k])).astype(np.float32) for k in ("value", "hess", "s_dz0")}
+        want_mids, want_ax, want_av, want_ar = vjp({k: jnp.asarray(v) for k, v in g.items()})
+    got_mids, got_ax, got_av, got_ar = pk.mlp_pairwise_sums_bwd_plain(
+        [(T(W), T(b)) for W, b in mids], act, T(ax), T(av), T(ar), T(mask), T(g["value"]), T(g["hess"]),
+        T(g["s_dz0"]))
+    for (gw, gb), (ww, wb) in zip(got_mids, want_mids):
+        _close_rel(gw, ww, what="W")
+        _close_rel(gb, wb, what="b")
+    _close_rel(got_ax, want_ax, what="ax")
+    _close_rel(got_av, want_av, what="av")
+    _close_rel(got_ar, want_ar, what="ar")
+
+
 @pytest.mark.parametrize("act", ["tanh", "silu"])
 @pytest.mark.parametrize("hidden", [(16,), (16, 16), (8, 8, 8)])
 def test_k8_plain_matches_jax_vjp(act, hidden):

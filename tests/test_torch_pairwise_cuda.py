@@ -2,8 +2,9 @@
 the card, with ragged n and m and masks, K7, K8, K6's k6_kernel and K5's
 k5_kernel at each of their width instantiations and paddings (k6_kernel and
 k5_kernel also at ragged chunks of the feature layer, k5_kernel at depths
-0, 7 and 15), and a hidden-64 chain through K6's pw_bwd_kernel and K5's
-pw_fwd_kernel.  The gates repeat ``chip_smoke.py``'s.
+0, 7 and 15, k6_kernel's eight lanes a pair at widths 48 and 64 at depths
+0-4), a hidden-64 chain through K5's pw_fwd_kernel and a chain wider than
+64 through K6's pw_bwd_kernel.  The gates repeat ``chip_smoke.py``'s.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -260,15 +261,23 @@ def test_k6_plan_matches_the_kernel(cuda):
             assert per_sm.value >= 1, (widths, act)
 
 
-# a chain with a hidden width above 32: K6 through pw_bwd_kernel, K6's first
-# design (64 -> 64 -> 128 is the deepest hidden-64 chain whose tile fits a
-# block's shared memory)
+# a chain with a hidden width above 32: K5 through pw_fwd_kernel, K5's first
+# design (64 -> 64 -> 128 is the chain of the KMV MLP at hidden 64 x 2;
+# pw_fwd_kernel's tile holds up to 3 hidden 64-wide layers)
 WIDE = (64, 64, 128)
+# a chain with a width above 64 before the feature layer: K6 through
+# pw_bwd_kernel, K6's first design, which k6_kernel does not take
+WIDER = (72, 72, 16)
+# a deep chain at widths 33-64 that pw_bwd_kernel's tile holds and the
+# octets of k6_kernel, which pad every layer to 64, do not
+DEEP = (1,) + (56,) * 6 + (8,)
 
 
-def test_wide_chain_runs_pw_bwd_kernel(cuda):
-    mids, ax, av, ar, mask, cot = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,))
-    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,),
+@pytest.mark.parametrize("widths", [WIDER, DEEP])
+def test_wide_chain_runs_pw_bwd_kernel(cuda, widths):
+    assert not pk.k6_takes(list(widths))
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,))
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,),
                                                       dtype=torch.float64)
     before = (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide)
     kernel = pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot)
@@ -281,10 +290,12 @@ def test_wide_chain_runs_pw_bwd_kernel(cuda):
 
 
 def test_k6_launch_counts_are_one_a_kernel(cuda):
-    """Each K6 kernel has its own count: k6_kernel in ``.launches``,
-    pw_bwd_kernel in ``.launches_wide``; a CPU call counts in neither."""
+    """Each K6 kernel has its own count: k6_kernel in ``.launches`` (also
+    at widths 33-64, on eight lanes a pair), pw_bwd_kernel in
+    ``.launches_wide`` (widths past 64); a CPU call counts in neither."""
     fn = pk.mlp_pairwise_sums_bwd
-    for widths, k6, wide in (((8, 8, 4), 1, 0), ((40, 40, 8), 0, 1), ((32, 33, 8), 0, 1)):
+    for widths, k6, wide in (((8, 8, 4), 1, 0), ((40, 40, 8), 1, 0), ((32, 33, 8), 1, 0), ((72, 72, 8), 0, 1),
+                             ((20, 65, 8), 0, 1)):
         mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 1, 10, 9)
         before = (fn.launches, fn.launches_wide)
         fn(mids, "tanh", ax, av, ar, mask, *cot)
@@ -293,6 +304,96 @@ def test_k6_launch_counts_are_one_a_kernel(cuda):
     before = (fn.launches, fn.launches_wide)
     fn([(W.cpu(), b.cpu()) for W, b in mids], "tanh", *cpu((ax, av, ar, mask)), *cpu(cot))
     assert (fn.launches, fn.launches_wide) == before
+
+
+# k6_kernel on eight lanes a pair (W = 48, 64) at depths 0-4 (hidden layers
+# after the first) and feature widths in one padded chunk (4), ragged chunks
+# (100; 130 at W = 64, 128 at W = 48) and whole chunks (128 at W = 64); n =
+# 70 is not a multiple of a block's points, refs 3 and 32 are masked.  Where
+# the plan does not fit (W = 64 with 4 hidden layers and 130 features),
+# neither kernel holds the chain and the wrapper raises.
+K6_OCTET_CHAINS = [(w,) * (d + 1) + (f,) for w in (48, 64) for d in range(5) for f in (4, 100, 128, 130)]
+
+
+@pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
+@pytest.mark.parametrize("widths", K6_OCTET_CHAINS)
+def test_k6_octets_match_the_f64_plain_version(cuda, act, widths):
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3, 32))
+    fn = pk.mlp_pairwise_sums_bwd
+    if not pk.k6_takes(list(widths)):
+        assert widths == (64,) * 5 + (130,)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(mids, act, ax, av, ar, mask, *cot)
+        return
+    assert pk.k6_plan(list(widths)).width == widths[0]
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3, 32),
+                                                      dtype=torch.float64)
+    before = (fn.launches, fn.launches_wide)
+    kernel = fn(mids, act, ax, av, ar, mask, *cot)
+    assert (fn.launches, fn.launches_wide) == (before[0] + 1, before[1])
+    assert all(g.shape == t.shape for pair, layer in zip(kernel[0], mids) for g, t in zip(pair, layer))
+    _gate(kernel, pk.mlp_pairwise_sums_bwd_plain(mids, act, ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids64, act, ax64, av64, ar64, mask64, *cot64))
+
+
+@pytest.mark.parametrize("widths,nt,n,m,zero_refs", [((40, 33, 130), 2, 129, 37, (0, 36)),
+                                                     ((50, 64, 40, 64, 4), 3, 57, 5, (2,)),
+                                                     ((64, 64, 128), 1, 1, 1, ()),
+                                                     ((2, 64, 64, 64, 128), 2, 33, 9, (4,))])
+def test_k6_octet_padding_matches_the_f64_plain_version(cuda, widths, nt, n, m, zero_refs):
+    """An unequal chain padded to 48 and one padded to 64 (one hidden layer
+    past the first with 4 features: one padded chunk); one point and one
+    ref; w0 = 2 padded to 64 before three hidden layers (64 lanes a block)."""
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs)
+    mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs,
+                                                      dtype=torch.float64)
+    before = pk.mlp_pairwise_sums_bwd.launches
+    _gate(pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids, "tanh", ax, av, ar, mask, *cot),
+          pk.mlp_pairwise_sums_bwd_plain(mids64, "tanh", ax64, av64, ar64, mask64, *cot64))
+    assert pk.mlp_pairwise_sums_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("widths", [WIDE, (48, 48, 48, 100)])
+def test_k6_octets_are_bitwise_repeatable_and_masked_refs_add_exactly_zero(cuda, widths):
+    """Two calls are bitwise equal; with refs 5 and 9 of 37 masked, the ax,
+    av and ar cotangents equal those over the 35 others, bit for bit.  30
+    points fit one block of 32, so that the splits (``k7_splits``) give every
+    ref its own, as ``test_masked_refs_add_exactly_zero``'s shape does, and
+    the 37 or 35 split rows of ax and av add in row order.  The weight
+    gradients' 74 and 70 block rows add in chunks of 64 (``sum_rows``), which
+    group the refs differently, as in that test, which holds the backward
+    kernels' ar rows alone."""
+    mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 30, 37, zero_refs=(5, 9))
+    fn = pk.mlp_pairwise_sums_bwd
+    a, b = _flat(fn(mids, "tanh", ax, av, ar, mask, *cot)), _flat(fn(mids, "tanh", ax, av, ar, mask, *cot))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    keep = [j for j in range(37) if j not in (5, 9)]
+    full = fn(mids, "tanh", ax, av, ar, mask, *cot)
+    kept = fn(mids, "tanh", ax, av, ar[:, keep].contiguous(), mask[keep], *cot)
+    assert torch.equal(full[1], kept[1]) and torch.equal(full[2], kept[2])
+    assert torch.equal(full[-1][:, keep], kept[-1]) and not bool(full[-1][:, [5, 9]].any())
+
+
+def test_k6_octet_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's at W = 48 and 64,
+    and the plans of the hidden-64 chains (256 lanes at 64 -> 64 -> 128, 160
+    at 64 x 3 -> 128, 64 and 32 deeper) fit on an SM for every activation."""
+    lib = pk._library()
+    for width in (48, 64):
+        for threads, n_layers, chunks in ((256, 1, 2), (160, 2, 2), (64, 3, 2), (32, 4, 2), (256, 0, 1),
+                                          (96, 2, 3)):
+            assert lib.k6_shared_bytes_c(width, threads, n_layers, chunks) == \
+                pk.k6_shared_bytes(width, threads, n_layers, chunks)
+    for widths, threads in (([64, 64, 128], 256), ([64] * 3 + [128], 160), ([64] * 4 + [128], 64),
+                            ([64] * 5 + [128], 32), ([48, 48, 100], 256)):
+        plan = pk.k6_plan(widths)
+        assert plan.threads == threads and plan.points == threads // 8
+        per_sm = ctypes.c_int(0)
+        for act in range(3):
+            assert lib.k6_max_blocks(torch.cuda.current_device(), act, plan.width, plan.threads,
+                                     len(widths) - 2, plan.chunks, ctypes.byref(per_sm)) == 0
+            assert per_sm.value >= 1, (widths, act)
 
 
 # k5_kernel at each width instantiation and depth (0, 7 and 15 hidden layers
@@ -471,5 +572,10 @@ def test_wrappers_check_their_inputs(cuda):
         pk.mlp_pairwise_sums([(torch.zeros((8, 64), device=cuda), torch.zeros(64, device=cuda)),
                               (torch.zeros((64, 4096), device=cuda), torch.zeros(4096, device=cuda))],
                              "tanh", ax, av, ar, mask)
+    with pytest.raises(ValueError, match="shared memory"):  # past k6_kernel's octets and pw_bwd_kernel's tile
+        wide = [(torch.zeros((8, 64), device=cuda), torch.zeros(64, device=cuda))] + \
+            [(torch.zeros((64, 64), device=cuda), torch.zeros(64, device=cuda))] * 5 + \
+            [(torch.zeros((64, 128), device=cuda), torch.zeros(128, device=cuda))]
+        pk.mlp_pairwise_sums_bwd(wide, "tanh", ax, av, ar, mask, *cot)
     with pytest.raises(ValueError, match="cotangents"):
         pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, cot[0][:, :5], *cot[1:])

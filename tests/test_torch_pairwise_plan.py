@@ -2,9 +2,10 @@
 (``pde_inverse_torch.ops.cuda.pairwise``) on the CPU: the width
 instantiation, the points a block, the shared memory, the feature layer's
 chunks and the ref splits that the kernels' header comment
-(``csrc/pairwise.cu``) states, and the zero-padding of the hidden layers, M
-and u (K6 and K5: the feature layer, to whole chunks) to each instantiated
-width, which must leave the sums and their VJP unchanged.
+(``csrc/pairwise.cu``) states (k6_kernel also on eight lanes a pair at
+widths 48 and 64), and the zero-padding of the hidden layers, M and u (K6
+and K5: the feature layer, to whole chunks) to each instantiated width,
+which must leave the sums and their VJP unchanged.
 
 The padding is held against the JAX package's independent collapsed-head
 composition (tests/test_pallas_packed.py::_jnp_packed_composition) on the
@@ -282,13 +283,107 @@ def test_k6_plan_fits_shared_memory(width, n_layers, feature):
 
 
 def test_k6_takes_chains_by_their_widths_before_the_feature_layer():
+    """Every width before the feature layer <= 64 (on eight lanes a pair past
+    32) where the plan fits; a width past 64 goes to pw_bwd_kernel."""
     assert pk.k6_takes([20] * 8 + [128]) and pk.k6_takes([32, 32, 4096]) and pk.k6_takes([2, 128])
-    assert not pk.k6_takes([64, 64, 128]) and not pk.k6_takes([20, 33, 8]) and not pk.k6_takes([20])
+    assert pk.k6_takes([64, 64, 128]) and pk.k6_takes([20, 33, 8]) and pk.k6_takes([64] * 5 + [128])
+    assert not pk.k6_takes([72, 72, 16]) and not pk.k6_takes([20, 65, 8]) and not pk.k6_takes([20])
+    assert not pk.k6_takes([64] * 6 + [128])  # 5 hidden layers: no octet plan fits
     assert pk.k6_plan([12, 20, 17, 100]) == pk.k6_plan([20, 20, 20, 100])
-    with pytest.raises(ValueError, match="widths <= 32"):
-        pk.k6_plan([64, 64, 128])
+    assert pk.k6_plan([40, 33, 8]) == pk.k6_plan([48, 48, 8]) and pk.k6_plan([20, 50, 64]).width == 64
+    with pytest.raises(ValueError, match="widths <= 64"):
+        pk.k6_plan([72, 72, 16])
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.k6_plan([64] * 6 + [128])
     with pytest.raises(ValueError, match="chain"):
         pk.k6_plan([20])
+
+
+@pytest.mark.parametrize("feature", [4, 100, 128])
+@pytest.mark.parametrize("n_layers", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("width", [48, 64])
+def test_k6_octet_plan_fits_shared_memory(width, n_layers, feature):
+    """k6_kernel on eight lanes a pair: the feature layer in ceil(F / W)
+    chunks, the most lanes a block (of K6_THREADS) whose shared memory fits
+    227 KB, 4 (2 (L + chunks)(W^2 + W) + k8_rows(L) (T / 8)(4 R + 8) + (T /
+    32) W) bytes with R = W + 4, or a refusal where none does: 5 hidden
+    layers at width 64 and 100 or 128 features."""
+    widths = [width] * (n_layers + 1) + [feature]
+    chunks = -(-feature // width)
+    size = lambda t: 4 * (2 * (n_layers + chunks) * (width * width + width)
+                          + (max(n_layers, 1) + 2) * (t // 8) * (4 * (width + 4) + 8) + t // 32 * width)
+    fits = [t for t in pk.K6_THREADS if size(t) <= 227 * 1024]
+    refused = width == 64 and n_layers == 5 and feature > 4
+    assert bool(fits) != refused and pk.k6_takes(widths) != refused
+    if refused:
+        with pytest.raises(ValueError, match="shared memory"):
+            pk.k6_plan(widths)
+        return
+    plan = pk.k6_plan(widths)
+    assert plan == pk.K6Plan(width, fits[0], size(fits[0]), chunks) and plan.threads % 32 == 0
+    assert plan.shared_bytes == pk.k6_shared_bytes(width, plan.threads, n_layers, chunks)
+    assert plan.points == plan.threads // 8 and pk.k6_lanes(width) == 8
+
+
+@pytest.mark.parametrize("widths, k6, tile", [
+    ([64, 64, 128], True, True), ([64] * 4 + [128], True, False), ([64] * 6 + [128], False, False),
+    ([1] + [56] * 6 + [8], False, True), ([40] + [1] * 12 + [1], False, True)])
+def test_k6_takes_past_32_the_chains_its_octet_plan_fits(widths, k6, tile):
+    """At widths 33-64 before the feature layer ``k6_takes`` asks whether the
+    octet plan fits: pw_bwd_kernel's 32-point tile (four streams,
+    ``shared_bytes``) holds some deep chains that the octets, which pad
+    every layer to 64, do not (56 -> 64 six times, 1 -> 48 twelve times); a
+    chain neither holds raises, naming the shared memory."""
+    assert pk.k6_takes(widths) == k6 and (pk.shared_bytes(widths, 4) <= 227 * 1024) == tile
+    if not k6:
+        with pytest.raises(ValueError, match="shared memory"):
+            pk.k6_plan(widths)
+
+
+def test_k6_octet_plan_and_splits_are_the_header_comments():
+    """64 -> 64 -> 128 (the KMV MLP at hidden 64 x 2): the feature layer in 2
+    chunks of 64, 256 lanes (32 points) a block and 209,408 B (99,840 of
+    weights and accumulators, 107,520 of rows, 2,048 of ref-row partials),
+    one block an SM, and 2 ref splits for 132 resident blocks on 7 x 63
+    point blocks; hidden 64 x 3: 160 lanes, 224,000 B (192 lanes would need
+    242,176 B); 64 lanes at 3 hidden layers, 32 at 4; the row set of a pair
+    4 R + 8 floats, so that the 4 pairs of a warp start 24 banks apart."""
+    plan = pk.k6_plan([64, 64, 128])
+    assert plan == pk.K6Plan(64, 256, 209_408, 2) and plan.points == 32
+    assert 2 * 4 * 3 * 4_160 == 99_840 and 4 * 3 * 32 * 280 == 107_520 and 4 * 8 * 64 == 2_048
+    assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
+    assert pk.k7_splits(7, 2_000, 2_000, plan.points, 132) == 2 and 7 * -(-2_000 // 32) == 441
+    assert pk.k6_plan([64] * 3 + [128]) == pk.K6Plan(64, 160, 224_000, 2)
+    assert pk.k6_shared_bytes(64, 192, 2, 2) == 242_176 > 227 * 1024
+    assert [pk.k6_plan([64] * (d + 1) + [128]).threads for d in (3, 4)] == [64, 32]
+    assert (4 * 68 + 8) % 32 == 24 and (4 * 52 + 8) % 32 == 24 and pk.K6_WIDTHS[-2:] == (48, 64)
+    assert 4 * 4_096 + 3 * 4 * 64 * 128 + 2 * 4 * 4_096 == 147_456
+    for text in ("99,840 B of weights and accumulators + 107,520 B of rows + 2,048 B of ref-row partials = "
+                 "209,408 B", "2 splits (882 blocks, 6.68 waves)", "4 R + 8 floats", "24 banks apart",
+                 "192 lanes would need 242,176 B", "= 147,456 FMAs a pair"):
+        assert text in HEADER, text
+
+
+@pytest.mark.parametrize("width,hidden,feature", [(48, (40, 33), 100), (64, (64,), 128), (64, (50, 64, 17), 130)])
+def test_k6_octet_weight_layout_round_trips(width, hidden, feature):
+    """pad_square and unpad_square at the octet widths: chunks of `width`
+    feature columns ([width, width] of W_F, then its biases), the hidden
+    layers padded to [width, width]; reading the layout back gives the
+    unpadded chain, and the padded entries are zeros."""
+    gen = torch.Generator().manual_seed(1)
+    dims = (7,) + hidden + (feature,)
+    mids = [(torch.randn((a, b), generator=gen), torch.randn(b, generator=gen)) for a, b in zip(dims, dims[1:])]
+    flat, padded = pk.pad_square(mids, width)
+    chunks = -(-feature // width)
+    assert [tuple(W.shape) for W, _ in padded] == [(width, width)] * len(hidden) + [(width, chunks * width)]
+    assert flat.numel() == (len(hidden) + chunks) * (width * width + width)
+    assert torch.equal(pk.pack_square(padded, width), flat)
+    last = flat[(len(hidden) + chunks - 1) * (width * width + width):]  # the last chunk
+    cols = feature - (chunks - 1) * width
+    assert torch.equal(last[: width * width].view(width, width)[: dims[-2], :cols], mids[-1][0][:, -cols:])
+    assert not bool(last[: width * width].view(width, width)[:, cols:].any())
+    for (W, b), (Wu, bu) in zip(pk.unpad_square(flat, mids, width), mids):
+        assert torch.equal(W, Wu) and torch.equal(b, bu)
 
 
 def test_k6_weight_layout_round_trips():
@@ -312,7 +407,8 @@ def test_k6_weight_layout_round_trips():
 
 @pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
 @pytest.mark.parametrize("hidden,feat,width", [((16, 16), 8, 16), ((16, 16), 20, 24), ((8, 8, 8), 12, 20),
-                                               ((20, 32, 8, 20), 30, 32), ((12,), 7, 20)])
+                                               ((20, 32, 8, 20), 30, 32), ((12,), 7, 20), ((40, 33), 50, 48),
+                                               ((64, 50), 70, 64)])
 def test_k6_zero_padding_leaves_the_vjp_unchanged(act, hidden, feat, width):
     """K6's plain version on the chain padded as k6_kernel takes it (hidden
     layers to `width`, the feature layer to whole chunks of `width`
@@ -320,7 +416,8 @@ def test_k6_zero_padding_leaves_the_vjp_unchanged(act, hidden, feat, width):
     (``pack_square``, ``unpad_square``), gives ``jax.vjp`` of the JAX tile
     math on the unpadded chain within GRAD_REL of each gradient's max-abs;
     the padded entries' gradients of ax, av and ar are exactly 0.  (12,):
-    no hidden layer after the first."""
+    no hidden layer after the first; widths 48 and 64: the octet
+    instantiations' padding (70 features in two chunks of 64)."""
     net, params, x, v, refs = _setup(jax.random.PRNGKey(11), n=9, m=7, act=act, hidden=hidden, feat=feat)
     mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
     mask = jnp.asarray([1, 0, 1, 1, 1, 0, 1], jnp.float32)
@@ -395,10 +492,13 @@ def test_k5_plan_fits_shared_memory(width, n_layers, feature):
 @pytest.mark.parametrize("widths", [[20] * 8 + [128], [32, 32, 4096], [2, 128], [64, 64, 128], [20, 33, 8],
                                     [20], [12, 20, 17, 100], [8, 8, 8, 130], [33, 8, 8], [8, 40]])
 def test_k5_takes_the_chains_k6_takes(widths):
-    """K5 and K6 pick their kernels by the same rule: every width before the
-    feature layer <= 32, whatever the feature width."""
-    assert pk.k5_takes(widths) == pk.k6_takes(widths)
+    """K5 takes, of the chains K6 takes, those whose every width before the
+    feature layer is <= 32, whatever the feature width: k5_kernel has no
+    instantiation past 32, where K6 also runs k6_kernel on eight lanes a
+    pair (48, 64)."""
     assert pk.k5_takes(widths) == (len(widths) >= 2 and max(widths[:-1]) <= 32)
+    assert not pk.k5_takes(widths) or pk.k6_takes(widths)
+    assert pk.k6_takes(widths) == (len(widths) >= 2 and max(widths[:-1]) <= 64)
 
 
 def test_k5_plan_refuses_widths_past_32_and_non_chains():
