@@ -120,10 +120,10 @@
 //   tanhf.
 //
 // K8: four lanes a pair, each with every fourth feature of the four streams;
-// the weight gradients summed in the block (k8_kernel).  K8 is the VJP of K7
-// with respect to (W_k, b_k, M, u, ax, av, ar): one forward pass of four
-// streams (z, p, q and r = d_g z with r0 = g_dz0[t, i]) and one reverse sweep
-// that needs every layer's four streams of the pair.  Saved, they are 4 W
+// the weight gradients summed per warp, then over the warps (k8_kernel).  K8
+// is the VJP of K7 with respect to (W_k, b_k, M, u, ax, av, ar): one forward
+// pass of four streams (z, p, q and r = d_g z with r0 = g_dz0[t, i]) and one
+// reverse sweep that needs every layer's four streams of the pair.  Saved, they are 4 W
 // floats a layer and pair, so an SM's shared memory holds about 80 pairs at
 // once: K7's thread per point does not carry over, and several lanes share a
 // pair.  What bounds the products on this card is not the FMAs but the
@@ -160,34 +160,58 @@
 // * weight gradients are the one reduction over pairs: Wbar_k = sum over the
 //   block's rows (pair, stream) of h_s^T sbar_s, a [W, threads] x [threads, W]
 //   product a layer and ref.  The quads write h_s over their saved rows (set
-//   H for layer 0 and for the head) and sbar_s into one of two sets S, the
-//   block passes one barrier, and every thread sums a 4 x 4 block of Wbar_k
-//   over one of S slices of the pairs (two float4 loads per 16 FMAs; at W =
-//   20, 25 blocks x 8 slices = 200 of 256 threads); the slices are added by
-//   shuffles in a fixed order and one lane adds the block's sum to the
-//   accumulators of the whole chain in shared memory, which it alone owns.
-//   The bias gradients ride along (the sum of the z stream's sbar rows), and
-//   the head is one more such product with rows H = L1 | 2 gh gp | 0 | 0 and
-//   S = g | gp | u's cotangent | 0, giving Mbar and ubar.  A block writes its
-//   accumulators once, at its end, as one row of w_partials, which sum_rows
-//   adds in a fixed order: no atomics, two calls are bitwise equal.  The
-//   product on the tensor cores (mma m16n8k8, 3xTF32) was counted and not
-//   built: splitting each fragment into its big and small parts costs 18
-//   instructions for 3 mma a k-step, as many instructions a warp as the FMA
-//   version, and pre-split rows would double the sets H and S;
-// * barriers a 64-pair tile: one a layer, one for the head and one at the
-//   tile's end (L + 2), with max(L, 1) + 2 row sets: the two sets S
-//   alternate between layers, so a layer's cotangents are written while
-//   other warps still read the layer above;
+//   H for layer 0 and for the head) and sbar_s into the set S.  The sum takes
+//   two steps (k8_warp_grads, k8_add_warps):
+//   1. per warp: each warp sums its own 8 pairs' 32 rows in registers, a lane
+//      a block of 4 x 4 of Wbar_k (4 x 8 at W = 24 and 32; at W = 20, 25 of
+//      the 32 lanes), reading a float4 of h and one of sbar a row: two loads
+//      per 16 FMAs, no shuffle, and every warp works.  A warp's float4 load
+//      takes four wavefronts (one a quarter-warp) wherever a quarter reads
+//      more than one address, as these do (measured on an H100: 4.0 clocks
+//      an SM a warp-load against 2.2 where every quarter reads one), so the
+//      loads bound this product at twice its FMA time.  At W = 8 and 16
+//      there are fewer blocks than lanes: 8 and 2 lanes share a block, each
+//      with a slice of the pairs, and add their slices by shuffles in a
+//      fixed order;
+//   2. over the warps, in warp order: each warp stores its W^2 + W sums
+//      (with the bias's) as a row of a scratch buffer, the block passes one
+//      barrier a layer, and each warp adds a like share of the float4
+//      columns over the warps in warp order to the accumulators of the whole
+//      chain in shared memory, each column by one thread alone.  It does so
+//      during the next layer's product: at W <= 20 a thread loads its column
+//      before the product and adds it after, so that the loads wait behind
+//      the FMAs and not at the barrier.  The two buffers alternate from layer
+//      to layer, so no second barrier is needed.
+//   The sums are stored blocked (a lane's block as consecutive float4s of
+//   the warps' lanes), so that the stores and the column sums take
+//   consecutive float4s, and a block's row of w_partials is unblocked at its
+//   end.  A block of one warp adds its sums to the accumulators itself and
+//   has no scratch.  The bias gradients ride along (the sum of the z stream's
+//   sbar rows), and the head is one more such product with rows H = L1 | 2
+//   gh gp | 0 | 0 and S = g | gp | u's cotangent | 0, giving Mbar and ubar.
+//   A block writes its accumulators once, at its end, as one row of
+//   w_partials, which sum_rows adds in a fixed order: no atomics, two calls
+//   are bitwise equal.  The product on the tensor cores (mma m16n8k8, 3xTF32)
+//   was counted and not built: splitting each fragment into its big and
+//   small parts costs 18 instructions for 3 mma a k-step, as many
+//   instructions a warp as the FMA version, and pre-split rows would double
+//   the sets H and S;
+// * barriers a 64-pair tile: one a layer and one for the head, for the
+//   scratch, and one at the tile's end (L + 2).  A warp reads only its own
+//   pairs' rows, so max(L, 1) + 1 row sets do: between a layer's reads of S
+//   and the next layer's writes a warp's lanes need only __syncwarp;
 // * ax and av cotangents stay in registers over the block's refs; the ref's
 //   row is summed over the warp's 8 pairs by shuffles, over the warps through
 //   shared memory, and each (point block, t, j) writes its ar row exactly once
 //   (zeros for a masked ref, which is otherwise skipped);
-// * shared memory at the KMV main path (W = 20, L = 7, 256 lanes): 26,880 B of
-//   weights and accumulators + 193,536 B of rows + 640 B of ref-row partials =
-//   221,056 B, so one block (8 warps) an SM; with 7 x 32 point blocks on 132
+// * shared memory at the KMV main path (W = 20, L = 7, 256 lanes): 26,880 B
+//   of weights and accumulators + 172,032 B of rows + 26,880 B of scratch +
+//   640 B of ref-row partials = 226,432 B (rows: 8 sets x 64 pairs x 84
+//   floats; scratch: 2 x 8 warps x 420 floats), so one block (8 warps) an
+//   SM (a block may have 232,448 B); with 7 x 32 point blocks on 132
 //   resident blocks the wrapper takes 4 splits (896 blocks, 6.79 waves).
-//   Where the rows would not fit (many layers at width 32) the block shrinks;
+//   Where the rows and the scratch would not fit (many layers, width 24 or
+//   32) the block shrinks, and a block of one warp needs no scratch;
 // * f32 throughout with the precise tanhf / expf / log1pf; padding is exact
 //   as for K7, and the wrapper drops the padded entries' gradients; lanes of
 //   points past n run with zero inputs and a zero mask factor, so that they
@@ -195,17 +219,20 @@
 //   FMAs a pair at width 20 and L = 7: 4 streams x (7 + 1) x 400 forward,
 //   4 x 7 x 400 in the reverse products, 4 x 7 x 400 + 2 x 400 in the weight
 //   gradients = 36,000, and 160 tanhf.  What bounds it: operations (the
-//   inputs are a few MB), and under them the shared-memory operands: the
-//   weight-gradient product still loads one float per two FMAs.
+//   inputs are a few MB), and under them the shared-memory operands: a
+//   weight-gradient row takes two float4 loads per 16 FMAs of a lane.
 //
 // K6 on K8's lane quads (k6_kernel), for chains whose widths before the
 // feature layer are <= 32 (33 to 64: on lane octets, below; wider chains keep
 // pw_bwd_kernel, K6's first design, the 32-point tiles above, chosen by shape
 // in the wrapper).  The hidden layers run as in K8, through K8's device
 // functions with four lanes a pair (k8_product, k8_product_t, k8_mix,
-// k8_back, k8_weight_grads, k8_save, k8_restore): lane s of a quad owns the
-// features 4 e + s of the four streams, the same row sets, padding and
-// splits.  The square head
+// k8_back, k8_save, k8_restore): lane s of a quad owns the features 4 e + s
+// of the four streams, the same padding and splits.  The weight gradients
+// are K6's own (k8_weight_grads, K8's first design): after a barrier every
+// thread sums a 4 x 4 block of them over one of S slices of the block's
+// pairs, the slices added by shuffles, so the rows are read across warps
+// and two sets S alternate.  The square head
 // Phi = |z_F|^2 runs through the feature layer W_F [W, F] (F = 128 at the
 // KMV MLP), whose four F-wide streams are never held whole nor saved:
 // * the feature layer is streamed in chunks of W features, in chunk order,
@@ -224,8 +251,8 @@
 //   reverse sweep.  Padded features have zero weights and biases: they add
 //   exactly 0.0 and the wrapper drops their gradients;
 // * weights: L x (W_k, b_k) then the chunks, 4 (L + chunks) (W^2 + W) bytes,
-//   and as many gradient accumulators; rows: K8's max(L, 1) + 2 row sets of
-//   4 R + 4 floats a pair; the ref-row partials;
+//   and as many gradient accumulators; rows: max(L, 1) + 2 row sets of 4 R +
+//   4 floats a pair (k6_rows: H and two sets S); the ref-row partials;
 // * shared memory at the KMV main path (W = 20, L = 7, 7 chunks, 224 lanes):
 //   47,040 B of weights and accumulators + 169,344 B of rows + 560 B of
 //   ref-row partials = 216,944 B, one block (7 warps, 56 pairs) an SM.  256
@@ -941,8 +968,8 @@ cudaError_t with_kernel(int width, int act, F&& f) {
 constexpr int kK8MaxThreads = 256;  // lanes per block, at most: 64 pairs x 4 lanes
 
 // row sets of a K8 block: the saved streams of the layers k = 1 .. L - 1, the
-// set H and the two sets S
-__host__ __device__ constexpr int k8_rows(int n_layers) { return (n_layers > 1 ? n_layers : 1) + 2; }
+// set H and the set S
+__host__ __device__ constexpr int k8_rows(int n_layers) { return (n_layers > 1 ? n_layers : 1) + 1; }
 
 // lanes a pair: four (K8, and k6_kernel at W <= 32) or eight (k6_kernel at
 // W = 48 and 64)
@@ -956,9 +983,17 @@ __host__ __device__ constexpr int k8_quad(int w, int lanes = 4) {
   return 4 * k7_row(w) + (lanes == 4 ? 4 : 8);
 }
 
+// floats of the scratch in which a K8 block's warps leave their weight
+// gradients of a layer: two buffers of one layer (w^2 + w) a warp; none for a
+// block of one warp, which adds its sums to the accumulators itself
+__host__ __device__ constexpr int k8_scratch_floats(int w, int threads) {
+  return threads > 32 ? 2 * (threads / 32) * (w * w + w) : 0;
+}
+
 size_t k8_shared_bytes(int w, int threads, int n_layers) {
   return sizeof(float) * (2 * static_cast<size_t>(k7_weight_floats(w, n_layers)) +
                           static_cast<size_t>(k8_rows(n_layers)) * (threads / 4) * k8_quad(w) +
+                          static_cast<size_t>(k8_scratch_floats(w, threads)) +
                           static_cast<size_t>(threads / 32) * w);
 }
 
@@ -1130,14 +1165,16 @@ __device__ __forceinline__ void k8_back(float a1, float a2, float a3, float p, f
   cot[3] = y[3] * a1;
 }
 
-// The block's weight gradients of one layer, added to its accumulators gW
-// ([W, W], then the bias's [W]): gW[i][j] += sum over the block's rows (pair,
-// stream) of hset[row][i] sset[row][j], and the bias += the sum of sset over
-// the rows of stream `bias_stream`; only the first n_prod streams have
-// hset rows other than zero.  A thread owns a BR x 4 block of gW (BR = 4
-// in K8) and one of S slices of the T / NL pairs (S a power of two, S lanes
-// side by side); the slices are summed by shuffles in a fixed order and lane
-// 0 of the slices adds to the accumulators, which no other thread touches.
+// k6_kernel's weight gradients of one layer or chunk, added to the block's
+// accumulators gW ([W, W], then the bias's [W]): gW[i][j] += sum over the
+// block's rows (pair, stream) of hset[row][i] sset[row][j], and the bias +=
+// the sum of sset over the rows of stream `bias_stream`; only the first
+// n_prod streams have hset rows other than zero.  A thread owns a BR x 4
+// block of gW (BR = 4 at four lanes a pair) and one of S slices of the T / NL
+// pairs (S a power of two, S lanes side by side); the slices are summed by
+// shuffles in a fixed order and lane 0 of the slices adds to the
+// accumulators, which no other thread touches.  (K8 sums per warp first:
+// k8_warp_grads.)
 template <int W, int NL, int BR>
 __device__ __forceinline__ void k8_weight_grads(const float* __restrict__ hset,
                                                 const float* __restrict__ sset, float* gW,
@@ -1226,6 +1263,181 @@ __device__ __forceinline__ void k8_weight_grads(const float* __restrict__ hset,
   }
 }
 
+// K8's weight gradients are summed per warp, then over the warps.  A layer's
+// [W, W] gradient is cut into blocks of 4 rows x k8_grad_cols(W) columns
+// (8 at W = 24 and 32, else 4), one a lane; at W = 8 and 16 there are fewer
+// blocks than lanes, and the lanes that share a block take slices of the
+// warp's pairs.  In the block's accumulators and in the scratch a layer's
+// gradients are stored blocked: lane b's 4 x BC block as the float4s (a BC
+// / 4 + h) NB + b (row a of the block, its float4 h; NB blocks), so that a
+// warp's stores and the sums over warps take consecutive float4s; the
+// bias's W floats follow, in order.  k8_unblocked maps an entry of K7's
+// weight layout to its place there.
+template <int W>
+__host__ __device__ constexpr int k8_grad_cols() { return W >= 24 ? 8 : 4; }
+
+template <int W>
+__device__ __forceinline__ int k8_unblocked(int off) {
+  constexpr int BC = k8_grad_cols<W>();
+  constexpr int NB = (W / 4) * (W / BC);
+  if (off >= W * W) return off;  // the bias
+  const int r = off / W, c = off - r * W;
+  const int blk = (r / 4) * (W / BC) + c / BC;
+  return 4 * (((r % 4) * (BC / 4) + (c % BC) / 4) * NB + blk) + c % 4;
+}
+
+// One warp's weight gradients of a layer from its own 8 pairs' rows (hrows,
+// srows: the warp's first pair's rows in a row set): sum over the 32 rows
+// (pair, stream) of hrows[row][i] srows[row][j], over the streams < NPROD,
+// and the bias's sum of srows over the rows of stream BIAS.  Each lane walks
+// the rows for its 4 x BC block, reading a float4 of h and BC / 4 float4s of
+// c a row, the rows of PB pairs before their FMAs.  Lanes that share a block
+// (W = 8, 16) add their slices by shuffles in a fixed order.  The sums go
+// blocked (above) to out, a layer's W^2 + W floats, stored, or added where
+// `add` (a block of one warp: out is then the accumulators).
+template <int W, int NPROD, int BIAS>
+__device__ __forceinline__ void k8_warp_grads(const float* __restrict__ hrows,
+                                              const float* __restrict__ srows, float* out, bool add) {
+  constexpr int R = k7_row(W);
+  constexpr int Q = k8_quad(W);
+  constexpr int BC = k8_grad_cols<W>();
+  constexpr int NBC = W / BC;
+  constexpr int NB = (W / 4) * NBC;                 // blocks: 4, 16, 25, 18, 32
+  constexpr int RS = 32 % NB == 0 ? 32 / NB : 1;  // lanes a block: 8, 2, else 1
+  constexpr int PS = 8 / RS;                       // pairs a slice
+  const int lane = threadIdx.x & 31;
+  const int blk = lane % NB;
+  const int slice = lane / NB;
+  const bool active = lane < NB * RS;
+  const int ib = blk / NBC;
+  const int jb = blk - ib * NBC;
+  float acc[4][BC], bacc[BC];
+#pragma unroll
+  for (int b = 0; b < BC; ++b) {
+    bacc[b] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a][b] = 0.0f;
+  }
+  if (active) {
+    const float* hp = hrows + slice * PS * Q + 4 * ib;
+    const float* sp = srows + slice * PS * Q + BC * jb;
+    constexpr int PB = BC == 8 ? 2 : PS;  // pairs whose rows are loaded at once (registers)
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      if (st >= NPROD && st != BIAS) continue;
+#pragma unroll
+      for (int q0 = 0; q0 < PS; q0 += PB) {
+        float4 c4[PB][BC / 4], h4[PB];
+#pragma unroll
+        for (int q = 0; q < PB; ++q) {
+#pragma unroll
+          for (int h = 0; h < BC / 4; ++h) c4[q][h] = ld4(sp + (q0 + q) * Q + st * R + 4 * h);
+          if (st < NPROD) h4[q] = ld4(hp + (q0 + q) * Q + st * R);
+        }
+#pragma unroll
+        for (int q = 0; q < PB; ++q) {
+          float c[BC];
+#pragma unroll
+          for (int h = 0; h < BC / 4; ++h) {
+            c[4 * h] = c4[q][h].x;
+            c[4 * h + 1] = c4[q][h].y;
+            c[4 * h + 2] = c4[q][h].z;
+            c[4 * h + 3] = c4[q][h].w;
+          }
+          if (st == BIAS) {
+#pragma unroll
+            for (int b = 0; b < BC; ++b) bacc[b] += c[b];
+          }
+          if (st < NPROD) {
+            const float hv[4] = {h4[q].x, h4[q].y, h4[q].z, h4[q].w};
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+#pragma unroll
+              for (int b = 0; b < BC; ++b) acc[a][b] = fmaf(hv[a], c[b], acc[a][b]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = NB; o < NB * RS; o *= 2) {
+#pragma unroll
+    for (int b = 0; b < BC; ++b) {
+      bacc[b] += __shfl_xor_sync(0xffffffffu, bacc[b], o);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) acc[a][b] += __shfl_xor_sync(0xffffffffu, acc[a][b], o);
+    }
+  }
+  if (!active || slice != 0) return;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int h = 0; h < BC / 4; ++h) {
+      float* g = out + 4 * ((a * (BC / 4) + h) * NB + blk);
+      float4 v = make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]);
+      if (add) {
+        const float4 o = ld4(g);
+        v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+      }
+      st4(g, v);
+    }
+  }
+  if (ib == 0) {
+#pragma unroll
+    for (int h = 0; h < BC / 4; ++h) {
+      float* g = out + W * W + BC * jb + 4 * h;
+      float4 v = make_float4(bacc[4 * h], bacc[4 * h + 1], bacc[4 * h + 2], bacc[4 * h + 3]);
+      if (add) {
+        const float4 o = ld4(g);
+        v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+      }
+      st4(g, v);
+    }
+  }
+}
+
+// The warps' sums of a layer (scr: nw rows of W^2 + W floats, blocked) are
+// added in warp order to the block's accumulators of that layer: warp w takes
+// the float4 columns [w C, (w + 1) C), C = ceil(columns / nw), one a lane, so
+// that every warp does a like share; no two threads touch one column.
+// k8_load_column loads column c of every warp, k8_add_column adds them (in
+// warp order) to the accumulators' float4 at g.
+constexpr int kK8MaxWarps = kK8MaxThreads / 32;
+
+template <int W>
+__device__ __forceinline__ void k8_load_column(const float* __restrict__ scr, int nw, int c,
+                                               float4 (&v)[kK8MaxWarps]) {
+  constexpr int C4 = (W * W + W) / 4;
+#pragma unroll
+  for (int w = 0; w < kK8MaxWarps; ++w) {
+    if (w < nw) v[w] = ld4(scr + 4 * (w * C4 + c));
+  }
+}
+
+__device__ __forceinline__ void k8_add_column(const float4 (&v)[kK8MaxWarps], int nw, float* g) {
+  float4 s = v[0];
+#pragma unroll
+  for (int w = 1; w < kK8MaxWarps; ++w) {
+    if (w < nw) s = make_float4(s.x + v[w].x, s.y + v[w].y, s.z + v[w].z, s.w + v[w].w);
+  }
+  const float4 o = ld4(g);
+  st4(g, make_float4(o.x + s.x, o.y + s.y, o.z + s.z, o.w + s.w));
+}
+
+template <int W>
+__device__ __forceinline__ void k8_add_warps(const float* __restrict__ scr, int nw, float* g) {
+  constexpr int C4 = (W * W + W) / 4;
+  const int per = (C4 + nw - 1) / nw;
+  const int warp = threadIdx.x >> 5;
+  const int end = min(C4, (warp + 1) * per);
+  for (int c = warp * per + (threadIdx.x & 31); c < end; c += 32) {
+    float4 v[kK8MaxWarps];
+    k8_load_column<W>(scr, nw, c, v);
+    k8_add_column(v, nw, g + 4 * c);
+  }
+}
+
 // K8: the VJP of K7 (see the header).  weights: K7's zero-padded buffer;
 // w_partials: one row of the same layout per block; x_partials: [n_split, 2,
 // nt, n, w0]; ar_partials: [ceil(n / (threads / 4)), nt, m, w0].
@@ -1251,20 +1463,51 @@ __global__ void __launch_bounds__(kK8MaxThreads)
   float* gacc = sw + n_wf;
   float* sets = gacc + n_wf;
   const int n_sets = k8_rows(L);
-  float* arw = sets + n_sets * P * Q;
+  const int nw = T / 32;  // warps
+  float* scratch = sets + n_sets * P * Q;  // buffer b, warp w at scratch + (b nw + w) LW
+  float* arw = scratch + k8_scratch_floats(W, T);
   for (int idx = tid; idx < n_wf / 4; idx += T) {
     smem4[idx] = __ldg(reinterpret_cast<const float4*>(weights) + idx);
     smem4[n_wf / 4 + idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   const float* sM = sw + L * LW;
   const float* su = sM + W * W;
-  // row sets: saved layer k at k - 1 (k = 1 .. L - 1), then H, S[0], S[1]
-  float* setH = sets + (n_sets - 3) * P * Q;
-  float* setS = sets + (n_sets - 2) * P * Q;  // S[b] at setS + b P Q
-  int S = 1;  // pair slices of the weight-gradient product
-  while (2 * S <= 32 && 2 * S * (W / 4) * (W / 4) <= T) S *= 2;
+  // row sets: saved layer k at k - 1 (k = 1 .. L - 1), then H, S
+  float* setH = sets + (n_sets - 2) * P * Q;
+  float* setS = sets + (n_sets - 1) * P * Q;
 
   const int lane = tid & 31;
+  const int wrows = (tid >> 5) * 8 * Q;  // the warp's 8 pairs' rows in a row set
+  // The weight gradients of a grads point g (the head, g = L, or layer g):
+  // `product` leaves the warp's sums in its row of scratch buffer `buf` (in a
+  // block of one warp, adds them to the accumulators), and the sums of the
+  // point before (pend, in the other buffer) are added over the warps
+  // meanwhile.  Where a thread has one column of them and the registers allow
+  // (W <= 20), it loads the column before the product and adds it after, so
+  // that the loads wait behind the product's FMAs.  The buffers alternate
+  // from point to point, so one barrier a point suffices.
+  constexpr int C4 = LW / 4;
+  const int per = (C4 + nw - 1) / nw;
+  const int col = (tid >> 5) * per + lane;  // the thread's first column
+  const bool has_col = col < min(C4, ((tid >> 5) + 1) * per);
+  int pend = -1, buf = 0;
+  auto grads = [&](int g, auto product) {
+    const float* prev = scratch + (buf ^ 1) * nw * LW;
+    const bool early = W <= 20 && per <= 32 && pend >= 0;
+    float4 v[kK8MaxWarps];
+    if (early && has_col) k8_load_column<W>(prev, nw, col, v);
+    product(nw > 1 ? scratch + (buf * nw + (tid >> 5)) * LW : gacc + g * LW);
+    if (early) {
+      if (has_col) k8_add_column(v, nw, gacc + pend * LW + 4 * col);
+    } else if (pend >= 0) {
+      k8_add_warps<W>(prev, nw, gacc + pend * LW);
+    }
+    __syncthreads();
+    if (nw > 1) {
+      pend = g;
+      buf ^= 1;
+    }
+  };
   const int s = tid & 3;             // this lane's features: 4 e + s
   const int qoff = (tid >> 2) * Q;   // the pair's rows in a row set
   const int own = qoff + s * R;      // the lane's own row there
@@ -1377,23 +1620,20 @@ __global__ void __launch_bounds__(kK8MaxThreads)
 #pragma unroll
         for (int st = 0; st < 4; ++st) cot[st][e] = ce[st];
       }
-      float* st_set = setS + (L & 1) * P * Q;
-      __syncwarp();  // the pair's lanes have read H
+      __syncwarp();  // the warp's lanes have read H and S
       k8_to_rows<W, 4>(setH + qoff, s, hr);
-      k8_to_rows<W, 4>(st_set + qoff, s, sr);
-      __syncthreads();
-      k8_weight_grads<W, 4, 4>(setH, st_set, gacc + L * LW, 2, 2, T, S);
+      k8_to_rows<W, 4>(setS + qoff, s, sr);
+      __syncwarp();
+      grads(L, [&](float* out) { k8_warp_grads<W, 2, 2>(setH + wrows, setS + wrows, out, nw == 1); });
     }
 
     // reverse sweep: cot is the cotangent of layer k's outputs
 #pragma unroll 1
     for (int k = L - 1; k >= 0; --k) {
-      if (k == 0 && L < 2) __syncthreads();  // the head's product still reads H
-      float* sk = setS + (k & 1) * P * Q;
-      k8_to_rows<W, 4>(sk + qoff, s, cot);
+      k8_to_rows<W, 4>(setS + qoff, s, cot);  // the warp read S before the last barrier
       __syncwarp();
       float hb[4][G];
-      k8_product_t<W, 4>(sw + k * LW, sk + qoff, s, hb);
+      k8_product_t<W, 4>(sw + k * LW, setS + qoff, s, hb);
       float* hk = k == 0 ? setH : sets + (k - 1) * P * Q;
       if (k == 0) {  // layer 0's inputs are not saved
 #pragma unroll
@@ -1420,10 +1660,10 @@ __global__ void __launch_bounds__(kK8MaxThreads)
           h[st][e] = he[st];
         }
       }
-      __syncwarp();  // the pair's lanes have read their saved rows
+      __syncwarp();  // the warp's lanes have read their saved rows (and H)
       k8_to_rows<W, 4>(hk + qoff, s, h);
-      __syncthreads();
-      k8_weight_grads<W, 4, 4>(hk, sk, gacc + k * LW, 0, 4, T, S);
+      __syncwarp();
+      grads(k, [&](float* out) { k8_warp_grads<W, 4, 0>(hk + wrows, setS + wrows, out, nw == 1); });
     }
 
     // cot is (z0bar | p0bar | q0bar | r0bar): the point's sums, and the ref's
@@ -1446,8 +1686,9 @@ __global__ void __launch_bounds__(kK8MaxThreads)
     }
   }
 
-  // this split's ax and av cotangents, each [nt, n, w0], and the block's row
-  // of weight gradients
+  // the last point's sums over the warps; this split's ax and av cotangents,
+  // each [nt, n, w0], and the block's row of weight gradients
+  if (pend >= 0) k8_add_warps<W>(scratch + (buf ^ 1) * nw * LW, nw, gacc + pend * LW);
   if (valid) {
     const size_t tnw = static_cast<size_t>(nt) * n * w0;
     float* o = x_partials + static_cast<size_t>(split) * 2 * tnw + ti * w0;
@@ -1461,7 +1702,10 @@ __global__ void __launch_bounds__(kK8MaxThreads)
   }
   __syncthreads();
   float* __restrict__ part = w_partials + static_cast<size_t>(blockIdx.x) * n_wf;
-  for (int e = tid; e < n_wf; e += T) part[e] = gacc[e];
+  for (int e = tid; e < n_wf; e += T) {
+    const int k = e / LW;
+    part[e] = gacc[k * LW + k8_unblocked<W>(e - k * LW)];
+  }
 }
 
 struct K8Kernel {
@@ -1474,8 +1718,8 @@ struct K8Kernel {
 
 constexpr int kK6MaxThreads = 256;  // lanes per block, at most
 // rows of the blocks of a layer's weight gradient that a thread owns in
-// k8_weight_grads at eight lanes a pair (4 at four lanes, as K8): 8 x 4
-// blocks ran faster than 4 x 4 in every turn at 64 -> 64 -> 128
+// k8_weight_grads at eight lanes a pair (4 at four lanes): 8 x 4 blocks ran
+// faster than 4 x 4 in every turn at 64 -> 64 -> 128
 constexpr int kK6OctetGradRows = 8;
 
 // floats of K6's weights: n_layers x (W_k [W, W], b_k [W]) and the feature
@@ -1485,10 +1729,14 @@ __host__ __device__ constexpr int k6_weight_floats(int w, int n_layers, int n_ch
   return (n_layers + n_chunks) * (w * w + w);
 }
 
+// row sets of a k6_kernel block: the saved streams of the layers k = 1 .. L -
+// 1, the set H and the two sets S
+__host__ __device__ constexpr int k6_rows(int n_layers) { return (n_layers > 1 ? n_layers : 1) + 2; }
+
 size_t k6_shared_bytes(int w, int threads, int n_layers, int n_chunks) {
   const int lanes = k8_lanes(w);
   return sizeof(float) * (2 * static_cast<size_t>(k6_weight_floats(w, n_layers, n_chunks)) +
-                          static_cast<size_t>(k8_rows(n_layers)) * (threads / lanes) * k8_quad(w, lanes) +
+                          static_cast<size_t>(k6_rows(n_layers)) * (threads / lanes) * k8_quad(w, lanes) +
                           static_cast<size_t>(threads / 32) * w);
 }
 
@@ -1521,7 +1769,7 @@ __global__ void __launch_bounds__(kK6MaxThreads)
   float* sw = reinterpret_cast<float*>(smem4);
   float* gacc = sw + n_wf;
   float* sets = gacc + n_wf;
-  const int n_sets = k8_rows(L);
+  const int n_sets = k6_rows(L);
   float* arw = sets + n_sets * P * Q;
   for (int idx = tid; idx < n_wf / 4; idx += T) {
     int at = idx;  // where the float4 goes: the [W, W] blocks' rows swizzled (k8_swz)

@@ -344,24 +344,39 @@ def k7_plan(widths: Sequence[int]) -> K7Plan:
 
 def k8_rows(n_layers: int) -> int:
     """Row sets of a K8 block in shared memory: the saved inputs of the
-    layers 1 .. n_layers - 1, the set H and the two sets S."""
-    return max(n_layers, 1) + 2
+    layers 1 .. n_layers - 1, the set H and the set S."""
+    return max(n_layers, 1) + 1
+
+
+def k8_scratch_floats(width: int, threads: int) -> int:
+    """Floats of a K8 block's scratch for its warps' weight gradients of a
+    layer: two buffers of one layer's (width^2 + width) a warp; none for a
+    block of one warp, which adds its sums to the accumulators itself."""
+    return 2 * (threads // 32) * (width * width + width) if threads > 32 else 0
 
 
 def k8_shared_bytes(width: int, threads: int, n_layers: int) -> int:
     """K8's shared memory a block (csrc/pairwise.cu): the padded weights as
     K7's, as many gradient accumulators, ``k8_rows`` row sets of four rows
     (width floats, width + 4 where width is a multiple of 8) and 4 floats
-    of padding a pair, and one ref-row partial a warp."""
+    of padding a pair, the scratch (``k8_scratch_floats``) and one ref-row
+    partial a warp."""
     weights = n_layers * (width * width + width) + width * width + width
     row = width + 4 if width % 8 == 0 else width
-    return 4 * (2 * weights + k8_rows(n_layers) * (threads // 4) * (4 * row + 4) + threads // 32 * width)
+    return 4 * (2 * weights + k8_rows(n_layers) * (threads // 4) * (4 * row + 4)
+                + k8_scratch_floats(width, threads) + threads // 32 * width)
 
 
 def k8_plan(widths: Sequence[int]) -> K7Plan:
     """K8's plan for the chain `widths` (as ``k7_plan``): K7's width, and
     the most lanes a block (four a point) whose shared memory fits."""
     return _plan("K8", widths, K8_THREADS, k8_shared_bytes)
+
+
+def k6_rows(n_layers: int) -> int:
+    """Row sets of a k6_kernel block in shared memory: the saved inputs of
+    the layers 1 .. n_layers - 1, the set H and the two sets S."""
+    return max(n_layers, 1) + 2
 
 
 def k6_lanes(width: int) -> int:
@@ -390,15 +405,15 @@ class K6Plan(NamedTuple):
 def k6_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
     """k6_kernel's shared memory a block (csrc/pairwise.cu): the padded
     weights, n_layers x (W_k, b_k) then `chunks` x (a [width, width] block
-    of W_F, its biases), as many gradient accumulators, K8's ``k8_rows``
-    row sets (a pair's four rows of width floats, width + 4 where width is
+    of W_F, its biases), as many gradient accumulators, ``k6_rows`` row
+    sets (a pair's four rows of width floats, width + 4 where width is
     a multiple of 8, and 4 floats of padding, 8 at eight lanes a pair) and
     one ref-row partial a warp."""
     weights = (n_layers + chunks) * (width * width + width)
     row = width + 4 if width % 8 == 0 else width
     lanes = k6_lanes(width)
     pair = 4 * row + (4 if lanes == 4 else 8)
-    return 4 * (2 * weights + k8_rows(n_layers) * (threads // lanes) * pair + threads // 32 * width)
+    return 4 * (2 * weights + k6_rows(n_layers) * (threads // lanes) * pair + threads // 32 * width)
 
 
 def _k6_fit(widths: Sequence[int]) -> Optional[K6Plan]:

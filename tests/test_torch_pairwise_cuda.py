@@ -173,8 +173,10 @@ def test_k7_plan_matches_the_kernel(cuda):
 
 # K8's width instantiations and padding, as K7_CASES: n = 300 and 129 are not
 # multiples of a block's 64 points (at these depths); the other cases as above,
-# and one hidden layer, where the head's and layer 0's rows share a row set.
-K8_CASES = K7_CASES + [((20, 20, 48), 2, 70, 33, (1,))]
+# one hidden layer, where the head's and layer 0's rows share a row set, and 16
+# hidden layers at width 32, whose plan is a block of one warp (8 points) that
+# adds its sums to the accumulators without the scratch.
+K8_CASES = K7_CASES + [((20, 20, 48), 2, 70, 33, (1,)), ((32,) * 17 + (48,), 2, 21, 9, (2,))]
 
 
 @pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
@@ -203,6 +205,19 @@ def test_k8_plan_matches_the_kernel(cuda):
     assert lib.k8_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
                              ctypes.byref(per_sm)) == 0
     assert per_sm.value >= 1
+
+
+def test_k8_main_path_is_bitwise_repeatable(cuda):
+    """K8 at the KMV MLP's main path (7 x 2,000 x 2,000 pairs, hidden 20 x
+    8: 256 lanes a block, 4 ref splits, the warps' sums added over the
+    warps in a fixed order), called twice: every output bitwise equal."""
+    mids, ax, av, ar, mask, cot = _inputs(cuda, FULL, 7, 2_000, 2_000, zero_refs=(5, 1_999))
+    assert pk.k8_plan([20] * 9).threads == 256
+    _, bwd = _calls(True, mids, "tanh", ax, av, ar, mask, cot)
+    launches = pk.mlp_pairwise_sums_packed_bwd.launches
+    a, b = _flat(bwd(pk.mlp_pairwise_sums_packed_bwd)), _flat(bwd(pk.mlp_pairwise_sums_packed_bwd))
+    assert pk.mlp_pairwise_sums_packed_bwd.launches == launches + 2
+    assert all(bool(torch.isfinite(x).all()) and torch.equal(x, y) for x, y in zip(a, b))
 
 
 # k6_kernel at each width instantiation and at feature widths whose chunks of

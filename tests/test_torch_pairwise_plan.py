@@ -137,14 +137,17 @@ def test_splits_round_the_grid_to_whole_waves(nt, n, m, resident, want):
 def test_k8_plan_fits_shared_memory(width, n_layers):
     """K8's plan at every width instantiation and depth: K7's width, the
     most lanes a block (of K8_THREADS) whose shared memory fits 227 KB: the
-    weights twice (values and gradient accumulators), max(L, 1) + 2 row sets
-    of 4 rows + 4 floats a pair and one ref-row partial a warp."""
+    weights twice (values and gradient accumulators), max(L, 1) + 1 row sets
+    of 4 rows + 4 floats a pair, the warps' scratch (two buffers of W^2 + W
+    floats a warp, none for one warp) and one ref-row partial a warp."""
     plan = pk.k8_plan([width] * (n_layers + 2))
     assert plan.width == width and plan.threads in pk.K8_THREADS and plan.threads % 32 == 0
     row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
     weights = n_layers * (width * width + width) + width * width + width
-    want = 4 * (2 * weights + (max(n_layers, 1) + 2) * (plan.threads // 4) * (4 * row + 4)
-                + plan.threads // 32 * width)
+    warps = plan.threads // 32
+    scratch = 2 * warps * (width * width + width) if warps > 1 else 0
+    want = 4 * (2 * weights + (max(n_layers, 1) + 1) * (plan.threads // 4) * (4 * row + 4) + scratch
+                + warps * width)
     assert plan.shared_bytes == want == pk.k8_shared_bytes(width, plan.threads, n_layers)
     assert plan.shared_bytes <= 227 * 1024
     larger = [t for t in pk.K8_THREADS if t > plan.threads]
@@ -153,30 +156,55 @@ def test_k8_plan_fits_shared_memory(width, n_layers):
 
 def test_k8_plan_and_splits_are_the_header_comments():
     """The KMV main path (w0 = 20, seven 20 x 20 layers, M [20, 20]): 256
-    lanes (64 points) a block and 221,056 B (26,880 of weights and
-    accumulators, 193,536 of rows, 640 of ref-row partials), one block an
-    SM, and 4 ref splits for 132 resident blocks on 7 x 32 point blocks."""
+    lanes (64 points) a block and 226,432 B (26,880 of weights and
+    accumulators, 172,032 of rows, 26,880 of the warps' scratch, 640 of
+    ref-row partials), one block an SM, and 4 ref splits for 132 resident
+    blocks on 7 x 32 point blocks."""
     plan = pk.k8_plan([20] * 9)
-    assert plan == pk.K7Plan(20, 256, 221_056)
-    assert 2 * 4 * (7 * 420 + 420) == 26_880 and 4 * 9 * 64 * 84 == 193_536 and 4 * 8 * 20 == 640
+    assert plan == pk.K7Plan(20, 256, 226_432)
+    assert 2 * 4 * (7 * 420 + 420) == 26_880 and 4 * 8 * 64 * 84 == 172_032 and 4 * 8 * 20 == 640
+    assert 4 * pk.k8_scratch_floats(20, 256) == 4 * 2 * 8 * 420 == 26_880
+    assert 26_880 + 172_032 + 26_880 + 640 == plan.shared_bytes <= 232_448
     assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
     assert pk.k7_splits(7, 2_000, 2_000, plan.threads // 4, 132) == 4
-    assert pk.k8_rows(7) == 9 and pk.k8_rows(1) == 3 and pk.k8_rows(0) == 3
-    for text in ("26,880 B of weights and accumulators + 193,536 B of rows + 640 B of ref-row partials = "
-                 "221,056 B", "4 splits", "(896 blocks, 6.79 waves)", "max(L, 1) + 2 row sets",
-                 "4 R + 4 floats"):
+    assert pk.k8_rows(7) == 8 and pk.k8_rows(1) == 2 and pk.k8_rows(0) == 2
+    for text in ("26,880 B of weights and accumulators + 172,032 B of rows + 26,880 B of scratch + 640 B of "
+                 "ref-row partials = 226,432 B", "4 splits", "(896 blocks, 6.79 waves)",
+                 "max(L, 1) + 1 row sets", "4 R + 4 floats", "one barrier a layer"):
         assert text in HEADER, text
 
 
 def test_k8_plan_shrinks_the_block_and_refuses_widths_past_32():
-    """16 layers at width 32 leave room for 32 lanes (8 points) a block."""
+    """16 layers at width 32 leave room for 32 lanes (8 points) a block,
+    one warp, which needs no scratch: with one it would not fit."""
     plan = pk.k8_plan([32] * 18)
     assert plan == pk.K7Plan(32, 32, pk.k8_shared_bytes(32, 32, 16))
     assert pk.k8_shared_bytes(32, 64, 16) > 227 * 1024 >= plan.shared_bytes
+    assert pk.k8_scratch_floats(32, 32) == 0
+    assert plan.shared_bytes + 4 * 2 * (32 * 32 + 32) > 227 * 1024
     with pytest.raises(ValueError, match="widths <= 32"):
         pk.k8_plan([20, 33, 20])
     with pytest.raises(ValueError, match="chain"):
         pk.k8_plan([20])
+
+
+@pytest.mark.parametrize("width", pk.K7_WIDTHS)
+def test_k8_scratch_and_row_sets_at_each_width(width):
+    """At the main path's depth (7 hidden layers) every width keeps 8 row
+    sets (the saved inputs of layers 1-6, H and S: one set S, since a warp
+    reads only its own pairs' rows) and a scratch of two buffers of one
+    layer's W^2 + W floats for each warp of its plan; a block of one warp
+    has none.  K6 keeps its 9 (two sets S)."""
+    plan = pk.k8_plan([width] * 9)
+    warps = plan.threads // 32
+    assert pk.k8_rows(7) == 8 and pk.k6_rows(7) == 9
+    assert pk.k8_scratch_floats(width, plan.threads) == 2 * warps * (width * width + width)
+    assert pk.k8_scratch_floats(width, 32) == 0 and pk.k8_scratch_floats(width, 64) == 4 * (width * width + width)
+    row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
+    rows = 4 * 8 * (plan.threads // 4) * (4 * row + 4)
+    weights = 4 * 2 * 8 * (width * width + width)
+    assert plan.shared_bytes == weights + rows + 4 * pk.k8_scratch_floats(width, plan.threads) + 4 * warps * width
+    assert plan.threads == {8: 256, 16: 256, 20: 256, 24: 128, 32: 96}[width]
 
 
 @pytest.mark.parametrize("act", ["tanh", "silu", "softplus"])
@@ -305,7 +333,7 @@ def test_k6_takes_chains_by_their_widths_before_the_feature_layer():
 def test_k6_octet_plan_fits_shared_memory(width, n_layers, feature):
     """k6_kernel on eight lanes a pair: the feature layer in ceil(F / W)
     chunks, the most lanes a block (of K6_THREADS) whose shared memory fits
-    227 KB, 4 (2 (L + chunks)(W^2 + W) + k8_rows(L) (T / 8)(4 R + 8) + (T /
+    227 KB, 4 (2 (L + chunks)(W^2 + W) + k6_rows(L) (T / 8)(4 R + 8) + (T /
     32) W) bytes with R = W + 4, or a refusal where none does: 5 hidden
     layers at width 64 and 100 or 128 features."""
     widths = [width] * (n_layers + 1) + [feature]
