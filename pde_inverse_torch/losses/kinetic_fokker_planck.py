@@ -12,7 +12,8 @@ one forward-over-reverse pass (``ops.autodiff``) or, for PotentialMLP
 hypotheses, from the fused provider (``losses.fused_pointwise``: kernels
 K3/K4 on CUDA), as ``solver.train.kfp_fused`` selects.  The parameter
 gradient is an outer ``torch.func.grad``, or ``torch.autograd`` where the
-fused provider is engaged.
+fused provider is engaged.  The path term's forward runs in the
+``pde.kfp_path`` span, the boundary terms' in ``pde.kfp_boundary``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch.func import grad_and_value
 from pde_inverse_torch import rng
 from pde_inverse_torch.losses import fused_pointwise as fp
 from pde_inverse_torch.ops import autodiff as ad
+from pde_inverse_torch.tracing import span
 
 
 def _split_xv(z: torch.Tensor):
@@ -65,12 +67,13 @@ def make_loss_fn(
 
     def loss_fn(params):
         V = lambda x: forward_fn(params, x)[0]
-        if use_fused:
-            nabla_0T, quad_0T = fp.grad_and_quadform(
-                fused_module, params, x_0T, v_0T, mode=fused_mode
-            )
-        else:
-            nabla_0T, quad_0T = ad.batched_grad_and_hvp_quadform(V, x_0T, v_0T)
+        with span("kfp_path"):
+            if use_fused:
+                nabla_0T, quad_0T = fp.grad_and_quadform(
+                    fused_module, params, x_0T, v_0T, mode=fused_mode
+                )
+            else:
+                nabla_0T, quad_0T = ad.batched_grad_and_hvp_quadform(V, x_0T, v_0T)
         loss_nabla = _mean_sq_norm(nabla_0T)
         loss_hessian = torch.mean(quad_0T)
         loss_friction = gamma * torch.mean(torch.sum(nabla_0T * v_0T, dim=-1))
@@ -81,8 +84,9 @@ def make_loss_fn(
                 return torch.zeros((), dtype=x.dtype, device=x.device)
             return torch.mean(torch.sum(ad.batched_grad(V, x) * v, dim=-1))
 
-        loss_initial = boundary(x_init, v_init)
-        loss_terminal = boundary(x_term, v_term)
+        with span("kfp_boundary"):
+            loss_initial = boundary(x_init, v_init)
+            loss_terminal = boundary(x_term, v_term)
         loss = (
             loss_nabla - 2.0 * loss_hessian + 2.0 * loss_friction + loss_nabla_true
         ) + (2.0 * loss_terminal - 2.0 * loss_initial) / T

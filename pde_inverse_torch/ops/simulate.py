@@ -22,6 +22,7 @@ from pde_inverse_torch.ops.cuda.langevin import (
     langevin_plain,
 )
 from pde_inverse_torch.potentials import Potential
+from pde_inverse_torch.tracing import span
 
 
 def simulate(
@@ -44,7 +45,8 @@ def simulate(
     the halves along the particle axis (leading dim 2n).  The +1 half is
     bitwise a plain call with the same key.  z0_mirror gives the initial
     states of the mirrored half (e.g. 2 mean - z0 for a Gaussian law).
-    pack: particles per kernel thread; None means 1, as in the JAX package."""
+    pack: particles per kernel thread; None means 1, as in the JAX package.
+    The seed draw and the simulator's calls run in the ``pde.langevin`` span."""
     pack = 1 if pack is None else int(pack)
     if z0_mirror is not None:
         if not antithetic:
@@ -53,20 +55,21 @@ def simulate(
             raise ValueError(
                 f"z0_mirror shape {tuple(z0_mirror.shape)} != z0 shape {tuple(z0.shape)}"
             )
-    # one integer seed per call, drawn from the key's generator on the host
-    # (no device sync); both antithetic halves share it
-    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=rng.generator(key)))
     if kernel_supported_potential(potential):
         sim = partial(langevin, pack=pack)
     else:
         sim = langevin_plain
     signs = (1.0, -1.0) if antithetic else (1.0,)
     starts = (z0, z0_mirror if z0_mirror is not None else z0)
-    outs = [
-        sim(seed, start, n_steps, dt, potential, gamma, return_trajectory=return_trajectory,
-            integrator=integrator, noise_scale=sign)
-        for sign, start in zip(signs, starts)
-    ]
+    with span("langevin"):
+        # one integer seed per call, drawn from the key's generator on the
+        # host (no device sync); both antithetic halves share it
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=rng.generator(key)))
+        outs = [
+            sim(seed, start, n_steps, dt, potential, gamma, return_trajectory=return_trajectory,
+                integrator=integrator, noise_scale=sign)
+            for sign, start in zip(signs, starts)
+        ]
     if not antithetic:
         return outs[0]
     return tuple(

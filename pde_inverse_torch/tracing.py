@@ -13,7 +13,15 @@ span is put inside a provider: their kernels name them on the device):
 
 * ``pde.step`` (keyword ``step``, the step index): one training step;
 * ``pde.sample``: the step's data (``ConsistencyBased.sample_data``);
+* ``pde.langevin``, inside ``pde.sample`` (and ``pde.test``) of an SDE
+  problem: the simulator's seed draw and its kernel launches
+  (``ops/simulate.py``), one span a simulated batch;
 * ``pde.loss_grad``: the loss and its gradient, forward and backward;
+* ``pde.kfp_path`` and ``pde.kfp_boundary``, inside ``pde.loss_grad`` of
+  the kinetic Fokker-Planck loss: the path term's gradient and Hessian
+  form (the fused provider's call) and the boundary terms' gradients
+  through the network; their backward is autograd's, under
+  ``pde.loss_grad``;
 * ``pde.optimizer``: the optimizer's update, EMA and the parameter norm;
 * ``pde.gather``: a streaming chunk's host gather and its upload;
 * ``pde.sync``: the chunk's one copy of its metrics to the host;

@@ -26,8 +26,10 @@ test and the returned parameters use once engaged.
 
 Each phase runs in a ``tracing.span`` (``pde.step``, ``pde.optimizer``,
 ``pde.gather``, ``pde.sync``, ``pde.writer``, ``pde.test``; the method adds
-``pde.sample`` and ``pde.loss_grad``), which marks it in a profiler's trace
-and costs one flag check otherwise.  With ``backend.profile_dir`` set, the
+``pde.sample`` and ``pde.loss_grad``, the SDE simulator ``pde.langevin`` and
+the kinetic Fokker-Planck loss ``pde.kfp_path`` and ``pde.kfp_boundary``
+inside them), which marks it in a profiler's trace and costs one flag check
+otherwise.  With ``backend.profile_dir`` set, the
 second chunk (the first if it is the only one) runs under
 ``torch.profiler`` and its chrome trace goes to ``<profile_dir>/trace.json``.
 """

@@ -37,6 +37,7 @@ STREAMED = ("KGMM-nonparametric-offline-XL", [
     "solver.train.offline_traj_batch=8", "train.optimizer.ema_switch_step=2",
     "pde_instance.dataset_path={tmp}/store"])
 STEP_PHASES = ["pde.sample", "pde.loss_grad", "pde.optimizer"]
+KFP_LOSS = ["pde.kfp_path", "pde.kfp_boundary"]
 
 
 def _cfg(job, tmp_path, iterations, chunk, frequency, *extra):
@@ -55,33 +56,79 @@ def _spans(events):
                   key=lambda s: (s[1], -s[2]))
 
 
-# (job, iterations, chunk, test frequency, tests that fire, streamed)
+def _children(spans, parent):
+    """The names of the spans directly inside `parent` (name, start, end),
+    in time order."""
+    _, start, end = parent
+    inside = [s for s in spans if start <= s[1] and s[2] <= end and s != parent]
+    return [s[0] for s in inside
+            if not any(o is not s and o[1] <= s[1] and s[2] <= o[2] for o in inside)]
+
+
+def _profiled_run(job, tmp_path, n, k, freq):
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        tmain.run(_cfg(job, tmp_path, n, k, freq), "cpu")
+    return prof
+
+
+# (job, iterations, chunk, test frequency, tests that fire, streamed,
+#  pde.langevin spans outside the steps and tests: the end-of-run test of
+#  main.run simulates two batches, the offline store its terminal and its
+#  trajectory shard)
 CADENCES = {
-    "kmv_test_every_chunk": (KMV, 6, 3, 3, 2, False),
-    "kmv_final_test_only": (KMV, 6, 3, 0, 1, False),
-    "kgmm_np_online": (KGMM_NP, 4, 2, 4, 1, False),
-    "kgmm_np_streamed": (STREAMED, 4, 2, 2, 2, True),
+    "kmv_test_every_chunk": (KMV, 6, 3, 3, 2, False, 0),
+    "kmv_final_test_only": (KMV, 6, 3, 0, 1, False, 0),
+    "kgmm_np_online": (KGMM_NP, 4, 2, 4, 1, False, 2),
+    "kgmm_np_streamed": (STREAMED, 4, 2, 2, 2, True, 4),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CADENCES))
 def test_fit_marks_every_phase_under_a_profiler(case, tmp_path):
-    job, n, k, freq, n_tests, streamed = CADENCES[case]
-    cfg = _cfg(job, tmp_path, n, k, freq)
-    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
-        tmain.run(cfg, "cpu")
+    job, n, k, freq, n_tests, streamed, elsewhere = CADENCES[case]
+    prof = _profiled_run(job, tmp_path, n, k, freq)
     spans = _spans(prof.events())
     counts = {name: sum(s[0] == name for s in spans) for name in {s[0] for s in spans}}
     chunks = -(-n // k)
+    kfp = job is not KMV
+    # an SDE problem simulates the path and the terminal particles in each
+    # step's sample and in each test's probe
+    langevin = 2 * ((0 if streamed else n) + n_tests) + elsewhere if kfp else 0
     assert counts == {"pde.step": n, **{p: n for p in STEP_PHASES}, "pde.sync": chunks,
                       "pde.writer": chunks, "pde.test": n_tests,
-                      **({"pde.gather": chunks} if streamed else {})}
+                      **({"pde.gather": chunks} if streamed else {}),
+                      **({p: n for p in KFP_LOSS} if kfp else {}),
+                      **({"pde.langevin": langevin} if langevin else {})}
     steps = [s for s in spans if s[0] == "pde.step"]
-    for _, start, end in steps:
-        inside = [s[0] for s in spans if start < s[1] and s[2] <= end]
-        assert inside == STEP_PHASES
+    for step in steps:
+        assert _children(spans, step) == STEP_PHASES
     args = [e.kwinputs.get("step") for e in prof.events() if e.name == "pde.step"]
     assert sorted(args) == list(range(n))
+
+
+# what each step phase holds, by job: the online sampler's two simulated
+# batches (the path, then the terminal particles) and the KFP loss's path
+# and boundary terms
+NESTED = {
+    "kmv_test_every_chunk": {},
+    "kgmm_np_online": {"pde.sample": ["pde.langevin", "pde.langevin"], "pde.loss_grad": KFP_LOSS},
+    "kgmm_np_streamed": {"pde.loss_grad": KFP_LOSS},
+}
+
+
+@pytest.mark.parametrize("case", sorted(NESTED))
+def test_kgmm_spans_nest_under_sample_and_loss_grad(case, tmp_path):
+    job, n, k, freq, *_ = CADENCES[case]
+    spans = _spans(_profiled_run(job, tmp_path, n, k, freq).events())
+    for phase in STEP_PHASES:
+        for span in (s for s in spans if s[0] == phase):
+            assert _children(spans, span) == NESTED[case].get(phase, [])
+    for test in (s for s in spans if s[0] == "pde.test"):
+        assert _children(spans, test) == (["pde.langevin"] * 2 if job is not KMV else [])
+    outside = [s[0] for s in spans if s[0] in ("pde.langevin", *KFP_LOSS)
+               and not any(o[0] in ("pde.sample", "pde.loss_grad", "pde.test")
+                           and o[1] <= s[1] and s[2] <= o[2] for o in spans)]
+    assert outside == ["pde.langevin"] * CADENCES[case][6]
 
 
 def test_span_records_nothing_without_a_profiler(monkeypatch):
@@ -91,11 +138,37 @@ def test_span_records_nothing_without_a_profiler(monkeypatch):
     monkeypatch.setattr(tracing, "_RecordFunctionFast", refuse)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     assert not torch.autograd._profiler_enabled()
-    for args in [("step", 3), ("step", 0), ("sync",)]:
+    for args in [("step", 3), ("step", 0), ("sync",), ("langevin",), ("kfp_path",),
+                 ("kfp_boundary",)]:
         context = tracing.span(*args)
         assert context is tracing._NULL
         with context:
             pass
+
+
+def test_kgmm_step_records_no_span_without_a_profiler(monkeypatch, tmp_path):
+    """The online KGMM job's sampler and loss take the shared null context
+    at every span when nothing profiles them, and train as before."""
+    opened = []
+    null_enter = type(tracing._NULL).__enter__
+
+    def counted(self):
+        if self is tracing._NULL:
+            opened.append(self)
+        return null_enter(self)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span recorded with no profiler active")
+
+    monkeypatch.setattr(tracing, "_RecordFunctionFast", refuse)
+    monkeypatch.setattr(type(tracing._NULL), "__enter__", counted)
+    n, k, freq = CADENCES["kgmm_np_online"][1:4]
+    out = tmain.run(_cfg(KGMM_NP, tmp_path, n, k, freq), "cpu")
+    assert np.all(np.isfinite(out.losses))
+    # per step: step, sample, 2 langevin, loss_grad, kfp_path, kfp_boundary,
+    # optimizer; per chunk: sync, writer; the test: test, 2 langevin; the
+    # end-of-run test: 2 langevin
+    assert len(opened) == 8 * n + 2 * (-(-n // k)) + 3 + 2
 
 
 def test_span_is_a_host_op_and_no_user_annotation():
