@@ -19,6 +19,12 @@ Lyapunov ODE analytically (dm/dt = A m, dP/dt = A P + P A^T + L).  They are
 the KMV loss weights.  Here every oracle function takes a batch of stamps
 s [B] with the points of each stamp x [B, n, d] (the JAX functions take one
 stamp and are vmapped).
+
+The factorisations on the step path use the ``torch.linalg.*_ex`` variants,
+which skip the checking variants' read of ``info`` back to the host (a
+host-device sync every call on CUDA); ``nan_where_failed`` keeps the check
+on the device, so a failed factorisation makes the step's loss NaN and the
+trainer's chunk-end guard stops the run.
 """
 
 from __future__ import annotations
@@ -99,6 +105,13 @@ def spectral_moments(data: dict, ts: torch.Tensor):
     return mean, 0.5 * (cov + cov.transpose(-1, -2))
 
 
+def nan_where_failed(result: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    """`result` [..., r, c] of a ``torch.linalg.*_ex`` call, NaN in every
+    matrix whose `info` [...] is non-zero (a failed factorisation or a
+    singular solve), without reading `info` on the host."""
+    return torch.where((info != 0)[..., None, None], torch.nan, result)
+
+
 # ---------------------------------------------------------------------------
 # Moment time-derivatives and Gaussian log-density time-derivatives
 # ---------------------------------------------------------------------------
@@ -122,8 +135,9 @@ def gaussian_logdensity_time_derivative(x, mean, cov, dmean, dcov):
     [B, d, d] -> [B, n].  With u = x - m, Ainv = P^{-1}:
     -1/2 tr(Ainv dP) + dm^T Ainv u + 1/2 u^T Ainv dP Ainv u."""
     u = x - mean[..., None, :]
-    Ainv_u = torch.linalg.solve(cov[..., None, :, :], u[..., None])[..., 0]
-    term_tr = -0.5 * torch.diagonal(torch.linalg.solve(cov, dcov), dim1=-2, dim2=-1).sum(-1)
+    Ainv_u = nan_where_failed(*torch.linalg.solve_ex(cov[..., None, :, :], u[..., None]))[..., 0]
+    Ainv_dP = nan_where_failed(*torch.linalg.solve_ex(cov, dcov))
+    term_tr = -0.5 * torch.diagonal(Ainv_dP, dim1=-2, dim2=-1).sum(-1)
     term_mean = torch.einsum("...ni,...i->...n", Ainv_u, dmean)
     term_quad = 0.5 * torch.einsum("...ni,...ij,...nj->...n", Ainv_u, dcov, Ainv_u)
     return term_tr[..., None] + term_mean + term_quad
@@ -135,7 +149,7 @@ def gaussian_logdensity_time_second_derivative(x, mean, cov, dmean, dcov, d2mean
     - dm^T Ainv dm + 1/2 u^T Ainv d2P Ainv u - u^T K dP Ainv u."""
     tr = lambda M: torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
     u = x - mean[..., None, :]
-    Ainv = torch.linalg.inv(cov)
+    Ainv = nan_where_failed(*torch.linalg.inv_ex(cov))
     K = Ainv @ dcov @ Ainv
     Ainv_u = u @ Ainv
     tr1 = 0.5 * tr(Ainv @ dcov @ Ainv @ dcov)

@@ -111,7 +111,7 @@ class KineticFokkerPlanckOU(ProblemInstance):
     def _sample_at_times(self, key: int, ts: torch.Tensor, per_time: int) -> torch.Tensor:
         """[per_time, n_time, D] samples from the exact Gaussian law at ts."""
         means, covs = self.oracle.moments_grid(ts)
-        chols = torch.linalg.cholesky(covs)
+        chols = ou.nan_where_failed(*torch.linalg.cholesky_ex(covs))  # NaN where a cov is not PD
         eps = torch.randn((per_time, ts.shape[0], 2 * self.dim),
                           generator=rng.generator(key, self.device), device=self.device)
         return torch.einsum("tij,ntj->nti", chols, eps) + means

@@ -4,7 +4,10 @@ k5_kernel at each of their width instantiations and paddings (k6_kernel and
 k5_kernel also at ragged chunks of the feature layer, k5_kernel at depths
 0, 7 and 15, k6_kernel's eight lanes a pair at widths 48 and 64 at depths
 0-4), a hidden-64 chain through K5's pw_fwd_kernel and a chain wider than
-64 through K6's pw_bwd_kernel.  The gates repeat ``chip_smoke.py``'s.
+64 through K6's pw_bwd_kernel.  The gates repeat ``chip_smoke.py``'s.  And
+the whole KMV MLP training step at the benchmark cell's configuration: warm
+steps make no host-device sync, and its losses are bitwise those of the
+checking ``torch.linalg`` calls.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -15,11 +18,19 @@ installed, add ``--noconftest`` (the conftest imports JAX).
 """
 
 import ctypes
+import json
+from pathlib import Path
 
 import pytest
 import torch
 
+from pde_inverse_torch import config as config_lib
+from pde_inverse_torch import rng
+from pde_inverse_torch.device import setup_precision
 from pde_inverse_torch.losses import pairwise_blockwise as bw
+from pde_inverse_torch.methods import functional_forward
+from pde_inverse_torch.registry import get_method, get_pde_instance
+from pde_inverse_torch.training.trainer import Trainer
 from pde_inverse_torch.models.mlp import PotentialMLP
 from pde_inverse_torch.ops.cuda import pairwise as pk
 
@@ -594,3 +605,61 @@ def test_wrappers_check_their_inputs(cuda):
         pk.mlp_pairwise_sums_bwd(wide, "tanh", ax, av, ar, mask, *cot)
     with pytest.raises(ValueError, match="cotangents"):
         pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, cot[0][:, :5], *cot[1:])
+
+
+BENCH = Path(__file__).resolve().parents[1] / "benchmark"
+
+
+def _kmv_cell_trainer(dev, seed: int) -> Trainer:
+    """A Trainer of the benchmark cell kmv-mlp.pairs28m (its configuration
+    and traffic files), built as ``pde_inverse_torch.main.run`` builds it."""
+    spec = json.loads((BENCH / "configs" / "kmv-mlp.json").read_text())
+    traffic = json.loads((BENCH / "workloads" / "kmv-mlp.pairs28m.json").read_text())["traffic"]
+    cfg = config_lib.preset(spec["preset"], [*spec["overrides"], *(f"{k}={v}" for k, v in traffic.items()),
+                                             f"seed={seed}"])
+    setup_precision()
+    key_problem, key_method, key_trainer, _ = rng.split(cfg.seed, 4)
+    inst = get_pde_instance(cfg)(cfg, key_problem, dev)
+    method = get_method(cfg)(inst, cfg, key_method, dev)
+    model, params = method.create_model_fn()
+    return Trainer(cfg, method, key_trainer, functional_forward(model), params)
+
+
+def _steps(trainer: Trainer, steps):
+    """(stacked [loss, grad_norm] of each step, parameters after them) from
+    the trainer's initial parameters and a fresh optimizer state."""
+    params = trainer.params
+    opt_state = trainer.optimizer.init(params)
+    ema = {k: torch.zeros_like(v) for k, v in params.items()}
+    seen = []
+    for s in steps:
+        params, opt_state, ema, out = trainer._step(params, opt_state, ema, s)
+        seen.append(torch.stack([out["loss"], out["grad_norm"]]))
+    return torch.stack(seen), params
+
+
+def test_kmv_mlp_steps_make_no_host_sync(cuda, monkeypatch):
+    """After warm-up, two more steps under ``set_sync_debug_mode("error")``
+    raise nothing; the first 3 steps' losses, gradient norms and the
+    parameters after them are bitwise those of the same steps with each
+    ``torch.linalg.*_ex`` call made the checking variant."""
+    trainer = _kmv_cell_trainer(cuda, 2147483659)
+    got, params = _steps(trainer, range(3))  # builds K7/K8 and warms every shape
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _steps(trainer, range(3, 5))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for name in ("cholesky", "solve", "inv"):
+        def ex(*args, _checked=getattr(torch.linalg, name), **kwargs):
+            out = _checked(*args, **kwargs)
+            return out, torch.zeros(out.shape[:-2], dtype=torch.int32, device=out.device)
+
+        monkeypatch.setattr(torch.linalg, f"{name}_ex", ex)
+    want, want_params = _steps(trainer, range(3))
+    assert torch.equal(got, want)
+    for k, p in params.items():
+        assert torch.equal(p, want_params[k]), k
