@@ -565,10 +565,10 @@ def main() -> None:
         for act, nt_, n_, m_, zeros, widths in pair_cases + (k7_cases if kid in ("K5", "K7", "K8") else ()):
             mids, tens, cot = pairwise_inputs(dev, nt_, n_, m_, torch.float32, 8, zeros, widths)
             mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, widths)
-            before = (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide)
+            before = pw.mlp_pairwise_sums.launches
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
-            check(kid != "K5" or (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide)
-                  == (before[0] + 1, before[1]), f"K5 {act} {nt_}x{n_}x{m_} did not run k5_kernel")
+            check(kid != "K5" or (pw.choose(widths, "on")[0] == "k5" and pw.mlp_pairwise_sums.launches == before + 1),
+                  f"K5 {act} {nt_}x{n_}x{m_} did not run k5_kernel")
             want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
             ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
             torch.cuda.synchronize()
@@ -605,14 +605,13 @@ def main() -> None:
     # chain wider than 64 (small shapes only: no path of the port runs it)
     rows = {"K5": [], "K6": [], "pw_bwd": []}
     wide_err = {"K5": 0.0, "K6": 0.0, "pw_bwd": 0.0}
-    counts = lambda: (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums.launches_wide,
-                      pw.mlp_pairwise_sums_bwd.launches, pw.mlp_pairwise_sums_bwd.launches_wide)
+    counts = lambda: (pw.mlp_pairwise_sums.launches, pw.mlp_pairwise_sums_bwd.launches)
     # (kid, which, widths, the launch count that moves, what runs)
-    for kid, which, widths, moved, what in (("K5", "K5", K6_WIDE, 1, "pw_fwd_kernel"),
-                                            ("K5", "K5", K6_WIDE3, 1, "pw_fwd_kernel"),
-                                            ("K6", "K6", K6_WIDE, 2, "k6_kernel"),
-                                            ("K6", "K6", K6_WIDE3, 2, "k6_kernel"),
-                                            ("K6", "pw_bwd", K6_WIDER, 3, "pw_bwd_kernel")):
+    for kid, which, widths, moved, what in (("K5", "K5", K6_WIDE, 0, "pw_fwd_kernel"),
+                                            ("K5", "K5", K6_WIDE3, 0, "pw_fwd_kernel"),
+                                            ("K6", "K6", K6_WIDE, 1, "k6_kernel"),
+                                            ("K6", "K6", K6_WIDE3, 1, "k6_kernel"),
+                                            ("K6", "pw_bwd", K6_WIDER, 1, "pw_bwd_kernel")):
         kernel, plain = kernels[kid]
         shapes = (("tanh", 2, 300, 257, (3,)), ("silu", 1, 77, 45, (0, 44)))
         if which != "pw_bwd":
@@ -622,7 +621,8 @@ def main() -> None:
             mids64, tens64, cot64 = pairwise_inputs(dev, nt_, n_, m_, torch.float64, 8, zeros, widths)
             before = counts()
             got = flat(pairwise_call(kid, kernel, act, mids, tens, cot))
-            check(counts() == tuple(c + (i == moved) for i, c in enumerate(before)),
+            check(pw.choose(widths, "on")[moved] + "_kernel" == what
+                  and counts() == tuple(c + (i == moved) for i, c in enumerate(before)),
                   f"{kid} at layers {widths} did not run {what} alone: launches {before} -> {counts()}")
             want = flat(pairwise_call(kid, plain, act, mids, tens, cot))
             ref = flat(pairwise_call(kid, plain, act, mids64, tens64, cot64))
@@ -655,8 +655,8 @@ def main() -> None:
     print(f"[k6-wide-vs-plain] layers {layers} through k6_kernel (W=64, eight lanes a pair), worst output error "
           f"relative to its max-abs, kernel vs f64 / plain f32 vs f64: {'; '.join(rows['K6'])}; {gate}; max abs "
           f"err kernel vs plain {wide_err['K6']:.3e}; {KMV_NT}x{KMV_N}x{KMV_N}: two calls bitwise equal at each; "
-          f"launches counted in .launches, none in .launches_wide", flush=True)
-    print(f"[pw-bwd-vs-plain] layers {'->'.join(map(str, K6_WIDER))} through pw_bwd_kernel (.launches_wide), "
+          f"the kernel as choose gives it", flush=True)
+    print(f"[pw-bwd-vs-plain] layers {'->'.join(map(str, K6_WIDER))} through pw_bwd_kernel (as choose gives it), "
           f"worst output error relative to its max-abs, kernel vs f64 / plain f32 vs f64: "
           f"{'; '.join(rows['pw_bwd'])}; {gate}; max abs err kernel vs plain {wide_err['pw_bwd']:.3e}", flush=True)
 
@@ -843,9 +843,7 @@ def main() -> None:
           f"gradient leaf rel err {g_rel:.3e} <= {NP_GRAD_RTOL}", flush=True)
 
     # the KMV MLP path (K7/K8 with kmv_pallas=auto), then K5/K6 (kmv_pallas=on)
-    pair_launch = lambda: {"K5": pw.mlp_pairwise_sums.launches, "K5-wide": pw.mlp_pairwise_sums.launches_wide,
-                           "K6": pw.mlp_pairwise_sums_bwd.launches,
-                           "K6-wide": pw.mlp_pairwise_sums_bwd.launches_wide,
+    pair_launch = lambda: {"K5": pw.mlp_pairwise_sums.launches, "K6": pw.mlp_pairwise_sums_bwd.launches,
                            "K7": pw.mlp_pairwise_sums_packed.launches,
                            "K8": pw.mlp_pairwise_sums_packed_bwd.launches}
 
@@ -853,7 +851,6 @@ def main() -> None:
         for fn in (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_packed,
                    pw.mlp_pairwise_sums_packed_bwd, pw.sum_rows):
             fn.launches = 0
-        pw.mlp_pairwise_sums.launches_wide = pw.mlp_pairwise_sums_bwd.launches_wide = 0
 
     kmv_launches, sum_rows_launches = {}, {}
     for mode, extra, n_iter in (("auto", [], 20),
@@ -879,7 +876,8 @@ def main() -> None:
               f"KMV {mode} losses not finite: {result_k.losses}")
         pair = ("K7", "K8") if mode == "auto" else ("K5", "K6")
         others = [k for k in launches_k if k not in pair]
-        check(all(launches_k[k] >= n_iter for k in pair) and all(launches_k[k] == 0 for k in others)
+        check(pw.choose(KMV_WIDTHS, mode) == (("k7", "k8") if mode == "auto" else ("k5", "k6"))
+              and all(launches_k[k] >= n_iter for k in pair) and all(launches_k[k] == 0 for k in others)
               and sum_rows_launches[mode] >= 4 * n_iter,
               f"KMV kmv_pallas={mode}: launches {launches_k}, sum_rows {sum_rows_launches[mode]} in "
               f"{n_iter} steps")
@@ -898,7 +896,7 @@ def main() -> None:
     # the KMV MLP at hidden width 64: kmv_pallas=auto takes K5's pw_fwd_kernel
     # and K6's k6_kernel (eight lanes a pair), at 64 x 2 -> 128 and at 64 x 3
     # -> 128, which pw_bwd_kernel could not hold
-    for tag, overrides, layers in (("wide", KMV_WIDE, 2), ("wide3", KMV_WIDE3, 3)):
+    for tag, overrides, layers, widths in (("wide", KMV_WIDE, 2, K6_WIDE), ("wide3", KMV_WIDE3, 3, K6_WIDE3)):
         cfg_w, _ = parse_args(KMV_MLP + overrides)
         check(cfg_w.neural_network.hidden_dim == 64 and cfg_w.neural_network.layers == layers
               and cfg_w.solver.train.sample_per_time == KMV_N, f"KMV MLP hidden-64 x {layers} configuration changed")
@@ -909,8 +907,9 @@ def main() -> None:
         launches_w = pair_launch()
         n_iter = cfg_w.train.number_of_iterations
         check(len(result_w.losses) == n_iter and bool(np.isfinite(result_w.losses).all())
-              and launches_w["K5-wide"] >= n_iter and launches_w["K6"] >= n_iter
-              and launches_w["K5"] == launches_w["K6-wide"] == launches_w["K7"] == launches_w["K8"] == 0,
+              and pw.choose(widths, "auto") == ("pw_fwd", "k6")
+              and launches_w["K5"] >= n_iter and launches_w["K6"] >= n_iter
+              and launches_w["K7"] == launches_w["K8"] == 0,
               f"KMV hidden 64 x {layers}: losses {result_w.losses}, launches {launches_w}")
         metrics_w = {**result_w.test_metrics, **result_w.result_metrics}
         check(all(math.isfinite(v) for v in metrics_w.values()), f"KMV hidden 64 x {layers} metrics: {metrics_w}")
@@ -1394,7 +1393,7 @@ def main() -> None:
     rows_out.append(row("K5-wide", "K5 hidden > 32: pairwise sums, |f|^2 head, through pw_fwd_kernel (timed: "
                         f"layers {'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
                         "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:136",
-                        kmv_launches["wide"]["K5-wide"], wide_err["K5"], *times["K5-wide"]))
+                        kmv_launches["wide"]["K5"], wide_err["K5"], *times["K5-wide"]))
     rows_out.append(row("K6-wide", "K6 hidden 33-64: VJP of K5 through k6_kernel at W = 48 / 64 (eight lanes a "
                         f"pair; timed: W = 64, layers {'->'.join(map(str, K6_WIDE))}, {KMV_NT}x{KMV_N}x{KMV_N} pairs)",
                         "pde_inverse_torch/csrc/pairwise.cu", "pde_inverse_tpu/ops/pallas/pairwise_kernel.py:340",

@@ -2518,371 +2518,234 @@ using launch::allow_shared_once;
 size_t s1_pair_rows_allowed[launch::kMaxDevices];
 size_t s1_m_layer_allowed[launch::kMaxDevices];
 
-template <typename Kernel>
-cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
-  cudaError_t err = allow_shared(kernel, smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+// the tile kernels as with_act takes a kernel: one instantiation an activation
+struct PwFwdKernel {
+  template <int W, int ACT>
+  static constexpr auto get() { return &pw_fwd_kernel<ACT>; }
+};
+
+struct PwBwdKernel {
+  template <int W, int ACT>
+  static constexpr auto get() { return &pw_bwd_kernel<ACT>; }
+};
+
+// The kernels a plan names, numbered as ops/cuda/pairwise.py KERNELS lists them
+enum KernelId : int { kIdK5 = 0, kIdPwFwd, kIdK6, kIdPwBwd, kIdK7, kIdK8 };
+
+// One launch as the wrapper's plan gives it (ops/cuda/pairwise.py Plan), and
+// what follows from it: threads and points (pairs at one ref) a block, the
+// dynamic shared memory a block (bytes; the plan's shared_bytes is the same),
+// the floats of the weights, and the grid (prologue)
+struct Shape {
+  int kernel, width, n_layers, n_chunks, w0;  // n_layers hidden layers before the head
+  int threads, points;
+  size_t smem, weight_floats;
+  int point_blocks, blocks;  // ceil(n / points); n_split x nt x point_blocks
+  Net net;                   // the tile kernels' chain
+};
+
+// `s` from a plan (kernel, width, threads, chain widths[0 .. n_mid], chunks of
+// the feature layer); false where its kernel does not take it
+bool make_shape(int kernel, int width, int threads, int n_mid, const int* widths, int n_chunks, Shape* s) {
+  if (n_mid < 1 || n_mid > kMaxMid || widths == nullptr || widths[0] < 1) return false;
+  const int L = n_mid - 1;
+  *s = Shape{kernel, width, L, n_chunks, widths[0], threads, threads};
+  const bool padded = s->w0 <= width && threads >= 1;
+  const bool warps = threads >= 32 && threads % 32 == 0;
+  switch (kernel) {
+    case kIdPwFwd:
+    case kIdPwBwd: {
+      const int n_params = make_net(n_mid, widths, &s->net);
+      if (n_params < 0) return false;
+      s->threads = kThreads;
+      s->points = kTile;
+      s->smem = shared_bytes(s->net, kernel == kIdPwFwd ? 3 : 4);
+      s->weight_floats = n_params;
+      return true;
+    }
+    case kIdK5:
+      s->smem = k5_shared_bytes(width, threads, L, n_chunks);
+      return padded && threads <= kK5MaxThreads && L <= kMaxMid - 2 && n_chunks >= 1;
+    case kIdK6:
+      s->points = threads / k8_lanes(width);
+      s->smem = k6_shared_bytes(width, threads, L, n_chunks);
+      s->weight_floats = k6_weight_floats(width, L, n_chunks);
+      return padded && warps && threads <= kK6MaxThreads && L <= kMaxMid - 2 && n_chunks >= 1;
+    case kIdK7:
+      s->smem = k7_shared_bytes(width, threads, L);
+      return padded && threads <= kK7MaxThreads && L <= kMaxMid - 1;
+    case kIdK8:
+      s->points = threads / 4;
+      s->smem = k8_shared_bytes(width, threads, L);
+      s->weight_floats = k7_weight_floats(width, L);
+      return padded && warps && threads <= kK8MaxThreads && L <= kMaxMid - 1;
+    default: return false;
+  }
 }
 
-// run the statements after `act` with `kern` bound to KERNEL<act>; an
-// unknown act returns cudaErrorInvalidValue
-#define PW_DISPATCH(KERNEL, act, ...)                                          \
-  do {                                                                         \
-    switch (act) {                                                             \
-      case kTanh: { auto kern = KERNEL<kTanh>; __VA_ARGS__; } break;           \
-      case kSilu: { auto kern = KERNEL<kSilu>; __VA_ARGS__; } break;           \
-      case kSoftplus: { auto kern = KERNEL<kSoftplus>; __VA_ARGS__; } break;   \
-      default: return static_cast<int>(cudaErrorInvalidValue);                 \
-    }                                                                          \
-  } while (0)
+// f(the instantiation of the shape's kernel at its width and `act`); an
+// unknown width or act returns cudaErrorInvalidValue
+template <typename F>
+cudaError_t with_shape_kernel(const Shape& s, int act, F&& f) {
+  switch (s.kernel) {
+    case kIdK5: return with_kernel<K5Kernel>(s.width, act, f);
+    case kIdPwFwd: return with_act<PwFwdKernel, 0>(act, f);
+    case kIdK6: return with_kernel<K6Kernel>(s.width, act, f);
+    case kIdPwBwd: return with_act<PwBwdKernel, 0>(act, f);
+    case kIdK7: return with_kernel<K7Kernel>(s.width, act, f);
+    default: return with_kernel<K8Kernel>(s.width, act, f);
+  }
+}
+
+// The prologue of every launch: checks the plan and the sizes (the padded
+// kernels' weights 16-byte aligned), sets the grid and selects the device.
+cudaError_t prologue(int device, int kernel, int width, int threads, int n_mid, const int* widths,
+                     int n_chunks, int nt, int n, int m, int n_split, const float* weights, Shape* s) {
+  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 ||
+      !make_shape(kernel, width, threads, n_mid, widths, n_chunks, s) ||
+      (kernel != kIdPwFwd && kernel != kIdPwBwd && reinterpret_cast<uintptr_t>(weights) % 16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  s->point_blocks = (n + s->points - 1) / s->points;
+  s->blocks = n_split * nt * s->point_blocks;
+  return cudaSetDevice(device);
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t run(Kernel kern, const Shape& s, cudaStream_t st, Args... args) {
+  const cudaError_t err = allow_shared(kern, s.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<s.blocks, s.threads, s.smem, st>>>(args...);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on `stream` and
 // returns a CUDA error code (0 on success); validation of shapes, dtypes and
-// devices is the Python wrapper's job.  `widths` is a host array of n_mid + 1
-// ints; params packs [W_k (row-major [w_k, w_{k+1}]), b_k] for every layer, params_t
-// packs W_k^T.  Arrays: ax, av [nt, n, w0], ar [nt, m, w0], mask [m],
-// g_val, g_hess [nt, n], g_dz0 [nt, n, w0].
+// devices is the Python wrapper's job.  A plan is (kernel, width, threads,
+// n_mid, widths, n_chunks): a KernelId, the width instantiation (ignored by
+// the tile kernels), threads a block (likewise), the chain as a host array
+// widths[0 .. n_mid] (K5, K6 and the tile kernels: w0, the hidden layers'
+// output widths, the feature width; K7 and K8: M's width last) and the
+// feature layer's chunks (K5: of kK5Chunk features; K6: of `width`).
+// Arrays: ax, av [nt, n, w0], ar [nt, m, w0], mask [m], g_val, g_hess [nt,
+// n], g_dz0 [nt, n, w0].  weights: the kernel's layout (k5_kernel: [L x (W_k
+// [W, W], b_k [W]), W_F [W, F4], b_F [F4]]; k6_kernel: [L x (W_k, b_k),
+// n_chunks x (W_F chunk [W, W], b_F chunk [W])]; k7_kernel, k8_kernel: [L x
+// (W_k, b_k), M [W, W], u [W]]; zero-padded to `width`, 16-byte aligned;
+// the tile kernels: params = [W_k (row-major [w_k, w_{k+1}]), b_k] of every
+// layer, with weights_t = params_t packing W_k^T).
 
-// Resident blocks per SM of pw_fwd_kernel (bwd = 0) or of pw_bwd_kernel, K5
-// and K6 where a width before the feature layer exceeds 32.
-extern "C" int pw_max_blocks(int device, int act, int bwd, int n_mid, const int* widths,
-                             int* blocks) {
-  Net net;
-  if (make_net(n_mid, widths, &net) < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (bwd) {
-    const size_t smem = shared_bytes(net, 4);
-    PW_DISPATCH(pw_bwd_kernel, act, err = blocks_per_sm(kern, smem, blocks));
-  } else {
-    const size_t smem = shared_bytes(net, 3);
-    PW_DISPATCH(pw_fwd_kernel, act, err = blocks_per_sm(kern, smem, blocks));
-  }
-  return static_cast<int>(err);
-}
-
-// K5 for hidden widths > 32 (pw_fwd_kernel).  partials: [n_split, nt * n *
-// (2 + w0)] scratch; out: [nt * n * (2 + w0)] = value [nt, n] | hess [nt, n] |
-// s_dz0 [nt, n, w0].
-extern "C" int pw_sums(int device, int act, int n_mid, const int* widths, int nt, int n, int m,
-                       int n_split, const float* ax, const float* av, const float* ar,
-                       const float* mask, const float* params, const float* params_t,
-                       float* partials, float* out, void* stream) {
-  Net net;
-  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || make_net(n_mid, widths, &net) < 0) {
+// Resident blocks per SM of the plan's kernel at `act`.
+extern "C" int pw_max_blocks(int device, int kernel, int act, int width, int threads, int n_mid,
+                             const int* widths, int n_chunks, int* blocks) {
+  Shape s;
+  if (!make_shape(kernel, width, threads, n_mid, widths, n_chunks, &s)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = shared_bytes(net, 3);
-  const int chunk = (m + n_split - 1) / n_split;
-  const int n_iblk = (n + kTile - 1) / kTile;
-  const dim3 grid(n_split * nt * n_iblk);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PW_DISPATCH(pw_fwd_kernel, act, {
-    err = allow_shared(kern, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, params, params_t,
-                                       partials);
-  });
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int w0 = net.w[0];
-  return static_cast<int>(
-      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
-}
-
-// K5's dynamic shared memory for width w, `threads` points a block, n_layers
-// hidden layers and n_chunks chunks of 4 features (bytes; the wrapper's plan
-// computes the same).
-extern "C" long long k5_shared_bytes_c(int width, int threads, int n_layers, int n_chunks) {
-  return static_cast<long long>(k5_shared_bytes(width, threads, n_layers, n_chunks));
-}
-
-static bool k5_valid(int threads, int n_layers, int n_chunks) {
-  return threads >= 1 && threads <= kK5MaxThreads && n_layers >= 0 && n_layers <= kMaxMid - 2 &&
-         n_chunks >= 1;
-}
-
-// Resident K5 blocks per SM for the width instantiation, activation,
-// `threads` points a block, n_layers hidden layers and n_chunks chunks.
-extern "C" int k5_max_blocks(int device, int act, int width, int threads, int n_layers, int n_chunks,
-                             int* blocks) {
-  if (!k5_valid(threads, n_layers, n_chunks)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k5_shared_bytes(width, threads, n_layers, n_chunks);
-  return static_cast<int>(with_kernel<K5Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
+  return static_cast<int>(with_shape_kernel(s, act, [&](auto kern) {
+    const cudaError_t e = allow_shared(kern, s.smem);
     if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, s.threads, s.smem);
   }));
 }
 
-// K5 for hidden widths <= 32 (k5_kernel): weights [L x (W_k [W, W], b_k [W]),
-// W_F [W, 4 n_chunks], b_F [4 n_chunks]], zero-padded to `width` and to whole
-// chunks (16-byte aligned); ax, av [nt, n, w0] and ar [nt, m, w0] with w0 <=
-// width; partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n *
-// (2 + w0)] = value [nt, n] | hess [nt, n] | s_dz0 [nt, n, w0].
-extern "C" int k5_sums(int device, int act, int width, int threads, int n_layers, int n_chunks, int w0,
-                       int nt, int n, int m, int n_split, const float* ax, const float* av,
-                       const float* ar, const float* mask, const float* weights, float* partials,
-                       float* out, void* stream) {
-  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width ||
-      !k5_valid(threads, n_layers, n_chunks) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
+// The plan's dynamic shared memory a block (bytes; the wrapper's plan
+// computes the same), or -1 where its kernel does not take it.
+extern "C" long long pw_shared_bytes(int kernel, int width, int threads, int n_mid, const int* widths,
+                                     int n_chunks) {
+  Shape s;
+  if (!make_shape(kernel, width, threads, n_mid, widths, n_chunks, &s)) return -1;
+  return static_cast<long long>(s.smem);
+}
+
+// The forward sums (k5_kernel, pw_fwd_kernel, k7_kernel) of the plan.
+// partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n * (2 + w0)] =
+// value [nt, n] (K7: without c) | hess [nt, n] | s_dz0 [nt, n, w0].
+extern "C" int pw_forward(int device, int kernel, int act, int width, int threads, int n_mid,
+                          const int* widths, int n_chunks, int nt, int n, int m, int n_split,
+                          const float* ax, const float* av, const float* ar, const float* mask,
+                          const float* weights, const float* weights_t, float* partials, float* out,
+                          void* stream) {
+  Shape s;
+  cudaError_t err =
+      prologue(device, kernel, width, threads, n_mid, widths, n_chunks, nt, n, m, n_split, weights, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k5_shared_bytes(width, threads, n_layers, n_chunks);
   const int chunk = (m + n_split - 1) / n_split;
-  const dim3 grid(n_split * nt * ((n + threads - 1) / threads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = with_kernel<K5Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, threads, smem, st>>>(n_layers, n_chunks, w0, nt, n, m, chunk, ax, av, ar, mask, weights,
-                                      partials);
-    return cudaGetLastError();
-  });
+  switch (kernel) {
+    case kIdK5:
+      err = with_kernel<K5Kernel>(width, act, [&](auto kern) {
+        return run(kern, s, st, s.n_layers, n_chunks, s.w0, nt, n, m, chunk, ax, av, ar, mask, weights,
+                   partials);
+      });
+      break;
+    case kIdPwFwd:
+      err = with_act<PwFwdKernel, 0>(act, [&](auto kern) {
+        return run(kern, s, st, s.net, nt, n, m, chunk, ax, av, ar, mask, weights, weights_t, partials);
+      });
+      break;
+    case kIdK7:
+      err = with_kernel<K7Kernel>(width, act, [&](auto kern) {
+        return run(kern, s, st, s.n_layers, s.w0, nt, n, m, chunk, ax, av, ar, mask, weights, partials);
+      });
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
+      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + s.w0), st));
 }
 
-// K7's dynamic shared memory for width w, `threads` points a block and
-// n_layers hidden layers (bytes; the wrapper's plan computes the same).
-extern "C" long long k7_shared_bytes_c(int width, int threads, int n_layers) {
-  return static_cast<long long>(k7_shared_bytes(width, threads, n_layers));
-}
-
-// Resident K7 blocks per SM for the width instantiation, activation,
-// `threads` points a block and n_layers hidden layers.
-extern "C" int k7_max_blocks(int device, int act, int width, int threads, int n_layers,
-                             int* blocks) {
-  if (threads < 1 || threads > kK7MaxThreads || n_layers < 0 || n_layers > kMaxMid - 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
+// The VJP (k6_kernel, pw_bwd_kernel, k8_kernel) of the plan.  Scratch:
+// w_partials [blocks, n_w] (a row a block in the layout of `weights`, n_w its
+// floats), x_partials [n_split, 2, nt, n, w0], ar_partials [ceil(n / points),
+// nt, m, w0].  grads: [n_w] in the layout of `weights` (K8: every W_k, b_k, M
+// and u gradient, zero-padded); axv_bar: [2, nt, n, w0] = ax_bar | av_bar;
+// ar_bar: [nt, m, w0].
+extern "C" int pw_backward(int device, int kernel, int act, int width, int threads, int n_mid,
+                           const int* widths, int n_chunks, int nt, int n, int m, int n_split,
+                           const float* ax, const float* av, const float* ar, const float* mask,
+                           const float* g_val, const float* g_hess, const float* g_dz0, const float* weights,
+                           const float* weights_t, float* w_partials, float* grads, float* x_partials,
+                           float* axv_bar, float* ar_partials, float* ar_bar, void* stream) {
+  Shape s;
+  cudaError_t err =
+      prologue(device, kernel, width, threads, n_mid, widths, n_chunks, nt, n, m, n_split, weights, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k7_shared_bytes(width, threads, n_layers);
-  return static_cast<int>(with_kernel<K7Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
-  }));
-}
-
-// K7: weights [L x (W_k [W, W], b_k [W]), M [W, W], u [W]], zero-padded to
-// `width` (16-byte aligned); ax, av [nt, n, w0] and ar [nt, m, w0] with
-// w0 <= width; partials: [n_split, nt * n * (2 + w0)] scratch; out: [nt * n *
-// (2 + w0)] = value [nt, n] (without c) | hess [nt, n] | s_dz0 [nt, n, w0].
-extern "C" int k7_sums(int device, int act, int width, int threads, int n_layers, int w0, int nt,
-                       int n, int m, int n_split, const float* ax, const float* av, const float* ar,
-                       const float* mask, const float* weights, float* partials, float* out,
-                       void* stream) {
-  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width || threads < 1 ||
-      threads > kK7MaxThreads || n_layers < 0 || n_layers > kMaxMid - 1 ||
-      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k7_shared_bytes(width, threads, n_layers);
   const int chunk = (m + n_split - 1) / n_split;
-  const dim3 grid(n_split * nt * ((n + threads - 1) / threads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = with_kernel<K7Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, threads, smem, st>>>(n_layers, w0, nt, n, m, chunk, ax, av, ar, mask, weights,
-                                      partials);
-    return cudaGetLastError();
-  });
+  switch (kernel) {
+    case kIdK6:
+      err = with_kernel<K6Kernel>(width, act, [&](auto kern) {
+        return run(kern, s, st, s.n_layers, n_chunks, s.w0, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess,
+                   g_dz0, weights, w_partials, x_partials, ar_partials);
+      });
+      break;
+    case kIdPwBwd:
+      err = with_act<PwBwdKernel, 0>(act, [&](auto kern) {
+        return run(kern, s, st, s.net, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess, g_dz0, weights,
+                   weights_t, w_partials, static_cast<int>(s.weight_floats), x_partials, ar_partials);
+      });
+      break;
+    case kIdK8:
+      err = with_kernel<K8Kernel>(width, act, [&](auto kern) {
+        return run(kern, s, st, s.n_layers, s.w0, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess, g_dz0,
+                   weights, w_partials, x_partials, ar_partials);
+      });
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(w_partials, grads, s.blocks, s.weight_floats, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * s.w0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      launch_sum_rows(partials, out, n_split, static_cast<size_t>(nt) * n * (2 + w0), st));
-}
-
-// K8's dynamic shared memory for width w, `threads` lanes a block and
-// n_layers hidden layers (bytes; the wrapper's plan computes the same).
-extern "C" long long k8_shared_bytes_c(int width, int threads, int n_layers) {
-  return static_cast<long long>(k8_shared_bytes(width, threads, n_layers));
-}
-
-static bool k8_valid(int threads, int n_layers) {
-  return threads >= 32 && threads <= kK8MaxThreads && threads % 32 == 0 && n_layers >= 0 &&
-         n_layers <= kMaxMid - 1;
-}
-
-// Resident K8 blocks per SM for the width instantiation, activation,
-// `threads` lanes a block and n_layers hidden layers.
-extern "C" int k8_max_blocks(int device, int act, int width, int threads, int n_layers,
-                             int* blocks) {
-  if (!k8_valid(threads, n_layers)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k8_shared_bytes(width, threads, n_layers);
-  return static_cast<int>(with_kernel<K8Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
-  }));
-}
-
-// K8: weights as K7's; `threads` lanes a block, threads / 4 points.  Scratch:
-// w_partials [n_split * nt * n_blk, n_w] (n_w the floats of `weights`,
-// n_blk = ceil(n / (threads / 4))), x_partials [n_split, 2, nt, n, w0],
-// ar_partials [n_blk, nt, m, w0].  grads: [n_w] in the layout of `weights`
-// (every W_k, b_k, M and u gradient, zero-padded); axv_bar: [2, nt, n, w0] =
-// ax_bar | av_bar; ar_bar: [nt, m, w0].
-extern "C" int k8_sums_bwd(int device, int act, int width, int threads, int n_layers, int w0, int nt,
-                           int n, int m, int n_split, const float* ax, const float* av,
-                           const float* ar, const float* mask, const float* g_val,
-                           const float* g_hess, const float* g_dz0, const float* weights,
-                           float* w_partials, float* grads, float* x_partials, float* axv_bar,
-                           float* ar_partials, float* ar_bar, void* stream) {
-  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width ||
-      !k8_valid(threads, n_layers) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k8_shared_bytes(width, threads, n_layers);
-  const int chunk = (m + n_split - 1) / n_split;
-  const int n_iblk = (n + threads / 4 - 1) / (threads / 4);
-  const int blocks = n_split * nt * n_iblk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = with_kernel<K8Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<blocks, threads, smem, st>>>(n_layers, w0, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess,
-                                        g_dz0, weights, w_partials, x_partials, ar_partials);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_rows(w_partials, grads, blocks,
-                        static_cast<size_t>(k7_weight_floats(width, n_layers)), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * w0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
-}
-
-// K6's dynamic shared memory for width w, `threads` lanes a block, n_layers
-// hidden layers and n_chunks chunks of the feature layer (bytes; the
-// wrapper's plan computes the same).
-extern "C" long long k6_shared_bytes_c(int width, int threads, int n_layers, int n_chunks) {
-  return static_cast<long long>(k6_shared_bytes(width, threads, n_layers, n_chunks));
-}
-
-static bool k6_valid(int threads, int n_layers, int n_chunks) {
-  return threads >= 32 && threads <= kK6MaxThreads && threads % 32 == 0 && n_layers >= 0 &&
-         n_layers <= kMaxMid - 2 && n_chunks >= 1;
-}
-
-// Resident K6 blocks per SM for the width instantiation, activation,
-// `threads` lanes a block, n_layers hidden layers and n_chunks chunks.
-extern "C" int k6_max_blocks(int device, int act, int width, int threads, int n_layers, int n_chunks,
-                             int* blocks) {
-  if (!k6_valid(threads, n_layers, n_chunks)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k6_shared_bytes(width, threads, n_layers, n_chunks);
-  return static_cast<int>(with_kernel<K6Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
-  }));
-}
-
-// K6 for hidden widths <= 64 (k6_kernel): weights [L x (W_k [W, W], b_k [W]),
-// n_chunks x (W_F chunk [W, W], b_F chunk [W])], zero-padded to `width`
-// (16-byte aligned); `threads` lanes a block, threads / k8_lanes(width)
-// points (4 lanes a point at width <= 32, 8 at 48 and 64).  Scratch:
-// w_partials [n_split * nt * n_blk, n_w] (n_w the floats of `weights`, n_blk =
-// ceil(n / points)), x_partials [n_split, 2, nt, n, w0], ar_partials
-// [n_blk, nt, m, w0].  grads: [n_w] in the layout of `weights`; axv_bar: [2,
-// nt, n, w0] = ax_bar | av_bar; ar_bar: [nt, m, w0].
-extern "C" int k6_sums_bwd(int device, int act, int width, int threads, int n_layers, int n_chunks,
-                           int w0, int nt, int n, int m, int n_split, const float* ax, const float* av,
-                           const float* ar, const float* mask, const float* g_val,
-                           const float* g_hess, const float* g_dz0, const float* weights,
-                           float* w_partials, float* grads, float* x_partials, float* axv_bar,
-                           float* ar_partials, float* ar_bar, void* stream) {
-  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || w0 < 1 || w0 > width ||
-      !k6_valid(threads, n_layers, n_chunks) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = k6_shared_bytes(width, threads, n_layers, n_chunks);
-  const int chunk = (m + n_split - 1) / n_split;
-  const int points = threads / k8_lanes(width);
-  const int n_iblk = (n + points - 1) / points;
-  const int blocks = n_split * nt * n_iblk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = with_kernel<K6Kernel>(width, act, [&](auto kern) {
-    cudaError_t e = allow_shared(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<blocks, threads, smem, st>>>(n_layers, n_chunks, w0, nt, n, m, chunk, ax, av, ar, mask, g_val,
-                                        g_hess, g_dz0, weights, w_partials, x_partials, ar_partials);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_rows(w_partials, grads, blocks,
-                        static_cast<size_t>(k6_weight_floats(width, n_layers, n_chunks)), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * w0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
-}
-
-// K6 where k6_kernel cannot take the chain (pw_bwd_kernel).  w_partials: [n_split * nt *
-// n_blk, n_params]; x_partials: [n_split, 2, nt, n, w0]; ar_partials: [n_blk,
-// nt, m, w0] (n_blk = ceil(n / 32)) scratch.
-// grads: [n_params] in the params layout; axv_bar: [2, nt, n, w0] = ax_bar |
-// av_bar; ar_bar: [nt, m, w0].
-extern "C" int pw_sums_bwd(int device, int act, int n_mid, const int* widths, int nt,
-                           int n, int m, int n_split, const float* ax, const float* av,
-                           const float* ar, const float* mask, const float* g_val,
-                           const float* g_hess, const float* g_dz0, const float* params,
-                           const float* params_t, float* w_partials, float* grads,
-                           float* x_partials, float* axv_bar, float* ar_partials, float* ar_bar,
-                           void* stream) {
-  Net net;
-  const int n_params = make_net(n_mid, widths, &net);
-  if (nt <= 0 || n <= 0 || m <= 0 || n_split <= 0 || n_params < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = shared_bytes(net, 4);
-  const int chunk = (m + n_split - 1) / n_split;
-  const int n_iblk = (n + kTile - 1) / kTile;
-  const int blocks = n_split * nt * n_iblk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PW_DISPATCH(pw_bwd_kernel, act, {
-    err = allow_shared(kern, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<blocks, kThreads, smem, st>>>(net, nt, n, m, chunk, ax, av, ar, mask, g_val, g_hess, g_dz0,
-                                         params, params_t, w_partials, n_params, x_partials,
-                                         ar_partials);
-  });
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int w0 = net.w[0];
-  err = launch_sum_rows(w_partials, grads, blocks, static_cast<size_t>(n_params), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_rows(x_partials, axv_bar, n_split, static_cast<size_t>(2) * nt * n * w0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_sum_rows(ar_partials, ar_bar, n_iblk, static_cast<size_t>(nt) * m * w0, st));
+      launch_sum_rows(ar_partials, ar_bar, s.point_blocks, static_cast<size_t>(nt) * m * s.w0, st));
 }
 
 // S1: pair rows of n <= 32 points against m refs (a block a ref): ax, av

@@ -23,9 +23,10 @@ Routes (``solver.train.kmv_pallas``):
 * "packed": K7 and K8 behind a Function over (hidden layers, M, u, ax, av,
   ar), with M = W_F W_F^T, u = 2 W_F b_F and c = |b_F|^2 built outside it;
   c sum(mask) is added to the value there;
-* "auto": on CUDA tensors the packed kernels where ``packed_ok`` holds,
-  else K5/K6 where ``pallas_supported`` holds, else (a Fourier front end)
-  the plain formulation; on CPU tensors the plain formulation.
+* "auto": on CUDA tensors, where ``pallas_supported`` holds, the kernels
+  ``pk.choose`` gives for the chain's widths: K7/K8 ("packed") where every
+  width before the feature layer is <= 32, else K5/K6; else (a Fourier
+  front end) the plain formulation; on CPU tensors the plain formulation.
 
 On CPU tensors "on", "fwd" and "packed" run the kernels' plain versions
 behind the same Functions.  A kernel that fails to build or launch raises.
@@ -66,14 +67,6 @@ def pallas_supported(module) -> bool:
     quadratic head is exact statistics outside them) and an activation with
     a derivative table."""
     return supports(module) and module.fourier_features == 0 and supported_activation(module.activation)
-
-
-def packed_ok(module, mids) -> bool:
-    """K7/K8 apply: a kernel-supported stack whose widths before the feature
-    layer are all <= 32 (the collapsed head then replaces the feature
-    layer's work), as the JAX dispatch decides."""
-    widths = [W.shape[0] for W, _ in mids] + [mids[-1][0].shape[0]]
-    return pallas_supported(module) and max(widths) <= 32
 
 
 def _act_d012(act_name: str, z: torch.Tensor):
@@ -233,20 +226,23 @@ class _PackedSums(torch.autograd.Function):
 
 def route(module, mids, mode: str, device: torch.device) -> str:
     """The route `mode` takes for `module` on `device`: "plain", "v1",
-    "v1-fwd" or "packed"."""
+    "v1-fwd" or "packed" (where ``pk.choose`` gives K7/K8 for the widths of
+    `mids`, the layers after the first, as the JAX dispatch decides)."""
     check_mode(mode)
     if mode == "off" or (mode == "auto" and torch.device(device).type != "cuda"):
         return "plain"
-    if mode == "auto":
-        if packed_ok(module, mids):
+    if pallas_supported(module):
+        widths = [W.shape[0] for W, _ in mids] + [mids[-1][0].shape[1]]
+        if pk.choose(widths, mode)[0] == "k7":
             return "packed"
-        return "v1" if pallas_supported(module) else "plain"
-    if not pallas_supported(module) or (mode == "packed" and not packed_ok(module, mids)):
-        raise ValueError(
-            f"solver.train.kmv_pallas={mode} needs a PotentialMLP without a Fourier front end, "
-            f"with a tabled activation{' and widths <= 32' if mode == 'packed' else ''}"
-        )
-    return {"on": "v1", "fwd": "v1-fwd", "packed": "packed"}[mode]
+        if mode != "packed":
+            return {"auto": "v1", "on": "v1", "fwd": "v1-fwd"}[mode]
+    elif mode == "auto":
+        return "plain"
+    raise ValueError(
+        f"solver.train.kmv_pallas={mode} needs a PotentialMLP without a Fourier front end, "
+        f"with a tabled activation{' and widths <= 32' if mode == 'packed' else ''}"
+    )
 
 
 def mlp_pairwise_stats(

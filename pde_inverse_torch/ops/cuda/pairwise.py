@@ -17,12 +17,10 @@ or their VJP.  Counterparts:
 * ``mlp_pairwise_sums`` (K5) and ``mlp_pairwise_sums_bwd`` (K6):
   ``pde_inverse_tpu/ops/pallas/pairwise_kernel.py``, the layers after the
   first (``mids``: [(W [w_in, w_out], b)], the feature layer last) and
-  Phi = |f_L|^2; where every width before the feature layer is <= 32, K5
-  runs k5_kernel (K7's thread per point, the feature layer streamed in
-  chunks of 4, ``k5_plan``), else pw_fwd_kernel; where every such width is
-  <= 64 and its plan fits, K6 runs k6_kernel (K8's lane quads at widths <=
-  32, lane octets at 48 and 64, the feature layer streamed in chunks,
-  ``k6_plan``), else pw_bwd_kernel;
+  Phi = |f_L|^2; K5 runs k5_kernel (K7's thread per point, the feature
+  layer streamed in chunks of 4) or pw_fwd_kernel, K6 k6_kernel (K8's lane
+  quads at widths <= 32, lane octets at 48 and 64, the feature layer
+  streamed in chunks) or pw_bwd_kernel, as ``choose`` gives;
 * ``mlp_pairwise_sums_packed`` (K7) and ``mlp_pairwise_sums_packed_bwd``
   (K8): ``pairwise_packed.py``, the hidden layers before the feature layer
   (``mids_m``) and the collapsed head Phi = g.(M g) + u.g with g the last
@@ -36,10 +34,12 @@ that finishes K5-K8's partial rows, in the chunk order of
 ``row_chunks.sum_rows_plan``; S2's ``sum`` mode too) and
 ``s1_packed_sums``/``s1_packed_sums_bwd`` (K7/K8 with the refs unsplit).
 
-For a CUDA tensor each wrapper launches its kernel on the current stream
-and raises if the build or the launch fails; for a CPU tensor it runs its
-plain version.  ``<wrapper>.launches`` counts kernel launches (CPU calls do
-not count).  The plain versions process the refs in chunks of at most
+``choose`` holds the width rules that pick K5/K6's kernels and the route
+to K7/K8; ``plan`` fits any of the six kernels (``KERNELS``) to a chain,
+and ``_launch_fwd``/``_launch_bwd`` launch any plan.  For a CUDA tensor
+each wrapper launches its kernel on the current stream and raises if the
+build or the launch fails; for a CPU tensor it runs its plain version.
+``<wrapper>.launches`` counts kernel launches (CPU calls do not count).  The plain versions process the refs in chunks of at most
 ``ROWS_PER_CHUNK`` pairs, so they also run at the full main-path width.
 All arithmetic is float32.
 """
@@ -47,7 +47,7 @@ All arithmetic is float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,6 +61,7 @@ ROWS_PER_CHUNK = 1 << 20  # pairs per chunk of the plain versions
 MAX_MID = 16  # layers after the first that the kernels take
 _ACTS = {"tanh": 0, "silu": 1, "softplus": 2}
 _TILE = 32  # points per tile, csrc/pairwise.cu kTile
+_TILE_THREADS = 256  # threads a block of the tile kernels, csrc/pairwise.cu kThreads
 _ROW = _TILE + 4  # floats per feature row of a tile in shared memory
 _MAX_SHARED_BYTES = 227 * 1024  # a block's opt-in maximum on Hopper
 _WAVES = 4  # aim for this many waves of resident blocks when splitting the refs
@@ -247,49 +248,29 @@ def mlp_pairwise_sums_packed_bwd_plain(mids_m: Layers, M, u, act_name: str, ax, 
 # -- kernels -----------------------------------------------------------------------
 
 
+_CI, _LL, _VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_PLAN = [_CI] * 3 + [ctypes.POINTER(_CI), _CI]  # width, threads, n_mid, widths, n_chunks
+_LAUNCH = [_CI] * 3 + _PLAN + [_CI] * 4  # device, kernel, act, the plan, nt, n, m, n_split
+# (argtypes, restype) of csrc/pairwise.cu's entry points
+ENTRIES = {
+    "pw_max_blocks": ([_CI] * 3 + _PLAN + [ctypes.POINTER(_CI)], _CI),
+    "pw_shared_bytes": ([_CI] + _PLAN, _LL),
+    "pw_forward": (_LAUNCH + [_VP] * 9, _CI),
+    "pw_backward": (_LAUNCH + [_VP] * 16, _CI),
+    "s1_pair_rows": ([_CI] * 4 + [_VP] * 6, _CI),
+    "s1_m_layer": ([_CI] * 3 + [_VP] * 4, _CI),
+    "sum_rows_plan_c": ([_LL, _LL, _CI, ctypes.POINTER(_LL)], None),
+    "pw_sum_rows": ([_CI, _VP, _VP, _CI, _LL, _VP], _CI),
+    "pw_sum_rows_launches": ([], _LL),
+}
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("pairwise")
-    if lib.pw_sums.argtypes is None:
-        vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-        lib.pw_sums.argtypes = [ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 9
-        lib.pw_sums_bwd.argtypes = [ci, ci, ci, pi, ci, ci, ci, ci] + [vp] * 16
-        lib.pw_max_blocks.argtypes = [ci, ci, ci, ci, pi, pi]
-        lib.k7_sums.argtypes = [ci] * 10 + [vp] * 8
-        lib.k8_sums_bwd.argtypes = [ci] * 10 + [vp] * 15
-        lib.k6_sums_bwd.argtypes = [ci] * 11 + [vp] * 15
-        lib.k5_sums.argtypes = [ci] * 11 + [vp] * 8
-        for fn in (lib.k5_max_blocks, lib.k6_max_blocks):
-            fn.argtypes = [ci] * 6 + [pi]
-        for fn in (lib.k5_shared_bytes_c, lib.k6_shared_bytes_c):
-            fn.argtypes = [ci] * 4
-            fn.restype = ctypes.c_longlong
-        for fn in (lib.k7_max_blocks, lib.k8_max_blocks):
-            fn.argtypes = [ci] * 5 + [pi]
-        for fn in (lib.k7_shared_bytes_c, lib.k8_shared_bytes_c):
-            fn.argtypes = [ci] * 3
-            fn.restype = ctypes.c_longlong
-        lib.s1_pair_rows.argtypes = [ci, ci, ci, ci] + [vp] * 6
-        lib.s1_m_layer.argtypes = [ci, ci, ci] + [vp] * 4
-        lib.pw_sum_rows.argtypes = [ci, vp, vp, ci, ctypes.c_longlong, vp]
-        lib.sum_rows_plan_c.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ci,
-                                        ctypes.POINTER(ctypes.c_longlong)]
-        lib.sum_rows_plan_c.restype = None
-        lib.pw_sum_rows_launches.argtypes = []
-        lib.pw_sum_rows_launches.restype = ctypes.c_longlong
-        for fn in (lib.pw_sums, lib.pw_sums_bwd, lib.pw_max_blocks, lib.k5_sums, lib.k5_max_blocks,
-                   lib.k7_sums, lib.k7_max_blocks, lib.k8_sums_bwd, lib.k8_max_blocks, lib.k6_sums_bwd,
-                   lib.k6_max_blocks, lib.s1_pair_rows, lib.s1_m_layer, lib.pw_sum_rows):
-            fn.restype = ci
+    if lib.pw_forward.argtypes is None:
+        for name, (argtypes, restype) in ENTRIES.items():
+            getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, restype
     return lib
-
-
-def _counting_sum_rows(lib: ctypes.CDLL, entry, *args) -> int:
-    """entry(*args), adding the sum_rows launches it made, as the library
-    counts them where it launches, to ``sum_rows.launches``."""
-    before = lib.pw_sum_rows_launches()
-    err = entry(*args)
-    sum_rows.launches += lib.pw_sum_rows_launches() - before
-    return err
 
 
 def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
@@ -301,16 +282,6 @@ def shared_bytes(widths: Sequence[int], n_streams: int) -> int:
     return (n_streams * (rows + tmp_rows) + 5 * widths[0] + 4) * _ROW * 4
 
 
-class K7Plan(NamedTuple):
-    """How K7 or K8 runs a chain: every layer, M and u zero-padded to `width`
-    (a k7_kernel / k8_kernel instantiation), `threads` a block (K7: one a
-    point; K8: four), `shared_bytes` of dynamic shared memory a block."""
-
-    width: int
-    threads: int
-    shared_bytes: int
-
-
 def k7_shared_bytes(width: int, threads: int, n_layers: int) -> int:
     """K7's shared memory a block (csrc/pairwise.cu): the padded weights,
     n_layers x (W_k, b_k) then M and u, and for each of the block's points
@@ -319,27 +290,6 @@ def k7_shared_bytes(width: int, threads: int, n_layers: int) -> int:
     weights = n_layers * (width * width + width) + width * width + width
     row = width + 4 if width % 8 == 0 else width
     return 4 * (weights + (n_layers + 1) * threads * row)
-
-
-def _plan(name: str, widths: Sequence[int], candidates: Sequence[int], shared_bytes_of) -> K7Plan:
-    n_layers = len(widths) - 2
-    if n_layers < 0 or min(widths) < 1:
-        raise ValueError(f"{name}: widths {list(widths)} are not a chain ending with M's width")
-    width = next((w for w in K7_WIDTHS if w >= max(widths)), None)
-    if width is None:
-        raise ValueError(f"{name} takes widths <= {K7_WIDTHS[-1]}, got {list(widths)}")
-    for threads in candidates:
-        smem = shared_bytes_of(width, threads, n_layers)
-        if smem <= _MAX_SHARED_BYTES:
-            return K7Plan(width, threads, smem)
-    raise ValueError(f"{name}: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
-
-
-def k7_plan(widths: Sequence[int]) -> K7Plan:
-    """K7's plan for the chain `widths` = [w0, the hidden layers' output
-    widths..., M's width]: the least instantiated width that holds every
-    one of them, and the most points a block whose shared memory fits."""
-    return _plan("K7", widths, K7_THREADS, k7_shared_bytes)
 
 
 def k8_rows(n_layers: int) -> int:
@@ -367,12 +317,6 @@ def k8_shared_bytes(width: int, threads: int, n_layers: int) -> int:
                 + k8_scratch_floats(width, threads) + threads // 32 * width)
 
 
-def k8_plan(widths: Sequence[int]) -> K7Plan:
-    """K8's plan for the chain `widths` (as ``k7_plan``): K7's width, and
-    the most lanes a block (four a point) whose shared memory fits."""
-    return _plan("K8", widths, K8_THREADS, k8_shared_bytes)
-
-
 def k6_rows(n_layers: int) -> int:
     """Row sets of a k6_kernel block in shared memory: the saved inputs of
     the layers 1 .. n_layers - 1, the set H and the two sets S."""
@@ -383,23 +327,6 @@ def k6_lanes(width: int) -> int:
     """Lanes a pair of k6_kernel at an instantiated width: four (K8's
     quads) up to 32, eight at 48 and 64 (csrc/pairwise.cu k8_lanes)."""
     return 8 if width > 32 else 4
-
-
-class K6Plan(NamedTuple):
-    """How k6_kernel runs a square-head chain: the hidden layers zero-padded
-    to `width`, the feature layer to `chunks` chunks of `width` features,
-    `threads` lanes a block (``k6_lanes(width)`` a point), `shared_bytes` a
-    block."""
-
-    width: int
-    threads: int
-    shared_bytes: int
-    chunks: int
-
-    @property
-    def points(self) -> int:
-        """Points (pairs at one ref) a block."""
-        return self.threads // k6_lanes(self.width)
 
 
 def k6_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
@@ -416,44 +343,121 @@ def k6_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int
     return 4 * (2 * weights + k6_rows(n_layers) * (threads // lanes) * pair + threads // 32 * width)
 
 
-def _k6_fit(widths: Sequence[int]) -> Optional[K6Plan]:
-    """k6_kernel's plan for the chain `widths`, or None where no block's
-    shared memory fits; raises for a width past 64 or a non-chain."""
-    n_layers = len(widths) - 2
-    if n_layers < 0 or min(widths) < 1:
-        raise ValueError(f"K6: widths {list(widths)} are not a chain ending with the feature width")
-    width = next((w for w in K6_WIDTHS if w >= max(widths[:-1])), None)
-    if width is None:
-        raise ValueError(f"K6 takes widths <= {K6_WIDTHS[-1]} before the feature layer, got {list(widths)}")
-    chunks = -(-widths[-1] // width)
-    threads = next((t for t in K6_THREADS if k6_shared_bytes(width, t, n_layers, chunks) <= _MAX_SHARED_BYTES),
-                   None)
-    return None if threads is None else K6Plan(width, threads, k6_shared_bytes(width, threads, n_layers, chunks),
-                                               chunks)
+def k5_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
+    """k5_kernel's shared memory a block (csrc/pairwise.cu): the padded
+    weights, n_layers x (W_k, b_k) then W_F [width, F4] and b_F [F4] (F4 =
+    K5_CHUNK x chunks), and K7's rows of act' and of the s_dz0 sums."""
+    weights = n_layers * (width * width + width) + (width + 1) * K5_CHUNK * chunks
+    row = width + 4 if width % 8 == 0 else width
+    return 4 * (weights + (n_layers + 1) * threads * row)
 
 
-def k6_takes(widths: Sequence[int]) -> bool:
-    """Whether the square-head chain `widths` = [w0, the hidden layers'
-    output widths..., the feature width] runs through k6_kernel rather than
-    pw_bwd_kernel: every width before the feature layer <= 32 (on lane
-    quads; ``k6_plan`` raises where the plan does not fit), or <= 64 where
-    the plan on eight lanes a pair fits.  pw_bwd_kernel keeps the wider
-    chains, and those at 33-64 that its 32-point tile holds and the octets,
-    which pad every layer to the widest, do not (e.g. [1] + [56] x 6 + [8])."""
-    if len(widths) < 2 or min(widths) < 1 or max(widths[:-1]) > K6_WIDTHS[-1]:
-        return False
-    return max(widths[:-1]) <= K7_WIDTHS[-1] or _k6_fit(widths) is not None
+class Plan(NamedTuple):
+    """How one kernel runs a chain: `kernel` (a key of ``KERNELS``), the
+    instantiated `width` that every layer before the feature layer (K7/K8:
+    every layer, M included) is zero-padded to (0 for the tile kernels,
+    which take the chain unpadded), `threads` a block, the feature layer's
+    `chunks` (k5_kernel: of K5_CHUNK features; k6_kernel: of `width`
+    features; 0 for the others), `shared_bytes` of dynamic shared memory a
+    block and `points` (pairs at one ref) a block."""
+
+    kernel: str
+    width: int
+    threads: int
+    chunks: int
+    shared_bytes: int
+    points: int
 
 
-def k6_plan(widths: Sequence[int]) -> K6Plan:
-    """k6_kernel's plan for the chain `widths` (as ``k6_takes``): the least
-    instantiated width (of K6_WIDTHS) that holds every width before the
-    feature layer, the feature layer in chunks of that width, and the most
-    lanes a block (of K6_THREADS) whose shared memory fits."""
-    plan = _k6_fit(widths)
-    if plan is None:
-        raise ValueError(f"K6: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
-    return plan
+class _Kernel(NamedTuple):
+    widths: Tuple[int, ...]  # width instantiations, least first; none for a tile kernel
+    threads: Tuple[int, ...]  # threads a block to try, most first
+    points: Callable[[int, int], int]  # points a block at (width, threads)
+    chunk: Optional[Callable[[int], int]]  # features a chunk of the feature layer at width; None: no chunks
+    shared: Callable[[List[int], int, int, int], int]  # shared memory a block at (widths, width, threads, chunks)
+
+
+# The kernels of csrc/pairwise.cu, in the order of its KernelId.  k5_kernel
+# and k7_kernel run a thread a point, k8_kernel four lanes and k6_kernel
+# ``k6_lanes``; the tile kernels pw_fwd_kernel and pw_bwd_kernel run 256
+# threads on a tile of _TILE points and split the refs by the _WAVES policy
+# (``ref_splits``), the other four by ``k7_splits``.
+KERNELS = {
+    "k5": _Kernel(K7_WIDTHS, K7_THREADS, lambda w, t: t, lambda w: K5_CHUNK,
+                  lambda ws, w, t, c: k5_shared_bytes(w, t, len(ws) - 2, c)),
+    "pw_fwd": _Kernel((), (_TILE_THREADS,), lambda w, t: _TILE, None, lambda ws, w, t, c: shared_bytes(ws, 3)),
+    "k6": _Kernel(K6_WIDTHS, K6_THREADS, lambda w, t: t // k6_lanes(w), lambda w: w,
+                  lambda ws, w, t, c: k6_shared_bytes(w, t, len(ws) - 2, c)),
+    "pw_bwd": _Kernel((), (_TILE_THREADS,), lambda w, t: _TILE, None, lambda ws, w, t, c: shared_bytes(ws, 4)),
+    "k7": _Kernel(K7_WIDTHS, K7_THREADS, lambda w, t: t, None,
+                  lambda ws, w, t, c: k7_shared_bytes(w, t, len(ws) - 2)),
+    "k8": _Kernel(K7_WIDTHS, K8_THREADS, lambda w, t: t // 4, None,
+                  lambda ws, w, t, c: k8_shared_bytes(w, t, len(ws) - 2)),
+}
+_KERNEL_IDS = {name: i for i, name in enumerate(KERNELS)}
+
+
+def _fit(kernel: str, widths: Sequence[int]) -> Optional[Plan]:
+    """``plan``, or None where no block's shared memory fits."""
+    spec, widths = KERNELS[kernel], list(widths)
+    if len(widths) < 2 or min(widths) < 1:
+        raise ValueError(f"{kernel}: widths {widths} are not a chain ending with the head's width")
+    width = 0
+    if spec.widths:
+        held = max(widths if spec.chunk is None else widths[:-1])
+        width = next((w for w in spec.widths if w >= held), None)
+        if width is None:
+            where = "" if spec.chunk is None else " before the feature layer"
+            raise ValueError(f"{kernel} takes widths <= {spec.widths[-1]}{where}, got {widths}")
+    chunks = 0 if spec.chunk is None else -(-widths[-1] // spec.chunk(width))
+    for threads in spec.threads:
+        smem = spec.shared(widths, width, threads, chunks)
+        if smem <= _MAX_SHARED_BYTES:
+            return Plan(kernel, width, threads, chunks, smem, spec.points(width, threads))
+    return None
+
+
+def plan(kernel: str, widths: Sequence[int]) -> Plan:
+    """`kernel`'s plan for the chain `widths` (k5, k6 and the tile kernels:
+    [w0, the hidden layers' output widths..., the feature width]; k7 and
+    k8: [w0, the hidden layers' output widths..., M's width]): the least
+    instantiated width that holds every width before the feature layer
+    (k7/k8: every width), the feature layer in chunks, and the most threads
+    a block, of the kernel's candidates, whose shared memory fits; raises
+    where none does."""
+    fit = _fit(kernel, widths)
+    if fit is None:
+        raise ValueError(f"{kernel}: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory "
+                         f"a block")
+    return fit
+
+
+def choose(widths: Sequence[int], mode: str = "auto") -> Tuple[str, str]:
+    """The kernels (forward, backward) that run the square-head chain
+    `widths` = [w0, the hidden layers' output widths..., the feature width]
+    under solver.train.kmv_pallas `mode` ("auto", "packed", "on" or "fwd",
+    whose forward is "on"'s); the one place that knows the width rules:
+
+    * every width before the feature layer <= 32: k7/k8 on the collapsed
+      head under "auto" and "packed", k5/k6 under "on" and "fwd";
+    * else up to 64 where k6_kernel's plan on eight lanes a pair fits:
+      pw_fwd/k6;
+    * else pw_fwd/pw_bwd.  pw_bwd_kernel's tile holds some deep chains at
+      33-64 that the octets, which pad every layer to the widest, do not
+      (e.g. [1] + [56] x 6 + [8]).
+
+    "packed" past 32 gives what "auto" gives: the loss layer refuses it."""
+    if mode not in ("auto", "packed", "on", "fwd"):
+        raise ValueError(f"no kernels for mode {mode!r}")
+    widths = list(widths)
+    if len(widths) < 2 or min(widths) < 1:
+        raise ValueError(f"widths {widths} are not a chain ending with the feature width")
+    hidden = max(widths[:-1])
+    if hidden <= K7_WIDTHS[-1]:
+        return ("k7", "k8") if mode in ("auto", "packed") else ("k5", "k6")
+    if hidden <= K6_WIDTHS[-1] and _fit("k6", widths) is not None:
+        return "pw_fwd", "k6"
+    return "pw_fwd", "pw_bwd"
 
 
 def pack_square(layers: Layers, width: int) -> torch.Tensor:
@@ -507,52 +511,6 @@ def unpad_square(flat: torch.Tensor, mids: Layers, width: int):
     return out
 
 
-class K5Plan(NamedTuple):
-    """How k5_kernel runs a square-head chain: the hidden layers zero-padded
-    to `width`, the feature layer to `chunks` chunks of K5_CHUNK features,
-    `threads` points a block (one a thread), `shared_bytes` a block."""
-
-    width: int
-    threads: int
-    shared_bytes: int
-    chunks: int
-
-
-def k5_shared_bytes(width: int, threads: int, n_layers: int, chunks: int) -> int:
-    """k5_kernel's shared memory a block (csrc/pairwise.cu): the padded
-    weights, n_layers x (W_k, b_k) then W_F [width, F4] and b_F [F4] (F4 =
-    K5_CHUNK x chunks), and K7's rows of act' and of the s_dz0 sums."""
-    weights = n_layers * (width * width + width) + (width + 1) * K5_CHUNK * chunks
-    row = width + 4 if width % 8 == 0 else width
-    return 4 * (weights + (n_layers + 1) * threads * row)
-
-
-def k5_takes(widths: Sequence[int]) -> bool:
-    """Whether the square-head chain `widths` runs through k5_kernel rather
-    than pw_fwd_kernel: every width before the feature layer <= 32 (k5_kernel
-    has no instantiation past 32; ``k6_takes`` also takes 48 and 64)."""
-    return len(widths) >= 2 and max(widths[:-1]) <= K7_WIDTHS[-1]
-
-
-def k5_plan(widths: Sequence[int]) -> K5Plan:
-    """k5_kernel's plan for the chain `widths` (as ``k5_takes``): the least
-    instantiated width that holds every width before the feature layer, the
-    feature layer in chunks of K5_CHUNK features, and the most points a
-    block (of K7_THREADS) whose shared memory fits."""
-    n_layers = len(widths) - 2
-    if n_layers < 0 or min(widths) < 1:
-        raise ValueError(f"K5: widths {list(widths)} are not a chain ending with the feature width")
-    width = next((w for w in K7_WIDTHS if w >= max(widths[:-1])), None)
-    if width is None:
-        raise ValueError(f"K5 takes widths <= {K7_WIDTHS[-1]} before the feature layer, got {list(widths)}")
-    chunks = -(-widths[-1] // K5_CHUNK)
-    for threads in K7_THREADS:
-        smem = k5_shared_bytes(width, threads, n_layers, chunks)
-        if smem <= _MAX_SHARED_BYTES:
-            return K5Plan(width, threads, smem, chunks)
-    raise ValueError(f"K5: widths {list(widths)} need more than {_MAX_SHARED_BYTES} B of shared memory")
-
-
 def pad_k5(mids: Layers, width: int):
     """The square-head chain `mids` zero-padded for k5_kernel: (flat weights,
     every hidden (W_k [width, width], b_k) then W_F [width, F4] row-major and
@@ -574,6 +532,24 @@ def k7_splits(nt: int, n: int, m: int, threads: int, resident: int) -> int:
         if best_cost is None or cost < best_cost:
             best, best_cost = splits, cost
     return best
+
+
+def ref_splits(plan: Plan, act_name: str, widths: Sequence[int], nt: int, n: int, m: int, device: int) -> int:
+    """Ref splits of a launch of `plan` on the chain `widths` on the card
+    `device`, from the blocks an SM holds (one occupancy query): for the
+    tile kernels enough blocks for about _WAVES waves of resident blocks,
+    at most one split per ref; for the others ``k7_splits`` over the plan's
+    points a block."""
+    per_sm = ctypes.c_int(0)
+    _raise(_library().pw_max_blocks(device, _KERNEL_IDS[plan.kernel], _ACTS[act_name], plan.width, plan.threads,
+                                    len(widths) - 1, (ctypes.c_int * len(widths))(*widths), plan.chunks,
+                                    ctypes.byref(per_sm)), f"{plan.kernel} occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError(f"{plan.kernel}: no block fits on an SM at widths {list(widths)}")
+    resident = per_sm.value * torch.cuda.get_device_properties(device).multi_processor_count
+    if not KERNELS[plan.kernel].widths:
+        return max(1, min(m, -(-_WAVES * resident // (nt * -(-n // plan.points)))))
+    return k7_splits(nt, n, m, plan.points, resident)
 
 
 def pad_collapsed(mids_m: Layers, M, u, width: int):
@@ -608,13 +584,28 @@ def _raise(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-class _Launch:
-    """Validated inputs of one launch: widths, layers, device, stream."""
+def _with_m_layer(mids_m: Layers, M):
+    """The collapsed head's M as one more layer with a zero bias."""
+    if M.ndim != 2 or M.shape[0] != M.shape[1]:
+        raise ValueError(f"M must be square, got {tuple(M.shape)}")
+    return [*mids_m, (M, torch.zeros(M.shape[0], dtype=M.dtype, device=M.device))]
 
-    def __init__(self, name, layers, act_name, ax, av, ar, mask, extra=(), head=None):
+
+class _Launch:
+    """Validated inputs of one launch: the layers (K7/K8: the hidden layers
+    and the collapsed head (M, u)), the chain's widths, and the points,
+    refs, mask and cotangents, contiguous."""
+
+    def __init__(self, name, layers, act_name, ax, av, ar, mask, head=None, cot=()):
         if not supported_activation(act_name):
             raise ValueError(f"{name}: activation {act_name!r} has no derivative table")
-        n_layers = len(layers) - (head is not None)  # the collapsed head's M is no layer of the net
+        chain, extra = list(layers), list(cot)
+        if head is not None:
+            M, u = head
+            if tuple(u.shape) != (M.shape[0],):
+                raise ValueError(f"{name}: u must be [{M.shape[0]}], got {tuple(u.shape)}")
+            chain, extra = _with_m_layer(layers, M), [u, *cot]
+        n_layers = len(chain) - (head is not None)  # the collapsed head's M is no layer of the net
         least = 0 if head is not None else 1
         if not least <= n_layers <= MAX_MID:
             raise ValueError(f"{name} takes at most {MAX_MID} layers after the first, got {n_layers}")
@@ -627,210 +618,114 @@ class _Launch:
         if tuple(mask.shape) != (self.m,):
             raise ValueError(f"{name}: mask must be [{self.m}], got {tuple(mask.shape)}")
         widths = [w0]
-        for W, b in layers:
+        for W, b in chain:
             if W.ndim != 2 or W.shape[0] != widths[-1] or tuple(b.shape) != (W.shape[1],):
                 raise ValueError(f"{name}: layer shapes {tuple(W.shape)}, {tuple(b.shape)} do not chain")
             widths.append(W.shape[1])
         dev = ax.device
-        for t in [ax, av, ar, mask, *extra, *(x for pair in layers for x in pair)]:
+        for t in [ax, av, ar, mask, *extra, *(x for pair in chain for x in pair)]:
             if t.device != dev or t.dtype != torch.float32:
                 raise ValueError(f"{name}: every input must be float32 on {dev}, got {t.dtype} on {t.device}")
         if not (1 <= self.n and 1 <= self.m and self.nt * self.n * (2 + w0) < 2**31
                 and -(-self.n // _TILE) * self.nt * self.m * w0 < 2**31):
             raise ValueError(f"{name}: sizes nt={self.nt}, n={self.n}, m={self.m} out of range")
-        self.name, self.layers, self.widths, self.dev = name, layers, widths, dev
-        self.act = _ACTS[act_name]
-        self.device = device_index(ax)
+        if cot and (tuple(cot[0].shape) != (self.nt, self.n) or tuple(cot[1].shape) != (self.nt, self.n)
+                    or tuple(cot[2].shape) != tuple(ax.shape)):
+            raise ValueError(f"{name}: cotangents must be [{self.nt}, {self.n}] and {tuple(ax.shape)}")
+        self.name, self.layers, self.head, self.widths, self.dev = name, layers, head, widths, dev
+        self.tensors = [t.contiguous() for t in (ax, av, ar, mask, *cot)]
+        self.act_name, self.act = act_name, _ACTS[act_name]
         self.c_widths = (ctypes.c_int * len(widths))(*widths)
-        self.stream = current_stream(self.device)
 
-    def params(self):
-        """(params, params_t): [W_k, b_k] and [W_k^T] of every layer, packed."""
+    @property
+    def device(self) -> int:
+        return device_index(self.tensors[0])
+
+    def weights(self, plan: Plan):
+        """(weights, weights_t) in the layout plan.kernel reads: the chain
+        zero-padded to the plan's width (k5: ``pad_k5``; k6: ``pad_square``;
+        k7, k8: ``pad_collapsed``), or the tile kernels' params [W_k, b_k]
+        and params_t [W_k^T] of every layer, packed."""
+        if plan.kernel == "k5":
+            return pad_k5(self.layers, plan.width)[0], None
+        if plan.kernel == "k6":
+            return pad_square(self.layers, plan.width)[0], None
+        if self.head is not None:
+            return pad_collapsed(self.layers, *self.head, plan.width)[0], None
         return (torch.cat([x for W, b in self.layers for x in (W.reshape(-1), b)]),
                 torch.cat([W.t().reshape(-1) for W, _ in self.layers]).contiguous())
 
-    def splits(self, lib, bwd: bool) -> int:
-        """Ref splits: enough blocks for about _WAVES waves of resident
-        blocks, at most one split per ref."""
-        smem = shared_bytes(self.widths, 4 if bwd else 3)
-        if smem > _MAX_SHARED_BYTES:
-            raise ValueError(f"{self.name}: widths {self.widths} need {smem} B of shared memory "
-                             f"per block, more than {_MAX_SHARED_BYTES}")
-        per_sm = ctypes.c_int(0)
-        _raise(lib.pw_max_blocks(self.device, self.act, int(bwd), len(self.widths) - 1,
-                                 self.c_widths, ctypes.byref(per_sm)), f"{self.name} occupancy query")
-        resident = self.resident(per_sm.value)
-        base = self.nt * -(-self.n // _TILE)
-        return max(1, min(self.m, -(-_WAVES * resident // base)))
-
-    def resident(self, blocks_per_sm: int) -> int:
-        """Blocks the card runs at once, from the blocks an SM holds."""
-        if blocks_per_sm < 1:
-            raise RuntimeError(f"{self.name}: no block fits on an SM at widths {self.widths}")
-        return blocks_per_sm * torch.cuda.get_device_properties(self.dev).multi_processor_count
+    def weight_grads(self, plan: Plan, grads: torch.Tensor) -> tuple:
+        """The layers' gradients out of `grads` in the layout of
+        ``weights``, the padded entries dropped: ([(Wbar, bbar)],), K8's
+        ([(Wbar, bbar)], M_bar, u_bar)."""
+        if plan.kernel == "k6":
+            return (unpad_square(grads, self.layers, plan.width),)
+        if self.head is not None:
+            return unpad_collapsed(grads, self.layers, self.head[0], plan.width)
+        out, off = [], 0
+        for W, b in self.layers:
+            out.append((grads[off: off + W.numel()].view(W.shape),
+                        grads[off + W.numel(): off + W.numel() + b.numel()]))
+            off += W.numel() + b.numel()
+        return (out,)
 
     def empty(self, *shape):
         return torch.empty(shape, dtype=torch.float32, device=self.dev)
 
 
-def _grads_of(grads: torch.Tensor, layers: Layers):
-    """The packed gradient vector as [(Wbar, bbar)] in the layers' shapes."""
-    out, off = [], 0
-    for W, b in layers:
-        out.append((grads[off: off + W.numel()].view(W.shape), grads[off + W.numel(): off + W.numel() + b.numel()]))
-        off += W.numel() + b.numel()
-    return out
+def _call(L: _Launch, entry, plan: Plan, n_split: int, *pointers) -> None:
+    """entry (pw_forward or pw_backward) of the plan, adding the sum_rows
+    launches it made, as the library counts them, to ``sum_rows.launches``."""
+    lib, device = _library(), L.device
+    before = lib.pw_sum_rows_launches()
+    err = entry(device, _KERNEL_IDS[plan.kernel], L.act, plan.width, plan.threads, len(L.widths) - 1,
+                L.c_widths, plan.chunks, L.nt, L.n, L.m, n_split, *pointers, current_stream(device))
+    sum_rows.launches += lib.pw_sum_rows_launches() - before
+    _raise(err, L.name)
 
 
-def _sums_out(L: _Launch, out: torch.Tensor) -> Dict[str, torch.Tensor]:
-    tn = L.nt * L.n
-    return {"value": out[:tn].view(L.nt, L.n), "hess": out[tn: 2 * tn].view(L.nt, L.n),
-            "s_dz0": out[2 * tn:].view(L.nt, L.n, L.widths[0])}
-
-
-def _fwd_launch(name, layers, act_name, ax, av, ar, mask) -> Dict[str, torch.Tensor]:
-    """K5 through pw_fwd_kernel (hidden widths > 32)."""
-    L = _Launch(name, layers, act_name, ax, av, ar, mask)
-    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
-    lib = _library()
-    n_split = L.splits(lib, bwd=False)
-    w0 = L.widths[0]
-    tn = L.nt * L.n
-    partials = L.empty(n_split, tn * (2 + w0))
-    out = L.empty(tn * (2 + w0))
-    params, params_t = L.params()
-    _raise(_counting_sum_rows(lib, lib.pw_sums,
-        L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), params.data_ptr(),
-        params_t.data_ptr(), partials.data_ptr(), out.data_ptr(), L.stream,
-    ), name)
-    return _sums_out(L, out)
-
-
-def _k5_launch(name, mids, act_name, ax, av, ar, mask) -> Dict[str, torch.Tensor]:
-    """K5 through k5_kernel: the chain padded to its plan's width, the
-    feature layer to whole chunks, the refs split by ``k7_splits`` over the
-    plan's points a block."""
-    L = _Launch(name, mids, act_name, ax, av, ar, mask)
-    plan = k5_plan(L.widths)
-    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
-    lib = _library()
-    n_layers = len(mids) - 1
-    per_sm = ctypes.c_int(0)
-    _raise(lib.k5_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks,
-                             ctypes.byref(per_sm)), f"{name} occupancy query")
-    n_split = k7_splits(L.nt, L.n, L.m, plan.threads, L.resident(per_sm.value))
-    weights = pad_k5(mids, plan.width)[0]
-    w0 = L.widths[0]
-    tn = L.nt * L.n
-    partials = L.empty(n_split, tn * (2 + w0))
-    out = L.empty(tn * (2 + w0))
-    _raise(_counting_sum_rows(lib, lib.k5_sums,
-        L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks, w0, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), weights.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), L.stream,
-    ), name)
-    return _sums_out(L, out)
-
-
-def _k7_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, n_split=None) -> Dict[str, torch.Tensor]:
-    """K7: the chain padded to its plan's width, the refs split by
-    ``k7_splits`` unless `n_split` is given."""
-    if tuple(u.shape) != (M.shape[0],):
-        raise ValueError(f"{name}: u must be [{M.shape[0]}], got {tuple(u.shape)}")
-    L = _Launch(name, _with_m_layer(mids_m, M), act_name, ax, av, ar, mask, (u,), head=(M, u))
-    plan = k7_plan(L.widths)
-    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
-    lib = _library()
-    n_layers = len(mids_m)
+def _launch_fwd(plan: Plan, L: _Launch, n_split: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The sums by plan.kernel (k5, pw_fwd or k7): the refs split by
+    ``ref_splits`` unless `n_split` is given, the splits' partial rows
+    summed by sum_rows in a fixed order."""
+    ax, av, ar, mask = L.tensors
     if n_split is None:
-        per_sm = ctypes.c_int(0)
-        _raise(lib.k7_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers,
-                                 ctypes.byref(per_sm)), f"{name} occupancy query")
-        n_split = k7_splits(L.nt, L.n, L.m, plan.threads, L.resident(per_sm.value))
-    weights = pad_collapsed(mids_m, M, u, plan.width)[0]
-    w0 = L.widths[0]
-    tn = L.nt * L.n
+        n_split = ref_splits(plan, L.act_name, L.widths, L.nt, L.n, L.m, L.device)
+    weights, weights_t = L.weights(plan)
+    w0, tn = L.widths[0], L.nt * L.n
     partials = L.empty(n_split, tn * (2 + w0))
     out = L.empty(tn * (2 + w0))
-    _raise(_counting_sum_rows(lib, lib.k7_sums,
-        L.device, L.act, plan.width, plan.threads, n_layers, w0, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), weights.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), L.stream,
-    ), name)
-    return _sums_out(L, out)
+    _call(L, _library().pw_forward, plan, n_split, ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(),
+          weights.data_ptr(), None if weights_t is None else weights_t.data_ptr(), partials.data_ptr(),
+          out.data_ptr())
+    return {"value": out[:tn].view(L.nt, L.n), "hess": out[tn: 2 * tn].view(L.nt, L.n),
+            "s_dz0": out[2 * tn:].view(L.nt, L.n, w0)}
 
 
-def _check_cotangents(L: _Launch, ax, g_val, g_hess, g_dz0) -> None:
-    if tuple(g_val.shape) != (L.nt, L.n) or tuple(g_hess.shape) != (L.nt, L.n) \
-            or tuple(g_dz0.shape) != tuple(ax.shape):
-        raise ValueError(f"{L.name}: cotangents must be [{L.nt}, {L.n}] and {tuple(ax.shape)}")
-
-
-def _k6_launch(name, mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K6 through k6_kernel: the chain padded to its plan's width, the
-    feature layer in the plan's chunks, the refs split by ``k7_splits`` over
-    the plan's points a block; the gradients of the padded entries are
-    dropped."""
-    L = _Launch(name, mids, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
-    _check_cotangents(L, ax, g_val, g_hess, g_dz0)
-    plan = k6_plan(L.widths)
-    points = plan.points
-    w0, n_blk = L.widths[0], -(-L.n // points)
+def _launch_bwd(plan: Plan, L: _Launch, n_split: Optional[int] = None) -> tuple:
+    """The VJP by plan.kernel (k6, pw_bwd or k8): the refs split by
+    ``ref_splits`` unless `n_split` is given, the per-block partial rows
+    summed by sum_rows in a fixed order; (*``_Launch.weight_grads``,
+    ax_bar, av_bar, ar_bar)."""
+    w0, n_blk = L.widths[0], -(-L.n // plan.points)
     if n_blk * L.nt * L.m * w0 >= 2**31:
-        raise ValueError(f"{name}: sizes nt={L.nt}, n={L.n}, m={L.m} out of range")
-    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
-    g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
-    lib = _library()
-    n_layers = len(mids) - 1
-    per_sm = ctypes.c_int(0)
-    _raise(lib.k6_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks,
-                             ctypes.byref(per_sm)), f"{name} occupancy query")
-    n_split = k7_splits(L.nt, L.n, L.m, points, L.resident(per_sm.value))
-    weights = pad_square(mids, plan.width)[0]
+        raise ValueError(f"{L.name}: sizes nt={L.nt}, n={L.n}, m={L.m} out of range")
+    ax, av, ar, mask, g_val, g_hess, g_dz0 = L.tensors
+    if n_split is None:
+        n_split = ref_splits(plan, L.act_name, L.widths, L.nt, L.n, L.m, L.device)
+    weights, weights_t = L.weights(plan)
     w_partials = L.empty(n_split * L.nt * n_blk, weights.numel())
     grads = L.empty(weights.numel())
     x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
     axv_bar = L.empty(2, L.nt, L.n, w0)
     ar_partials = L.empty(n_blk, L.nt * L.m * w0)
     ar_bar = L.empty(L.nt, L.m, w0)
-    _raise(_counting_sum_rows(lib, lib.k6_sums_bwd,
-        L.device, L.act, plan.width, plan.threads, n_layers, plan.chunks, w0, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
-        g_hess.data_ptr(), g_dz0.data_ptr(), weights.data_ptr(), w_partials.data_ptr(),
-        grads.data_ptr(), x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(),
-        ar_bar.data_ptr(), L.stream,
-    ), name)
-    return unpad_square(grads, mids, plan.width), axv_bar[0], axv_bar[1], ar_bar
-
-
-def _bwd_launch(name, layers, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K6 through pw_bwd_kernel (the chains ``k6_takes`` refuses)."""
-    L = _Launch(name, layers, act_name, ax, av, ar, mask, (g_val, g_hess, g_dz0))
-    _check_cotangents(L, ax, g_val, g_hess, g_dz0)
-    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
-    g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
-    lib = _library()
-    n_split = L.splits(lib, bwd=True)
-    w0 = L.widths[0]
-    n_blk = -(-L.n // _TILE)
-    params, params_t = L.params()
-    n_params = params.numel()
-    w_partials = L.empty(n_split * L.nt * n_blk, n_params)
-    grads = L.empty(n_params)
-    x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
-    axv_bar = L.empty(2, L.nt, L.n, w0)
-    ar_partials = L.empty(n_blk, L.nt * L.m * w0)
-    ar_bar = L.empty(L.nt, L.m, w0)
-    _raise(_counting_sum_rows(lib, lib.pw_sums_bwd,
-        L.device, L.act, len(L.widths) - 1, L.c_widths, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
-        g_hess.data_ptr(), g_dz0.data_ptr(), params.data_ptr(), params_t.data_ptr(),
-        w_partials.data_ptr(), grads.data_ptr(),
-        x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr(),
-        L.stream,
-    ), name)
-    return _grads_of(grads, layers), axv_bar[0], axv_bar[1], ar_bar
+    _call(L, _library().pw_backward, plan, n_split, ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(),
+          g_val.data_ptr(), g_hess.data_ptr(), g_dz0.data_ptr(), weights.data_ptr(),
+          None if weights_t is None else weights_t.data_ptr(), w_partials.data_ptr(), grads.data_ptr(),
+          x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(), ar_bar.data_ptr())
+    return (*L.weight_grads(plan, grads), axv_bar[0], axv_bar[1], ar_bar)
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -844,104 +739,52 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
 
 
 def mlp_pairwise_sums(mids: Layers, act_name: str, ax, av, ar, mask):
-    """K5: {value, hess, s_dz0}.  CUDA tensors: by shape (``k5_takes``),
-    k5_kernel where every width before the feature layer is <= 32 (counted
-    in ``.launches``), else pw_fwd_kernel (counted in ``.launches_wide``);
-    per-split partials summed in a fixed order, so two calls give
-    bitwise-equal results.  CPU tensors: ``mlp_pairwise_sums_plain``."""
+    """K5: {value, hess, s_dz0}.  CUDA tensors: the forward kernel that
+    ``choose`` gives under "on" (k5_kernel or pw_fwd_kernel); per-split
+    partials summed in a fixed order, so two calls give bitwise-equal
+    results.  CPU tensors: ``mlp_pairwise_sums_plain``."""
     if not _on_cuda("K5", ax):
         return mlp_pairwise_sums_plain(mids, act_name, ax, av, ar, mask)
-    if k5_takes([ax.shape[-1]] + [W.shape[1] for W, _ in mids]):
-        out = _k5_launch("K5", mids, act_name, ax, av, ar, mask)
-        mlp_pairwise_sums.launches += 1
-    else:
-        out = _fwd_launch("K5", mids, act_name, ax, av, ar, mask)
-        mlp_pairwise_sums.launches_wide += 1
+    L = _Launch("K5", mids, act_name, ax, av, ar, mask)
+    out = _launch_fwd(plan(choose(L.widths, "on")[0], L.widths), L)
+    mlp_pairwise_sums.launches += 1
     return out
 
 
 def mlp_pairwise_sums_bwd(mids: Layers, act_name: str, ax, av, ar, mask, g_val, g_hess, g_dz0):
-    """K6: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar).  CUDA tensors: by shape
-    (``k6_takes``), k6_kernel where every width before the feature layer is
-    <= 64 and its plan fits (counted in ``.launches``), else pw_bwd_kernel
-    (counted in ``.launches_wide``); per-block partials summed
-    in a fixed order, so two calls give bitwise-equal results.  CPU tensors:
-    ``mlp_pairwise_sums_bwd_plain``."""
+    """K6: ([(Wbar, bbar)], ax_bar, av_bar, ar_bar).  CUDA tensors: the
+    backward kernel that ``choose`` gives under "on" (k6_kernel or
+    pw_bwd_kernel); per-block partials summed in a fixed order, so two calls
+    give bitwise-equal results.  CPU tensors: ``mlp_pairwise_sums_bwd_plain``."""
     if not _on_cuda("K6", ax):
         return mlp_pairwise_sums_bwd_plain(mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
-    if k6_takes([ax.shape[-1]] + [W.shape[1] for W, _ in mids]):
-        out = _k6_launch("K6", mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
-        mlp_pairwise_sums_bwd.launches += 1
-    else:
-        out = _bwd_launch("K6", mids, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
-        mlp_pairwise_sums_bwd.launches_wide += 1
+    L = _Launch("K6", mids, act_name, ax, av, ar, mask, cot=(g_val, g_hess, g_dz0))
+    out = _launch_bwd(plan(choose(L.widths, "on")[1], L.widths), L)
+    mlp_pairwise_sums_bwd.launches += 1
     return out
-
-
-def _with_m_layer(mids_m: Layers, M):
-    """The collapsed head's M as one more layer with a zero bias."""
-    if M.ndim != 2 or M.shape[0] != M.shape[1]:
-        raise ValueError(f"M must be square, got {tuple(M.shape)}")
-    return [*mids_m, (M, torch.zeros(M.shape[0], dtype=M.dtype, device=M.device))]
 
 
 def mlp_pairwise_sums_packed(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask):
-    """K7: {value (without c), hess, s_dz0}.  CUDA tensors: the kernel; CPU
+    """K7: {value (without c), hess, s_dz0}.  CUDA tensors: k7_kernel; CPU
     tensors: ``mlp_pairwise_sums_packed_plain``."""
     if not _on_cuda("K7", ax):
         return mlp_pairwise_sums_packed_plain(mids_m, M, u, act_name, ax, av, ar, mask)
-    out = _k7_launch("K7", mids_m, M, u, act_name, ax, av, ar, mask)
+    L = _Launch("K7", mids_m, act_name, ax, av, ar, mask, head=(M, u))
+    out = _launch_fwd(plan("k7", L.widths), L)
     mlp_pairwise_sums_packed.launches += 1
     return out
-
-
-def _k8_launch(name, mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, n_split=None):
-    """K8: the chain padded to its plan's width, the refs split by
-    ``k7_splits`` over the plan's points a block unless `n_split` is given;
-    the gradients of the padded entries are dropped."""
-    if tuple(u.shape) != (M.shape[0],):
-        raise ValueError(f"{name}: u must be [{M.shape[0]}], got {tuple(u.shape)}")
-    L = _Launch(name, _with_m_layer(mids_m, M), act_name, ax, av, ar, mask, (u, g_val, g_hess, g_dz0),
-                head=(M, u))
-    _check_cotangents(L, ax, g_val, g_hess, g_dz0)
-    plan = k8_plan(L.widths)
-    ax, av, ar, mask = ax.contiguous(), av.contiguous(), ar.contiguous(), mask.contiguous()
-    g_val, g_hess, g_dz0 = g_val.contiguous(), g_hess.contiguous(), g_dz0.contiguous()
-    lib = _library()
-    n_layers, points = len(mids_m), plan.threads // 4
-    if n_split is None:
-        per_sm = ctypes.c_int(0)
-        _raise(lib.k8_max_blocks(L.device, L.act, plan.width, plan.threads, n_layers,
-                                 ctypes.byref(per_sm)), f"{name} occupancy query")
-        n_split = k7_splits(L.nt, L.n, L.m, points, L.resident(per_sm.value))
-    weights = pad_collapsed(mids_m, M, u, plan.width)[0]
-    w0 = L.widths[0]
-    n_blk = -(-L.n // points)
-    w_partials = L.empty(n_split * L.nt * n_blk, weights.numel())
-    grads = L.empty(weights.numel())
-    x_partials = L.empty(n_split, 2 * L.nt * L.n * w0)
-    axv_bar = L.empty(2, L.nt, L.n, w0)
-    ar_partials = L.empty(n_blk, L.nt * L.m * w0)
-    ar_bar = L.empty(L.nt, L.m, w0)
-    _raise(_counting_sum_rows(lib, lib.k8_sums_bwd,
-        L.device, L.act, plan.width, plan.threads, n_layers, w0, L.nt, L.n, L.m, n_split,
-        ax.data_ptr(), av.data_ptr(), ar.data_ptr(), mask.data_ptr(), g_val.data_ptr(),
-        g_hess.data_ptr(), g_dz0.data_ptr(), weights.data_ptr(), w_partials.data_ptr(),
-        grads.data_ptr(), x_partials.data_ptr(), axv_bar.data_ptr(), ar_partials.data_ptr(),
-        ar_bar.data_ptr(), L.stream,
-    ), name)
-    return (*unpad_collapsed(grads, mids_m, M, plan.width), axv_bar[0], axv_bar[1], ar_bar)
 
 
 def mlp_pairwise_sums_packed_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask,
                                  g_val, g_hess, g_dz0):
     """K8: ([(Wbar, bbar)], M_bar, u_bar, ax_bar, av_bar, ar_bar).  CUDA
-    tensors: the kernel (bitwise repeatable, as K6); CPU tensors:
+    tensors: k8_kernel (bitwise repeatable, as K6); CPU tensors:
     ``mlp_pairwise_sums_packed_bwd_plain``."""
     if not _on_cuda("K8", ax):
         return mlp_pairwise_sums_packed_bwd_plain(mids_m, M, u, act_name, ax, av, ar, mask,
                                                   g_val, g_hess, g_dz0)
-    out = _k8_launch("K8", mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0)
+    L = _Launch("K8", mids_m, act_name, ax, av, ar, mask, head=(M, u), cot=(g_val, g_hess, g_dz0))
+    out = _launch_bwd(plan("k8", L.widths), L)
     mlp_pairwise_sums_packed_bwd.launches += 1
     return out
 
@@ -1026,10 +869,9 @@ def sum_rows(part):
     if part.ndim != 2 or part.shape[0] < 1 or part.shape[1] < 1:
         raise ValueError(f"sum_rows: need part [rows, len], got {tuple(part.shape)}")
     out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
-    lib = _library()
-    _raise(_counting_sum_rows(lib, lib.pw_sum_rows, device_index(part), part.data_ptr(), out.data_ptr(),
-                              part.shape[0], part.shape[1],
-                              current_stream(device_index(part))), "sum_rows")
+    _raise(_library().pw_sum_rows(device_index(part), part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1],
+                                  current_stream(device_index(part))), "sum_rows")
+    sum_rows.launches += 1
     return out
 
 
@@ -1046,7 +888,8 @@ def s1_packed_sums(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask):
     tensors: ``mlp_pairwise_sums_packed_plain``."""
     if not _on_cuda("S1", ax):
         return mlp_pairwise_sums_packed_plain(mids_m, M, u, act_name, ax, av, ar, mask)
-    out = _k7_launch("S1 K7", mids_m, M, u, act_name, ax, av, ar, mask, n_split=1)
+    L = _Launch("S1 K7", mids_m, act_name, ax, av, ar, mask, head=(M, u))
+    out = _launch_fwd(plan("k7", L.widths), L, n_split=1)
     s1_packed_sums.launches += 1
     return out
 
@@ -1057,7 +900,8 @@ def s1_packed_sums_bwd(mids_m: Layers, M, u, act_name: str, ax, av, ar, mask, g_
     if not _on_cuda("S1", ax):
         return mlp_pairwise_sums_packed_bwd_plain(mids_m, M, u, act_name, ax, av, ar, mask,
                                                   g_val, g_hess, g_dz0)
-    out = _k8_launch("S1 K8", mids_m, M, u, act_name, ax, av, ar, mask, g_val, g_hess, g_dz0, n_split=1)
+    L = _Launch("S1 K8", mids_m, act_name, ax, av, ar, mask, head=(M, u), cot=(g_val, g_hess, g_dz0))
+    out = _launch_bwd(plan("k8", L.widths), L, n_split=1)
     s1_packed_sums_bwd.launches += 1
     return out
 
@@ -1066,8 +910,6 @@ S1_WRAPPERS = (s1_pair_rows, s1_m_layer, sum_rows, s1_packed_sums, s1_packed_sum
 for _fn in S1_WRAPPERS:
     _fn.launches = 0
 mlp_pairwise_sums.launches = 0
-mlp_pairwise_sums.launches_wide = 0
 mlp_pairwise_sums_bwd.launches = 0
-mlp_pairwise_sums_bwd.launches_wide = 0
 mlp_pairwise_sums_packed.launches = 0
 mlp_pairwise_sums_packed_bwd.launches = 0

@@ -40,7 +40,6 @@ checkout unpacked at ``.scratch/parent``:
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -92,17 +91,13 @@ def kmv_partial_shapes(dev) -> dict:
     K7 and K8 at the KMV MLP's full width, from the wrappers' own plans."""
     from pde_inverse_torch.ops.cuda import pairwise as pw
 
-    lib, widths = pw._library(), [KMV_W] * (KMV_LAYERS + 2)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widths = [KMV_W] * (KMV_LAYERS + 2)
     dev_index = dev.index if dev.index is not None else torch.cuda.current_device()
     splits = {}
-    for kid, plan, query, points in (("K7", pw.k7_plan(widths), lib.k7_max_blocks, 1),
-                                     ("K8", pw.k8_plan(widths), lib.k8_max_blocks, 4)):
-        per_sm = ctypes.c_int(0)
-        if query(dev_index, 0, plan.width, plan.threads, KMV_LAYERS, ctypes.byref(per_sm)) != 0:
-            raise RuntimeError(f"{kid} occupancy query failed")
-        splits[kid] = pw.k7_splits(KMV_NT, KMV_N, KMV_N, plan.threads // points, per_sm.value * sms)
-        splits[kid + " points"] = plan.threads // points
+    for kid in ("K7", "K8"):
+        plan = pw.plan(kid.lower(), widths)
+        splits[kid] = pw.ref_splits(plan, "tanh", widths, KMV_NT, KMV_N, KMV_N, dev_index)
+        splits[kid + " points"] = plan.points
     n_blk = -(-KMV_N // splits["K8 points"])
     n_w = KMV_LAYERS * (KMV_W * KMV_W + KMV_W) + KMV_W * KMV_W + KMV_W
     return {"K8 weight gradients": (splits["K8"] * KMV_NT * n_blk, n_w),

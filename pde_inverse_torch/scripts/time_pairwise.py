@@ -3,8 +3,7 @@ width with CUDA events, and print one JSON line: the collapsed-head K7 and
 K8 by default, the square-head K5 and K6 on request, and K5 and K6 at a
 chain with hidden width 64 (``K5-wide``, ``K6-wide``: what
 ``kmv_pallas=auto`` runs for wide nets, through pw_fwd_kernel and through
-k6_kernel on eight lanes a pair; a checkout older than that runs
-pw_bwd_kernel there, and the launch counts say which ran).
+k6_kernel on eight lanes a pair, as ``choose`` says in the output).
 
 Shape: 7 stamps x 2,000 points x 2,000 refs (28 million pairs), the
 PotentialMLP 2 -> 20 x 8 -> 128 with tanh, as the provider calls them
@@ -91,12 +90,14 @@ def main(argv=None) -> int:
         times[kid] = start.elapsed_time(end) / args.reps
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    ran = None  # a checkout without ``choose`` does not say which kernel ran
+    if hasattr(pw, "choose"):
+        (k5, k6), (k5_wide, k6_wide) = pw.choose(WIDTHS, "on"), pw.choose(WIDE, "on")
+        ran = {"K5": k5, "K6": k6, "K7": "k7", "K8": "k8", "K5-wide": k5_wide, "K6-wide": k6_wide}
+        ran = {kid: ran[kid] for kid in args.kernels}
     print(json.dumps({"package": pde_inverse_torch.__file__, "card": smi[0] if smi else None,
-                      "shape": f"{NT}x{N}x{N}", "reps": args.reps, "ms": times,
-                      "K5 launches": {"k5_kernel": pw.mlp_pairwise_sums.launches,
-                                      "pw_fwd_kernel": getattr(pw.mlp_pairwise_sums, "launches_wide", None)},
-                      "K6 launches": {"k6_kernel": pw.mlp_pairwise_sums_bwd.launches,
-                                      "pw_bwd_kernel": getattr(pw.mlp_pairwise_sums_bwd, "launches_wide", None)}}))
+                      "shape": f"{NT}x{N}x{N}", "reps": args.reps, "ms": times, "kernels": ran,
+                      "launches": {"K5": pw.mlp_pairwise_sums.launches, "K6": pw.mlp_pairwise_sums_bwd.launches}}))
     return 0
 
 

@@ -125,7 +125,7 @@ def test_k6_plain_matches_jax_vjp_at_widths_past_32(act, hidden, feat):
     mids, ax, av, ar = _kernel_inputs(net, params, x, v, refs)
     mask = jnp.asarray(_mask(5, (1,)))
     w0 = ax.shape[-1]
-    assert w0 == hidden[0] and pk.k6_takes([w0] + [W.shape[1] for W, _ in mids])
+    assert w0 == hidden[0] and pk.choose([w0] + [W.shape[1] for W, _ in mids], "on")[1] == "k6"
     dummy0 = (jnp.zeros((2, w0)), jnp.zeros((w0,)))
     act_fn = _ACTIVATIONS[act]
 
@@ -303,4 +303,5 @@ def test_routes_follow_the_jax_dispatch():
             bw.route(module, mids(module), mode, "cpu")
     with pytest.raises(ValueError, match="kmv_pallas must be one of"):
         bw.route(narrow, mids(narrow), "xla", "cpu")
-    assert jbw.packed_ok.__doc__ and bw.packed_ok(narrow, mids(narrow)) and not bw.packed_ok(wide, mids(wide))
+    widths = lambda mod: [W.shape[0] for W, _ in mids(mod)] + [mids(mod)[-1][0].shape[1]]
+    assert jbw.packed_ok.__doc__ and pk.choose(widths(narrow))[0] == "k7" and pk.choose(widths(wide))[0] == "pw_fwd"

@@ -100,6 +100,24 @@ def _gate(kernel, plain, ref):
         assert err_k <= F64_FACTOR * err_p + F64_FLOOR, (tuple(k.shape), err_k, err_p)
 
 
+def _c_shared_bytes(lib, kernel, width, threads, n_layers, chunks=0):
+    """The library's shared memory a block of `kernel`'s plan on a chain of
+    n_layers hidden layers at `width`."""
+    widths = [width] * (n_layers + 2)
+    return lib.pw_shared_bytes(pk._KERNEL_IDS[kernel], width, threads, len(widths) - 1,
+                               (ctypes.c_int * len(widths))(*widths), chunks)
+
+
+def _c_max_blocks(lib, plan, widths, act=0):
+    """(error, resident blocks an SM) of the library's occupancy query for
+    `plan` on the chain `widths`."""
+    per_sm = ctypes.c_int(0)
+    err = lib.pw_max_blocks(torch.cuda.current_device(), pk._KERNEL_IDS[plan.kernel], act, plan.width,
+                            plan.threads, len(widths) - 1, (ctypes.c_int * len(widths))(*widths), plan.chunks,
+                            ctypes.byref(per_sm))
+    return err, per_sm.value
+
+
 def _calls(packed, mids, act, ax, av, ar, mask, cot):
     """(forward, backward) of K7/K8 (packed) or K5/K6, kernel and plain."""
     if packed:
@@ -173,13 +191,10 @@ def test_k7_plan_matches_the_kernel(cuda):
     lib = pk._library()
     for width in pk.K7_WIDTHS:
         for threads, n_layers in ((128, 7), (64, 16), (32, 0)):
-            assert lib.k7_shared_bytes_c(width, threads, n_layers) == \
+            assert _c_shared_bytes(lib, "k7", width, threads, n_layers) == \
                 pk.k7_shared_bytes(width, threads, n_layers)
-    plan = pk.k7_plan([20] * 9)
-    per_sm = ctypes.c_int(0)
-    assert lib.k7_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
-                             ctypes.byref(per_sm)) == 0
-    assert per_sm.value >= 2
+    err, per_sm = _c_max_blocks(lib, pk.plan("k7", [20] * 9), [20] * 9)
+    assert err == 0 and per_sm >= 2
 
 
 # K8's width instantiations and padding, as K7_CASES: n = 300 and 129 are not
@@ -209,13 +224,10 @@ def test_k8_plan_matches_the_kernel(cuda):
     lib = pk._library()
     for width in pk.K7_WIDTHS:
         for threads, n_layers in ((256, 7), (128, 7), (64, 16), (32, 16), (96, 1), (192, 0)):
-            assert lib.k8_shared_bytes_c(width, threads, n_layers) == \
+            assert _c_shared_bytes(lib, "k8", width, threads, n_layers) == \
                 pk.k8_shared_bytes(width, threads, n_layers)
-    plan = pk.k8_plan([20] * 9)
-    per_sm = ctypes.c_int(0)
-    assert lib.k8_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, 7,
-                             ctypes.byref(per_sm)) == 0
-    assert per_sm.value >= 1
+    err, per_sm = _c_max_blocks(lib, pk.plan("k8", [20] * 9), [20] * 9)
+    assert err == 0 and per_sm >= 1
 
 
 def test_k8_main_path_is_bitwise_repeatable(cuda):
@@ -223,7 +235,7 @@ def test_k8_main_path_is_bitwise_repeatable(cuda):
     8: 256 lanes a block, 4 ref splits, the warps' sums added over the
     warps in a fixed order), called twice: every output bitwise equal."""
     mids, ax, av, ar, mask, cot = _inputs(cuda, FULL, 7, 2_000, 2_000, zero_refs=(5, 1_999))
-    assert pk.k8_plan([20] * 9).threads == 256
+    assert pk.plan("k8", [20] * 9).threads == 256
     _, bwd = _calls(True, mids, "tanh", ax, av, ar, mask, cot)
     launches = pk.mlp_pairwise_sums_packed_bwd.launches
     a, b = _flat(bwd(pk.mlp_pairwise_sums_packed_bwd)), _flat(bwd(pk.mlp_pairwise_sums_packed_bwd))
@@ -243,10 +255,10 @@ def test_k6_widths_and_feature_chunks_match_the_f64_plain_version(cuda, act, wid
     mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,))
     mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,),
                                                       dtype=torch.float64)
-    before = (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide)
+    assert pk.choose(list(widths), "on")[1] == "k6"
+    before = pk.mlp_pairwise_sums_bwd.launches
     kernel = pk.mlp_pairwise_sums_bwd(mids, act, ax, av, ar, mask, *cot)
-    assert (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide) == \
-        (before[0] + 1, before[1])
+    assert pk.mlp_pairwise_sums_bwd.launches == before + 1
     assert all(g.shape == t.shape for pair, layer in zip(kernel[0], mids) for g, t in zip(pair, layer))
     _gate(kernel, pk.mlp_pairwise_sums_bwd_plain(mids, act, ax, av, ar, mask, *cot),
           pk.mlp_pairwise_sums_bwd_plain(mids64, act, ax64, av64, ar64, mask64, *cot64))
@@ -276,15 +288,13 @@ def test_k6_plan_matches_the_kernel(cuda):
     lib = pk._library()
     for width in pk.K7_WIDTHS:
         for threads, n_layers, chunks in ((224, 7, 7), (256, 0, 1), (96, 15, 16), (32, 1, 4)):
-            assert lib.k6_shared_bytes_c(width, threads, n_layers, chunks) == \
+            assert _c_shared_bytes(lib, "k6", width, threads, n_layers, chunks) == \
                 pk.k6_shared_bytes(width, threads, n_layers, chunks)
     for widths in ([20] * 8 + [128], [8] * 4 + [100], [32] * 8 + [128], [24, 128]):
-        plan = pk.k6_plan(widths)
-        per_sm = ctypes.c_int(0)
+        plan = pk.plan("k6", widths)
         for act in range(3):
-            assert lib.k6_max_blocks(torch.cuda.current_device(), act, plan.width, plan.threads,
-                                     len(widths) - 2, plan.chunks, ctypes.byref(per_sm)) == 0
-            assert per_sm.value >= 1, (widths, act)
+            err, per_sm = _c_max_blocks(lib, plan, widths, act)
+            assert err == 0 and per_sm >= 1, (widths, act)
 
 
 # a chain with a hidden width above 32: K5 through pw_fwd_kernel, K5's first
@@ -301,14 +311,16 @@ DEEP = (1,) + (56,) * 6 + (8,)
 
 @pytest.mark.parametrize("widths", [WIDER, DEEP])
 def test_wide_chain_runs_pw_bwd_kernel(cuda, widths):
-    assert not pk.k6_takes(list(widths))
+    assert pk.choose(list(widths), "on")[1] == "pw_bwd"
+    plan, c_widths = pk.plan("pw_bwd", list(widths)), (ctypes.c_int * len(widths))(*widths)
+    assert pk._library().pw_shared_bytes(pk._KERNEL_IDS["pw_bwd"], 0, plan.threads, len(widths) - 1, c_widths,
+                                         0) == plan.shared_bytes == pk.shared_bytes(list(widths), 4)
     mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,))
     mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3,),
                                                       dtype=torch.float64)
-    before = (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide)
+    before = pk.mlp_pairwise_sums_bwd.launches
     kernel = pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot)
-    assert (pk.mlp_pairwise_sums_bwd.launches, pk.mlp_pairwise_sums_bwd.launches_wide) == \
-        (before[0], before[1] + 1)
+    assert pk.mlp_pairwise_sums_bwd.launches == before + 1
     _gate(kernel, pk.mlp_pairwise_sums_bwd_plain(mids, "tanh", ax, av, ar, mask, *cot),
           pk.mlp_pairwise_sums_bwd_plain(mids64, "tanh", ax64, av64, ar64, mask64, *cot64))
     again = pk.mlp_pairwise_sums_bwd(mids, "tanh", ax, av, ar, mask, *cot)
@@ -316,20 +328,22 @@ def test_wide_chain_runs_pw_bwd_kernel(cuda, widths):
 
 
 def test_k6_launch_counts_are_one_a_kernel(cuda):
-    """Each K6 kernel has its own count: k6_kernel in ``.launches`` (also
-    at widths 33-64, on eight lanes a pair), pw_bwd_kernel in
-    ``.launches_wide`` (widths past 64); a CPU call counts in neither."""
+    """K6 runs the kernel ``choose`` gives, k6_kernel (also at widths 33-64,
+    on eight lanes a pair) or pw_bwd_kernel (widths past 64), and counts
+    one launch in ``.launches`` with one call of the library's sum_rows a
+    partial; a CPU call counts in neither."""
     fn = pk.mlp_pairwise_sums_bwd
-    for widths, k6, wide in (((8, 8, 4), 1, 0), ((40, 40, 8), 1, 0), ((32, 33, 8), 1, 0), ((72, 72, 8), 0, 1),
-                             ((20, 65, 8), 0, 1)):
+    for widths, kernel in (((8, 8, 4), "k6"), ((40, 40, 8), "k6"), ((32, 33, 8), "k6"), ((72, 72, 8), "pw_bwd"),
+                           ((20, 65, 8), "pw_bwd")):
+        assert pk.choose(list(widths), "on")[1] == kernel, widths
         mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 1, 10, 9)
-        before = (fn.launches, fn.launches_wide)
+        before = (fn.launches, pk.sum_rows.launches)
         fn(mids, "tanh", ax, av, ar, mask, *cot)
-        assert (fn.launches - before[0], fn.launches_wide - before[1]) == (k6, wide), widths
+        assert (fn.launches - before[0], pk.sum_rows.launches - before[1]) == (1, 3), widths
     cpu = lambda ts: [t.cpu() for t in ts]
-    before = (fn.launches, fn.launches_wide)
+    before = (fn.launches, pk.sum_rows.launches)
     fn([(W.cpu(), b.cpu()) for W, b in mids], "tanh", *cpu((ax, av, ar, mask)), *cpu(cot))
-    assert (fn.launches, fn.launches_wide) == before
+    assert (fn.launches, pk.sum_rows.launches) == before
 
 
 # k6_kernel on eight lanes a pair (W = 48, 64) at depths 0-4 (hidden layers
@@ -346,17 +360,17 @@ K6_OCTET_CHAINS = [(w,) * (d + 1) + (f,) for w in (48, 64) for d in range(5) for
 def test_k6_octets_match_the_f64_plain_version(cuda, act, widths):
     mids, ax, av, ar, mask, cot = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3, 32))
     fn = pk.mlp_pairwise_sums_bwd
-    if not pk.k6_takes(list(widths)):
+    if pk.choose(list(widths), "on")[1] != "k6":
         assert widths == (64,) * 5 + (130,)
         with pytest.raises(ValueError, match="shared memory"):
             fn(mids, act, ax, av, ar, mask, *cot)
         return
-    assert pk.k6_plan(list(widths)).width == widths[0]
+    assert pk.plan("k6", list(widths)).width == widths[0]
     mids64, ax64, av64, ar64, mask64, cot64 = _inputs(cuda, widths, 2, 70, 33, zero_refs=(3, 32),
                                                       dtype=torch.float64)
-    before = (fn.launches, fn.launches_wide)
+    before = fn.launches
     kernel = fn(mids, act, ax, av, ar, mask, *cot)
-    assert (fn.launches, fn.launches_wide) == (before[0] + 1, before[1])
+    assert fn.launches == before + 1
     assert all(g.shape == t.shape for pair, layer in zip(kernel[0], mids) for g, t in zip(pair, layer))
     _gate(kernel, pk.mlp_pairwise_sums_bwd_plain(mids, act, ax, av, ar, mask, *cot),
           pk.mlp_pairwise_sums_bwd_plain(mids64, act, ax64, av64, ar64, mask64, *cot64))
@@ -409,17 +423,15 @@ def test_k6_octet_plan_matches_the_kernel(cuda):
     for width in (48, 64):
         for threads, n_layers, chunks in ((256, 1, 2), (160, 2, 2), (64, 3, 2), (32, 4, 2), (256, 0, 1),
                                           (96, 2, 3)):
-            assert lib.k6_shared_bytes_c(width, threads, n_layers, chunks) == \
+            assert _c_shared_bytes(lib, "k6", width, threads, n_layers, chunks) == \
                 pk.k6_shared_bytes(width, threads, n_layers, chunks)
     for widths, threads in (([64, 64, 128], 256), ([64] * 3 + [128], 160), ([64] * 4 + [128], 64),
                             ([64] * 5 + [128], 32), ([48, 48, 100], 256)):
-        plan = pk.k6_plan(widths)
+        plan = pk.plan("k6", widths)
         assert plan.threads == threads and plan.points == threads // 8
-        per_sm = ctypes.c_int(0)
         for act in range(3):
-            assert lib.k6_max_blocks(torch.cuda.current_device(), act, plan.width, plan.threads,
-                                     len(widths) - 2, plan.chunks, ctypes.byref(per_sm)) == 0
-            assert per_sm.value >= 1, (widths, act)
+            err, per_sm = _c_max_blocks(lib, plan, widths, act)
+            assert err == 0 and per_sm >= 1, (widths, act)
 
 
 # k5_kernel at each width instantiation and depth (0, 7 and 15 hidden layers
@@ -430,15 +442,16 @@ K5_CHAINS = [(w,) * (d + 1) + (f,) for w in pk.K7_WIDTHS for d in (0, 7, 15) for
 
 
 def _k5_gate(cuda, widths, act, nt, n, m, zero_refs):
-    """K5 through k5_kernel (one launch in ``.launches``, none in
-    ``.launches_wide``) against the f64 plain version."""
+    """K5 through k5_kernel (as ``choose`` gives, one launch in
+    ``.launches``) against the f64 plain version."""
+    assert pk.choose(list(widths), "on")[0] == "k5"
     mids, ax, av, ar, mask, _ = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs)
     mids64, ax64, av64, ar64, mask64, _ = _inputs(cuda, widths, nt, n, m, zero_refs=zero_refs,
                                                   dtype=torch.float64)
     fn = pk.mlp_pairwise_sums
-    before = (fn.launches, fn.launches_wide)
+    before = fn.launches
     kernel = fn(mids, act, ax, av, ar, mask)
-    assert (fn.launches, fn.launches_wide) == (before[0] + 1, before[1])
+    assert fn.launches == before + 1
     _gate(kernel, pk.mlp_pairwise_sums_plain(mids, act, ax, av, ar, mask),
           pk.mlp_pairwise_sums_plain(mids64, act, ax64, av64, ar64, mask64))
 
@@ -475,31 +488,30 @@ def test_k5_plan_matches_the_kernel(cuda):
     lib = pk._library()
     for width in pk.K7_WIDTHS:
         for threads, n_layers, chunks in ((128, 7, 32), (64, 15, 33), (32, 0, 1), (128, 1, 25)):
-            assert lib.k5_shared_bytes_c(width, threads, n_layers, chunks) == \
+            assert _c_shared_bytes(lib, "k5", width, threads, n_layers, chunks) == \
                 pk.k5_shared_bytes(width, threads, n_layers, chunks)
-    plan = pk.k5_plan(list(FULL))
-    per_sm = ctypes.c_int(0)
+    plan = pk.plan("k5", list(FULL))
     for act in range(3):
-        assert lib.k5_max_blocks(torch.cuda.current_device(), act, plan.width, plan.threads, 7, plan.chunks,
-                                 ctypes.byref(per_sm)) == 0
-        assert per_sm.value >= 2, act
+        err, per_sm = _c_max_blocks(lib, plan, list(FULL), act)
+        assert err == 0 and per_sm >= 2, act
     for widths in ([8] * 4 + [100], [32] * 16 + [130], [24, 4]):
-        plan = pk.k5_plan(widths)
-        assert lib.k5_max_blocks(torch.cuda.current_device(), 0, plan.width, plan.threads, len(widths) - 2,
-                                 plan.chunks, ctypes.byref(per_sm)) == 0
-        assert per_sm.value >= 1, widths
+        err, per_sm = _c_max_blocks(lib, pk.plan("k5", widths), widths)
+        assert err == 0 and per_sm >= 1, widths
 
 
 def test_wide_chain_runs_pw_fwd_kernel(cuda):
-    """A hidden width above 32 takes pw_fwd_kernel, counted in
-    ``.launches_wide``; it holds to the f64 plain version and repeats
-    bitwise."""
+    """A hidden width above 32 takes pw_fwd_kernel (``choose``); it holds to
+    the f64 plain version and repeats bitwise."""
+    assert pk.choose(list(WIDE), "on")[0] == "pw_fwd"
+    plan, c_widths = pk.plan("pw_fwd", list(WIDE)), (ctypes.c_int * 3)(*WIDE)
+    assert pk._library().pw_shared_bytes(pk._KERNEL_IDS["pw_fwd"], 0, plan.threads, 2, c_widths, 0) == \
+        plan.shared_bytes == pk.shared_bytes(list(WIDE), 3)
     mids, ax, av, ar, mask, _ = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,))
     mids64, ax64, av64, ar64, mask64, _ = _inputs(cuda, WIDE, 2, 70, 33, zero_refs=(3,), dtype=torch.float64)
     fn = pk.mlp_pairwise_sums
-    before = (fn.launches, fn.launches_wide)
+    before = fn.launches
     kernel = fn(mids, "tanh", ax, av, ar, mask)
-    assert (fn.launches, fn.launches_wide) == (before[0], before[1] + 1)
+    assert fn.launches == before + 1
     _gate(kernel, pk.mlp_pairwise_sums_plain(mids, "tanh", ax, av, ar, mask),
           pk.mlp_pairwise_sums_plain(mids64, "tanh", ax64, av64, ar64, mask64))
     again = fn(mids, "tanh", ax, av, ar, mask)
@@ -507,17 +519,20 @@ def test_wide_chain_runs_pw_fwd_kernel(cuda):
 
 
 def test_k5_launch_counts_are_one_a_kernel(cuda):
-    """Each K5 kernel has its own count: k5_kernel in ``.launches``,
-    pw_fwd_kernel in ``.launches_wide``; a CPU call counts in neither."""
+    """K5 runs the kernel ``choose`` gives, k5_kernel or pw_fwd_kernel, and
+    counts one launch in ``.launches`` with one of the library's sum_rows;
+    a CPU call counts in neither."""
     fn = pk.mlp_pairwise_sums
-    for widths, k5, wide in (((8, 8, 4), 1, 0), ((40, 40, 8), 0, 1), ((32, 33, 8), 0, 1), ((32, 130), 1, 0)):
+    for widths, kernel in (((8, 8, 4), "k5"), ((40, 40, 8), "pw_fwd"), ((32, 33, 8), "pw_fwd"),
+                           ((32, 130), "k5")):
+        assert pk.choose(list(widths), "on")[0] == kernel, widths
         mids, ax, av, ar, mask, _ = _inputs(cuda, widths, 1, 10, 9)
-        before = (fn.launches, fn.launches_wide)
+        before = (fn.launches, pk.sum_rows.launches)
         fn(mids, "tanh", ax, av, ar, mask)
-        assert (fn.launches - before[0], fn.launches_wide - before[1]) == (k5, wide), widths
-    before = (fn.launches, fn.launches_wide)
+        assert (fn.launches - before[0], pk.sum_rows.launches - before[1]) == (1, 1), widths
+    before = (fn.launches, pk.sum_rows.launches)
     fn([(W.cpu(), b.cpu()) for W, b in mids], "tanh", ax.cpu(), av.cpu(), ar.cpu(), mask.cpu())
-    assert (fn.launches, fn.launches_wide) == before
+    assert (fn.launches, pk.sum_rows.launches) == before
 
 
 def test_s1_packed_sums_bwd_runs_k8_with_one_split(cuda):

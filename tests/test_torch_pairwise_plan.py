@@ -1,11 +1,12 @@
-"""K7's, K8's, K6's k6_kernel and K5's k5_kernel plans
-(``pde_inverse_torch.ops.cuda.pairwise``) on the CPU: the width
-instantiation, the points a block, the shared memory, the feature layer's
-chunks and the ref splits that the kernels' header comment
-(``csrc/pairwise.cu``) states (k6_kernel also on eight lanes a pair at
-widths 48 and 64), and the zero-padding of the hidden layers, M and u (K6
-and K5: the feature layer, to whole chunks) to each instantiated width,
-which must leave the sums and their VJP unchanged.
+"""The pairwise kernels' plans and choice (``pde_inverse_torch.ops.cuda.pairwise``
+``plan`` and ``choose``) on the CPU: which kernel runs each chain, and for
+K7, K8, K6's k6_kernel and K5's k5_kernel the width instantiation, the
+points a block, the shared memory, the feature layer's chunks and the ref
+splits that the kernels' header comment (``csrc/pairwise.cu``) states
+(k6_kernel also on eight lanes a pair at widths 48 and 64), and the
+zero-padding of the hidden layers, M and u (K6 and K5: the feature layer,
+to whole chunks) to each instantiated width, which must leave the sums and
+their VJP unchanged.
 
 The padding is held against the JAX package's independent collapsed-head
 composition (tests/test_pallas_packed.py::_jnp_packed_composition) on the
@@ -17,6 +18,7 @@ sums in different orders).  K5's padded sums are held to the JAX tile math
 tolerance, 3e-4 of each output's max-abs.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -73,9 +75,9 @@ def test_zero_padding_leaves_the_sums_unchanged(act, hidden, width):
                                           ([20, 17, 20], 20), ([20, 21, 8], 24), ([25, 8], 32),
                                           ([20, 32, 8, 20, 20], 32)])
 def test_plan_maps_widths_to_the_least_instantiation(widths, width):
-    plan = pk.k7_plan(widths)
+    plan = pk.plan("k7", widths)
     assert plan.width == width and plan.width in pk.K7_WIDTHS
-    assert plan.threads == 128
+    assert plan.threads == plan.points == 128 and plan.chunks == 0
     assert plan.shared_bytes == pk.k7_shared_bytes(width, 128, len(widths) - 2)
     row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]  # rows 4 banks apart modulo 8
     n_layers = len(widths) - 2
@@ -85,9 +87,9 @@ def test_plan_maps_widths_to_the_least_instantiation(widths, width):
 
 def test_plan_refuses_widths_past_32_and_non_chains():
     with pytest.raises(ValueError, match="widths <= 32"):
-        pk.k7_plan([20, 33, 20])
+        pk.plan("k7", [20, 33, 20])
     with pytest.raises(ValueError, match="chain"):
-        pk.k7_plan([20])
+        pk.plan("k7", [20])
 
 
 def test_plan_and_splits_are_the_header_comments():
@@ -95,8 +97,8 @@ def test_plan_and_splits_are_the_header_comments():
     95,360 B a block (13,440 of weights, 71,680 of act', 10,240 of s_dz0
     sums), 128 points a block, and 7 ref splits for 264 resident blocks on
     7 x 16 point blocks; the numbers the kernel's header comment states."""
-    plan = pk.k7_plan([20] * 9)
-    assert plan == pk.K7Plan(20, 128, 95_360)
+    plan = pk.plan("k7", [20] * 9)
+    assert plan == pk.Plan("k7", 20, 128, 0, 95_360, 128)
     assert 4 * (7 * (20 * 20 + 20) + 20 * 20 + 20) == 13_440 and 4 * 7 * 20 * 128 == 71_680
     assert 2 * (95_360 + 1024) <= 228 * 1024 < 3 * (95_360 + 1024)  # 1 KB reserved a block
     assert pk.k7_splits(7, 2_000, 2_000, 128, 2 * 132) == 7
@@ -111,8 +113,8 @@ def test_plan_takes_fewer_points_a_block_where_shared_memory_would_not_fit():
     """16 layers at width 32: 71,808 B of weights; act' and the s_dz0 sums
     in rows of 36 floats for 128 points would take 313,344 B more, for 64
     points 156,672 B."""
-    plan = pk.k7_plan([32] * 18)
-    assert plan == pk.K7Plan(32, 64, 71_808 + 156_672)
+    plan = pk.plan("k7", [32] * 18)
+    assert plan == pk.Plan("k7", 32, 64, 0, 71_808 + 156_672, 64)
     assert plan.shared_bytes <= 227 * 1024 < pk.k7_shared_bytes(32, 128, 16)
 
 
@@ -129,6 +131,41 @@ def test_splits_round_the_grid_to_whole_waves(nt, n, m, resident, want):
     assert all(cost(splits) <= cost(s) for s in range(1, min(m, -(-8 * resident // blocks)) + 1))
 
 
+# (square-head chain, kernels under "auto" and "packed", kernels under "on"
+# and "fwd"): the KMV MLP (w0 20 or 2), the hidden-64 chains of the KMV MLP
+# at 64 x 2 to 64 x 4 and those too deep for the octets (64 x 5 and 64 x 4
+# at 130 features), a chain past 64, chains at 33-64 that only
+# pw_bwd_kernel's tile holds, and the unequal, ragged and deep chains the
+# CUDA tests run
+CHOSEN = [([20] * 8 + [128], ("k7", "k8"), ("k5", "k6")), ([2] + [20] * 8 + [128], ("k7", "k8"), ("k5", "k6")),
+          ([64, 64, 128], ("pw_fwd", "k6"), ("pw_fwd", "k6")), ([64] * 3 + [128], ("pw_fwd", "k6"), ("pw_fwd", "k6")),
+          ([64] * 4 + [128], ("pw_fwd", "k6"), ("pw_fwd", "k6")), ([64] * 5 + [128], ("pw_fwd", "k6"), ("pw_fwd", "k6")),
+          ([64] * 6 + [128], ("pw_fwd", "pw_bwd"), ("pw_fwd", "pw_bwd")),
+          ([64] * 5 + [130], ("pw_fwd", "pw_bwd"), ("pw_fwd", "pw_bwd")),
+          ([72, 72, 16], ("pw_fwd", "pw_bwd"), ("pw_fwd", "pw_bwd")),
+          ([1] + [56] * 6 + [8], ("pw_fwd", "pw_bwd"), ("pw_fwd", "pw_bwd")),
+          ([40] + [1] * 12 + [1], ("pw_fwd", "pw_bwd"), ("pw_fwd", "pw_bwd")),
+          ([32, 33, 8], ("pw_fwd", "k6"), ("pw_fwd", "k6")), ([40, 40, 8], ("pw_fwd", "k6"), ("pw_fwd", "k6")),
+          ([20, 65, 8], ("pw_fwd", "pw_bwd"), ("pw_fwd", "pw_bwd")),
+          ([48, 48, 48, 100], ("pw_fwd", "k6"), ("pw_fwd", "k6")), ([32, 130], ("k7", "k8"), ("k5", "k6")),
+          ([8, 8, 4], ("k7", "k8"), ("k5", "k6")), ([32] * 16 + [100], ("k7", "k8"), ("k5", "k6")),
+          ([12, 20, 20, 100], ("k7", "k8"), ("k5", "k6"))]
+
+
+@pytest.mark.parametrize("widths,packed,square", CHOSEN)
+def test_choose_gives_each_chain_its_kernels(widths, packed, square):
+    """``choose`` in each mode.  At widths <= 32, "on" keeps K6 on
+    k6_kernel even where its plan does not fit (15 hidden layers of 32 and
+    100 features): the launch raises there."""
+    assert pk.choose(widths, "auto") == pk.choose(widths, "packed") == packed
+    assert pk.choose(widths, "on") == pk.choose(widths, "fwd") == square
+    if widths == [32] * 16 + [100]:
+        with pytest.raises(ValueError, match="shared memory"):
+            pk.plan("k6", widths)
+    with pytest.raises(ValueError, match="no kernels"):
+        pk.choose(widths, "off")
+
+
 # -- K8 ------------------------------------------------------------------------------
 
 
@@ -140,8 +177,9 @@ def test_k8_plan_fits_shared_memory(width, n_layers):
     weights twice (values and gradient accumulators), max(L, 1) + 1 row sets
     of 4 rows + 4 floats a pair, the warps' scratch (two buffers of W^2 + W
     floats a warp, none for one warp) and one ref-row partial a warp."""
-    plan = pk.k8_plan([width] * (n_layers + 2))
+    plan = pk.plan("k8", [width] * (n_layers + 2))
     assert plan.width == width and plan.threads in pk.K8_THREADS and plan.threads % 32 == 0
+    assert plan.points == plan.threads // 4 and plan.chunks == 0
     row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
     weights = n_layers * (width * width + width) + width * width + width
     warps = plan.threads // 32
@@ -160,13 +198,13 @@ def test_k8_plan_and_splits_are_the_header_comments():
     accumulators, 172,032 of rows, 26,880 of the warps' scratch, 640 of
     ref-row partials), one block an SM, and 4 ref splits for 132 resident
     blocks on 7 x 32 point blocks."""
-    plan = pk.k8_plan([20] * 9)
-    assert plan == pk.K7Plan(20, 256, 226_432)
+    plan = pk.plan("k8", [20] * 9)
+    assert plan == pk.Plan("k8", 20, 256, 0, 226_432, 64)
     assert 2 * 4 * (7 * 420 + 420) == 26_880 and 4 * 8 * 64 * 84 == 172_032 and 4 * 8 * 20 == 640
     assert 4 * pk.k8_scratch_floats(20, 256) == 4 * 2 * 8 * 420 == 26_880
     assert 26_880 + 172_032 + 26_880 + 640 == plan.shared_bytes <= 232_448
     assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
-    assert pk.k7_splits(7, 2_000, 2_000, plan.threads // 4, 132) == 4
+    assert pk.k7_splits(7, 2_000, 2_000, plan.points, 132) == 4
     assert pk.k8_rows(7) == 8 and pk.k8_rows(1) == 2 and pk.k8_rows(0) == 2
     for text in ("26,880 B of weights and accumulators + 172,032 B of rows + 26,880 B of scratch + 640 B of "
                  "ref-row partials = 226,432 B", "4 splits", "(896 blocks, 6.79 waves)",
@@ -177,15 +215,15 @@ def test_k8_plan_and_splits_are_the_header_comments():
 def test_k8_plan_shrinks_the_block_and_refuses_widths_past_32():
     """16 layers at width 32 leave room for 32 lanes (8 points) a block,
     one warp, which needs no scratch: with one it would not fit."""
-    plan = pk.k8_plan([32] * 18)
-    assert plan == pk.K7Plan(32, 32, pk.k8_shared_bytes(32, 32, 16))
+    plan = pk.plan("k8", [32] * 18)
+    assert plan == pk.Plan("k8", 32, 32, 0, pk.k8_shared_bytes(32, 32, 16), 8)
     assert pk.k8_shared_bytes(32, 64, 16) > 227 * 1024 >= plan.shared_bytes
     assert pk.k8_scratch_floats(32, 32) == 0
     assert plan.shared_bytes + 4 * 2 * (32 * 32 + 32) > 227 * 1024
     with pytest.raises(ValueError, match="widths <= 32"):
-        pk.k8_plan([20, 33, 20])
+        pk.plan("k8", [20, 33, 20])
     with pytest.raises(ValueError, match="chain"):
-        pk.k8_plan([20])
+        pk.plan("k8", [20])
 
 
 @pytest.mark.parametrize("width", pk.K7_WIDTHS)
@@ -195,7 +233,7 @@ def test_k8_scratch_and_row_sets_at_each_width(width):
     reads only its own pairs' rows) and a scratch of two buffers of one
     layer's W^2 + W floats for each warp of its plan; a block of one warp
     has none.  K6 keeps its 9 (two sets S)."""
-    plan = pk.k8_plan([width] * 9)
+    plan = pk.plan("k8", [width] * 9)
     warps = plan.threads // 32
     assert pk.k8_rows(7) == 8 and pk.k6_rows(7) == 9
     assert pk.k8_scratch_floats(width, plan.threads) == 2 * warps * (width * width + width)
@@ -275,12 +313,12 @@ def test_k6_plan_and_splits_are_the_header_comments():
     169,344 of rows, 560 of ref-row partials), one block an SM; 256 lanes
     would need 241,216 B; 1 ref split for 132 resident blocks on 7 x 36 point
     blocks."""
-    plan = pk.k6_plan([20] * 8 + [128])
-    assert plan == pk.K6Plan(20, 224, 216_944, 7)
+    plan = pk.plan("k6", [20] * 8 + [128])
+    assert plan == pk.Plan("k6", 20, 224, 7, 216_944, 56)
     assert 2 * 4 * 14 * 420 == 47_040 and 4 * 9 * 56 * 84 == 169_344 and 4 * 7 * 20 == 560
     assert pk.k6_shared_bytes(20, 256, 7, 7) == 241_216 > 227 * 1024
     assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
-    assert pk.k7_splits(7, 2_000, 2_000, plan.threads // 4, 132) == 1 and 7 * -(-2_000 // 56) == 252
+    assert pk.k7_splits(7, 2_000, 2_000, plan.points, 132) == 1 and 7 * -(-2_000 // 56) == 252
     for text in ("47,040 B of weights and accumulators + 169,344 B of rows + 560 B of ref-row partials = "
                  "216,944 B", "1 split (252 blocks, 1.91 waves)", "4 (L + chunks) (W^2 + W) bytes",
                  "128 -> 140 at W = 20, 7 chunks", "Barriers a ref: L + chunks + 2"):
@@ -300,31 +338,35 @@ def test_k6_plan_fits_shared_memory(width, n_layers, feature):
     fits = [t for t in pk.K6_THREADS if pk.k6_shared_bytes(width, t, n_layers, chunks) <= 227 * 1024]
     if not fits:
         with pytest.raises(ValueError, match="shared memory"):
-            pk.k6_plan(widths)
+            pk.plan("k6", widths)
         return
-    plan = pk.k6_plan(widths)
+    plan = pk.plan("k6", widths)
     row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
     weights = (n_layers + chunks) * (width * width + width)
     want = 4 * (2 * weights + (max(n_layers, 1) + 2) * (plan.threads // 4) * (4 * row + 4)
                 + plan.threads // 32 * width)
-    assert plan == pk.K6Plan(width, fits[0], want, chunks) and plan.threads % 32 == 0
+    assert plan == pk.Plan("k6", width, fits[0], chunks, want, fits[0] // 4) and plan.threads % 32 == 0
 
 
 def test_k6_takes_chains_by_their_widths_before_the_feature_layer():
-    """Every width before the feature layer <= 64 (on eight lanes a pair past
-    32) where the plan fits; a width past 64 goes to pw_bwd_kernel."""
-    assert pk.k6_takes([20] * 8 + [128]) and pk.k6_takes([32, 32, 4096]) and pk.k6_takes([2, 128])
-    assert pk.k6_takes([64, 64, 128]) and pk.k6_takes([20, 33, 8]) and pk.k6_takes([64] * 5 + [128])
-    assert not pk.k6_takes([72, 72, 16]) and not pk.k6_takes([20, 65, 8]) and not pk.k6_takes([20])
-    assert not pk.k6_takes([64] * 6 + [128])  # 5 hidden layers: no octet plan fits
-    assert pk.k6_plan([12, 20, 17, 100]) == pk.k6_plan([20, 20, 20, 100])
-    assert pk.k6_plan([40, 33, 8]) == pk.k6_plan([48, 48, 8]) and pk.k6_plan([20, 50, 64]).width == 64
-    with pytest.raises(ValueError, match="widths <= 64"):
-        pk.k6_plan([72, 72, 16])
-    with pytest.raises(ValueError, match="shared memory"):
-        pk.k6_plan([64] * 6 + [128])
+    """``choose`` takes K6 through k6_kernel where every width before the
+    feature layer is <= 64 (on eight lanes a pair past 32) and the plan
+    fits; a width past 64 goes to pw_bwd_kernel."""
+    k6 = lambda widths: pk.choose(widths, "on")[1] == "k6"
+    assert k6([20] * 8 + [128]) and k6([32, 32, 4096]) and k6([2, 128])
+    assert k6([64, 64, 128]) and k6([20, 33, 8]) and k6([64] * 5 + [128])
+    assert not k6([72, 72, 16]) and not k6([20, 65, 8])
+    assert not k6([64] * 6 + [128])  # 5 hidden layers: no octet plan fits
     with pytest.raises(ValueError, match="chain"):
-        pk.k6_plan([20])
+        pk.choose([20], "on")
+    assert pk.plan("k6", [12, 20, 17, 100]) == pk.plan("k6", [20, 20, 20, 100])
+    assert pk.plan("k6", [40, 33, 8]) == pk.plan("k6", [48, 48, 8]) and pk.plan("k6", [20, 50, 64]).width == 64
+    with pytest.raises(ValueError, match="widths <= 64"):
+        pk.plan("k6", [72, 72, 16])
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.plan("k6", [64] * 6 + [128])
+    with pytest.raises(ValueError, match="chain"):
+        pk.plan("k6", [20])
 
 
 @pytest.mark.parametrize("feature", [4, 100, 128])
@@ -342,13 +384,13 @@ def test_k6_octet_plan_fits_shared_memory(width, n_layers, feature):
                           + (max(n_layers, 1) + 2) * (t // 8) * (4 * (width + 4) + 8) + t // 32 * width)
     fits = [t for t in pk.K6_THREADS if size(t) <= 227 * 1024]
     refused = width == 64 and n_layers == 5 and feature > 4
-    assert bool(fits) != refused and pk.k6_takes(widths) != refused
+    assert bool(fits) != refused and (pk.choose(widths, "on")[1] == "k6") != refused
     if refused:
         with pytest.raises(ValueError, match="shared memory"):
-            pk.k6_plan(widths)
+            pk.plan("k6", widths)
         return
-    plan = pk.k6_plan(widths)
-    assert plan == pk.K6Plan(width, fits[0], size(fits[0]), chunks) and plan.threads % 32 == 0
+    plan = pk.plan("k6", widths)
+    assert plan == pk.Plan("k6", width, fits[0], chunks, size(fits[0]), fits[0] // 8) and plan.threads % 32 == 0
     assert plan.shared_bytes == pk.k6_shared_bytes(width, plan.threads, n_layers, chunks)
     assert plan.points == plan.threads // 8 and pk.k6_lanes(width) == 8
 
@@ -357,15 +399,19 @@ def test_k6_octet_plan_fits_shared_memory(width, n_layers, feature):
     ([64, 64, 128], True, True), ([64] * 4 + [128], True, False), ([64] * 6 + [128], False, False),
     ([1] + [56] * 6 + [8], False, True), ([40] + [1] * 12 + [1], False, True)])
 def test_k6_takes_past_32_the_chains_its_octet_plan_fits(widths, k6, tile):
-    """At widths 33-64 before the feature layer ``k6_takes`` asks whether the
+    """At widths 33-64 before the feature layer ``choose`` asks whether the
     octet plan fits: pw_bwd_kernel's 32-point tile (four streams,
     ``shared_bytes``) holds some deep chains that the octets, which pad
     every layer to 64, do not (56 -> 64 six times, 1 -> 48 twelve times); a
     chain neither holds raises, naming the shared memory."""
-    assert pk.k6_takes(widths) == k6 and (pk.shared_bytes(widths, 4) <= 227 * 1024) == tile
+    assert pk.choose(widths, "on")[1] == ("k6" if k6 else "pw_bwd")
+    assert (pk.shared_bytes(widths, 4) <= 227 * 1024) == tile
     if not k6:
         with pytest.raises(ValueError, match="shared memory"):
-            pk.k6_plan(widths)
+            pk.plan("k6", widths)
+        if not tile:
+            with pytest.raises(ValueError, match="shared memory"):
+                pk.plan("pw_bwd", widths)
 
 
 def test_k6_octet_plan_and_splits_are_the_header_comments():
@@ -376,14 +422,14 @@ def test_k6_octet_plan_and_splits_are_the_header_comments():
     point blocks; hidden 64 x 3: 160 lanes, 224,000 B (192 lanes would need
     242,176 B); 64 lanes at 3 hidden layers, 32 at 4; the row set of a pair
     4 R + 8 floats, so that the 4 pairs of a warp start 24 banks apart."""
-    plan = pk.k6_plan([64, 64, 128])
-    assert plan == pk.K6Plan(64, 256, 209_408, 2) and plan.points == 32
+    plan = pk.plan("k6", [64, 64, 128])
+    assert plan == pk.Plan("k6", 64, 256, 2, 209_408, 32)
     assert 2 * 4 * 3 * 4_160 == 99_840 and 4 * 3 * 32 * 280 == 107_520 and 4 * 8 * 64 == 2_048
     assert plan.shared_bytes + 1024 <= 228 * 1024 < 2 * (plan.shared_bytes + 1024)
     assert pk.k7_splits(7, 2_000, 2_000, plan.points, 132) == 2 and 7 * -(-2_000 // 32) == 441
-    assert pk.k6_plan([64] * 3 + [128]) == pk.K6Plan(64, 160, 224_000, 2)
+    assert pk.plan("k6", [64] * 3 + [128]) == pk.Plan("k6", 64, 160, 2, 224_000, 20)
     assert pk.k6_shared_bytes(64, 192, 2, 2) == 242_176 > 227 * 1024
-    assert [pk.k6_plan([64] * (d + 1) + [128]).threads for d in (3, 4)] == [64, 32]
+    assert [pk.plan("k6", [64] * (d + 1) + [128]).threads for d in (3, 4)] == [64, 32]
     assert (4 * 68 + 8) % 32 == 24 and (4 * 52 + 8) % 32 == 24 and pk.K6_WIDTHS[-2:] == (48, 64)
     assert 4 * 4_096 + 3 * 4 * 64 * 128 + 2 * 4 * 4_096 == 147_456
     for text in ("99,840 B of weights and accumulators + 107,520 B of rows + 2,048 B of ref-row partials = "
@@ -486,8 +532,8 @@ def test_k5_plan_and_splits_are_the_header_comments():
     104,432 B (22,512 of weights, 81,920 of act' and s_dz0 rows), two blocks
     an SM, and 7 ref splits for 264 resident blocks on 7 x 16 point blocks,
     as K7's."""
-    plan = pk.k5_plan([20] * 8 + [128])
-    assert plan == pk.K5Plan(20, 128, 104_432, 32)
+    plan = pk.plan("k5", [20] * 8 + [128])
+    assert plan == pk.Plan("k5", 20, 128, 32, 104_432, 128)
     assert 4 * (7 * 420 + 21 * 128) == 22_512 and 4 * 8 * 128 * 20 == 81_920
     assert 2 * (plan.shared_bytes + 1024) <= 228 * 1024 < 3 * (plan.shared_bytes + 1024)
     assert pk.k7_splits(7, 2_000, 2_000, plan.threads, 2 * 132) == 7 and 7 * 7 * -(-2_000 // 128) == 784
@@ -507,36 +553,41 @@ def test_k5_plan_fits_shared_memory(width, n_layers, feature):
     width: the feature layer in ceil(F / 4) chunks, the most points a block
     (of K7_THREADS) whose shared memory fits 227 KB: the padded weights,
     then K7's rows of act' and s_dz0 sums.  Every one of these fits."""
-    plan = pk.k5_plan([width] * (n_layers + 1) + [feature])
+    plan = pk.plan("k5", [width] * (n_layers + 1) + [feature])
     chunks = -(-feature // 4)
     row = {8: 12, 16: 20, 20: 20, 24: 28, 32: 36}[width]
     size = lambda t: 4 * (n_layers * (width * width + width) + (width + 1) * 4 * chunks
                           + (n_layers + 1) * t * row)
     fits = [t for t in pk.K7_THREADS if size(t) <= 227 * 1024]
-    assert plan == pk.K5Plan(width, fits[0], size(fits[0]), chunks)
+    assert plan == pk.Plan("k5", width, fits[0], chunks, size(fits[0]), fits[0])
     assert plan.shared_bytes == pk.k5_shared_bytes(width, plan.threads, n_layers, chunks)
 
 
 @pytest.mark.parametrize("widths", [[20] * 8 + [128], [32, 32, 4096], [2, 128], [64, 64, 128], [20, 33, 8],
                                     [20], [12, 20, 17, 100], [8, 8, 8, 130], [33, 8, 8], [8, 40]])
 def test_k5_takes_the_chains_k6_takes(widths):
-    """K5 takes, of the chains K6 takes, those whose every width before the
-    feature layer is <= 32, whatever the feature width: k5_kernel has no
-    instantiation past 32, where K6 also runs k6_kernel on eight lanes a
-    pair (48, 64)."""
-    assert pk.k5_takes(widths) == (len(widths) >= 2 and max(widths[:-1]) <= 32)
-    assert not pk.k5_takes(widths) or pk.k6_takes(widths)
-    assert pk.k6_takes(widths) == (len(widths) >= 2 and max(widths[:-1]) <= 64)
+    """Under "on", ``choose`` takes K5 through k5_kernel for those of the
+    chains K6 takes whose every width before the feature layer is <= 32,
+    whatever the feature width: k5_kernel has no instantiation past 32,
+    where K6 also runs k6_kernel on eight lanes a pair (48, 64)."""
+    if len(widths) < 2:
+        with pytest.raises(ValueError, match="chain"):
+            pk.choose(widths, "on")
+        return
+    k5, k6 = pk.choose(widths, "on")
+    assert (k5 == "k5") == (max(widths[:-1]) <= 32) and k5 in ("k5", "pw_fwd")
+    assert k5 != "k5" or k6 == "k6"
+    assert (k6 == "k6") == (max(widths[:-1]) <= 64) and k6 in ("k6", "pw_bwd")
 
 
 def test_k5_plan_refuses_widths_past_32_and_non_chains():
-    assert pk.k5_plan([12, 20, 17, 100]) == pk.k5_plan([20, 20, 20, 100])
+    assert pk.plan("k5", [12, 20, 17, 100]) == pk.plan("k5", [20, 20, 20, 100])
     with pytest.raises(ValueError, match="widths <= 32"):
-        pk.k5_plan([64, 64, 128])
+        pk.plan("k5", [64, 64, 128])
     with pytest.raises(ValueError, match="chain"):
-        pk.k5_plan([20])
+        pk.plan("k5", [20])
     with pytest.raises(ValueError, match="shared memory"):
-        pk.k5_plan([8, 8192])
+        pk.plan("k5", [8, 8192])
 
 
 def test_k5_weight_layout_round_trips():
@@ -590,3 +641,81 @@ def test_k5_zero_padding_leaves_the_sums_unchanged(act, hidden, feat, width):
         assert g.shape == w.shape, k
         assert np.abs(g.numpy() - w).max() <= GRAD_REL * max(np.abs(w).max(), 1e-30), k
     assert not bool(got["s_dz0"][..., w0:].any())
+
+
+# -- the launchers' host side ----------------------------------------------------------
+
+
+def _launch(kernel, widths, seed=3, nt=2, n=5, m=3):
+    """A validated launch of `kernel` on the square-head chain `widths` (K7
+    and K8: its collapsed head) with CPU tensors, and its plan."""
+    gen = torch.Generator().manual_seed(seed)
+    mids = [(torch.randn((a, b), generator=gen), torch.randn(b, generator=gen)) for a, b in zip(widths, widths[1:])]
+    w0 = widths[0]
+    ax, av, ar = torch.randn((nt, n, w0), generator=gen), torch.randn((nt, n, w0), generator=gen), \
+        torch.randn((nt, m, w0), generator=gen)
+    cot = (torch.randn((nt, n), generator=gen), torch.randn((nt, n), generator=gen), torch.randn((nt, n, w0), generator=gen))
+    head = None
+    if kernel in ("k7", "k8"):
+        (WF, bF), mids = mids[-1], mids[:-1]
+        head = (WF @ WF.T, 2.0 * (WF @ bF))
+    L = pk._Launch(kernel, mids, "tanh", ax, av, ar, torch.ones(m), head=head, cot=cot)
+    return L, pk.plan(kernel, L.widths), mids, head
+
+
+@pytest.mark.parametrize("kernel,widths", [("k5", [12, 20, 17, 100]), ("pw_fwd", [40, 33, 8]),
+                                           ("k6", [12, 20, 17, 100]), ("k6", [40, 33, 70]),
+                                           ("pw_bwd", [72, 72, 16]), ("k7", [20, 20, 24, 8]), ("k8", [20, 20, 24, 8])])
+def test_launch_lays_out_the_weights_each_kernel_reads(kernel, widths):
+    """``_Launch.weights`` gives each kernel its layout (k5 ``pad_k5``, k6
+    ``pad_square``, k7 and k8 ``pad_collapsed``, the tile kernels params
+    [W_k, b_k] and params_t [W_k^T] unpadded), and for the backward kernels
+    ``_Launch.weight_grads`` reads that layout back to the unpadded layers
+    (K8: and M, u)."""
+    L, plan, mids, head = _launch(kernel, widths)
+    weights, weights_t = L.weights(plan)
+    padded = {"k5": lambda: pk.pad_k5(mids, plan.width)[0], "k6": lambda: pk.pad_square(mids, plan.width)[0],
+              "k7": lambda: pk.pad_collapsed(mids, *head, plan.width)[0],
+              "k8": lambda: pk.pad_collapsed(mids, *head, plan.width)[0]}
+    if kernel in padded:
+        assert plan.width > 0 and weights_t is None and torch.equal(weights, padded[kernel]())
+    else:
+        assert plan.width == 0 and torch.equal(weights, torch.cat([torch.cat([W.reshape(-1), b]) for W, b in mids]))
+        assert torch.equal(weights_t, torch.cat([W.T.reshape(-1) for W, _ in mids]))
+    if kernel in ("k6", "pw_bwd", "k8"):
+        back = L.weight_grads(plan, weights)
+        assert all(torch.equal(W, Wu) and torch.equal(b, bu) for (W, b), (Wu, bu) in zip(back[0], mids))
+        assert len(back) == (3 if kernel == "k8" else 1)
+        if kernel == "k8":
+            assert torch.equal(back[1], head[0]) and torch.equal(back[2], head[1])
+
+
+def test_launch_refuses_malformed_inputs():
+    """The launchers' checks before any library call: the activation, the
+    layer count, the chain, the cotangents and the collapsed head's M and u."""
+    L, _, mids, head = _launch("k8", [20, 20, 24, 8])
+    ax, av, ar, mask, *cot = L.tensors
+    cases = [(dict(act_name="gelu"), "derivative table"), (dict(layers=[mids[0]] * 17), "at most 16 layers"),
+             (dict(layers=mids[::-1]), "do not chain"), (dict(cot=(cot[0], cot[1][:, :2], cot[2])), "cotangents"),
+             (dict(head=(head[0], head[1][:3])), "u must be"), (dict(head=(head[0][:3], head[1][:3])), "square"),
+             (dict(mask=mask[:2]), "mask must be")]
+    for change, match in cases:
+        args = dict(name="K8", layers=mids, act_name="tanh", ax=ax, av=av, ar=ar, mask=mask, head=head, cot=cot)
+        args.update(change)
+        with pytest.raises(ValueError, match=match):
+            pk._Launch(**args)
+
+
+def test_ctypes_bindings_are_the_c_prototypes():
+    """``ENTRIES`` binds every ``extern "C"`` function of csrc/pairwise.cu
+    with its own argument and return types (pointers to floats and the
+    stream as c_void_p)."""
+    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "void": None, "int*": ctypes.POINTER(ctypes.c_int),
+             "long long*": ctypes.POINTER(ctypes.c_longlong), "float*": ctypes.c_void_p, "void*": ctypes.c_void_p}
+    source = HEADER.replace("\n", " ")
+    protos = re.findall(r'extern "C" ([a-z ]+?) (\w+)\(([^)]*)\)', source)
+    assert {name for _, name, _ in protos} == set(pk.ENTRIES)
+    for ret, name, params in protos:
+        types = [ctype[re.sub(r"^const |\s+\w+$", "", p.strip()).replace(" *", "*")] for p in params.split(",")
+                 if p.strip()]
+        assert pk.ENTRIES[name] == (types, ctype[ret]), name
