@@ -25,7 +25,9 @@ Phases, each printing its own line:
    (250,000 path points, layers 64->64->256, tanh), a ragged n, silu and
    softplus, and at the offline preset's shape (320,000 points, layers
    32->32->128) with a ragged n; K3's and K4's outputs bitwise equal on two
-   calls;
+   calls; K9 and K10 (the Fourier front end, d 4, F 64, w0 64) held the same
+   way at 250,000 points, a ragged n and the loss's strided halves of a
+   batch, their outputs bitwise equal on two calls;
    K5-K8 against their plain versions, held the same way, at the KMV main
    path's shape (7 stamps x 2,000 points x 2,000 refs, layers 20 x 8 ->
    128, tanh), a ragged n and m with masked refs, and silu and softplus,
@@ -59,7 +61,8 @@ Phases, each printing its own line:
    counts read the same way;
 7. timing of every kernel against its plain version with CUDA events, K2
    against K1 at the offline shapes, K3 and K4 also at the XL and offline
-   steps' shapes, K5 and K6 also at the hidden-64 chain, S1-S3 beside one PyTorch
+   steps' shapes, K9 and K10 beside the same front end as PyTorch operations
+   at 1,000,000 points, K5 and K6 also at the hidden-64 chain, S1-S3 beside one PyTorch
    call that computes the same function (also by their device time,
    ``torch.profiler``), and
    ``sum_rows``, the fixed-order row sum that finishes K7's and K8's partial
@@ -139,6 +142,11 @@ N_POINTS, WIDTHS = 250_000, (64, 64, 256)
 # points a step at the full width)
 N_POINTS_OFFLINE, WIDTHS_OFFLINE = 320_000, (32, 32, 128)
 N_POINTS_XL = 655_360
+# the Fourier front end (d, F, w0) of the online and XL presets, and the
+# path points of the online preset at 10,000 trajectories (the benchmark's
+# kgmm-np-online.paths1m), where K9 and K10 are timed
+FRONT = (4, 64, 64)
+N_PATHS_1M = 1_000_000
 K4_PRODUCTS = 10  # layer products a point in K4: 4 forward, 3 weight-gradient, 3 input-cotangent
 # the KMV MLP configuration: 7 stamps x 2,000 samples (refs = the samples at
 # the same stamp), PotentialMLP 2 -> 20 x 8 -> 128, tanh
@@ -284,6 +292,24 @@ def pointwise_inputs(dev, n, dtype, seed, widths=WIDTHS):
     return [(to(W), to(b)) for W, b in mids], [to(t) for t in streams], [to(t) for t in cot]
 
 
+def front_inputs(dev, n, dtype, seed, batch):
+    """(x, v, B, W0, b0) of the front end FRONT and the cotangents of K9's
+    five outputs, from a seed (the same numbers in float32 and float64);
+    x ~ N(0, 4 I) and v ~ N(0, 0.1 I) as the KGMM path's, so |p| reaches
+    tens.  With `batch`, x and v are the halves of one [n, 2d] batch."""
+    d, nf, w0 = FRONT
+    gen = torch.Generator().manual_seed(seed)
+    xv = torch.randn((n, 2 * d), generator=gen) * torch.tensor([2.0] * d + [math.sqrt(0.1)] * d)
+    B = torch.randn((d, nf), generator=gen)
+    W0 = torch.randn((d + 2 * nf, w0), generator=gen) / (d + 2 * nf) ** 0.5
+    b0 = torch.randn(w0, generator=gen) * 0.1
+    bars = [torch.randn((n, w), generator=gen) for w in (w0, w0, w0, nf, nf)]
+    to = lambda t: t.to(dev, dtype)
+    xv = to(xv)
+    x, v = (xv[:, :d], xv[:, d:]) if batch else (xv[:, :d].contiguous(), xv[:, d:].contiguous())
+    return (x, v, to(B), to(W0), to(b0)), [to(t) for t in bars]
+
+
 def pairwise_inputs(dev, nt, n, m, dtype, seed, zero_refs=(), widths=KMV_WIDTHS):
     """Layers after the first, ax, av, ar, mask and the cotangents of the
     pairwise kernels, from a seed (the same numbers in float32 and float64)."""
@@ -333,7 +359,9 @@ def main() -> None:
     from pde_inverse_torch.methods import functional_forward
     from pde_inverse_torch.ops.cuda import build
     from pde_inverse_torch.ops.cuda.langevin import langevin, langevin_plain
+    from pde_inverse_torch.ops.cuda import pointwise as pt
     from pde_inverse_torch.ops.cuda.pointwise import (
+        front_streams, front_streams_bwd, front_streams_bwd_plain, front_streams_plain,
         mlp_grad_quad, mlp_grad_quad_bwd, mlp_grad_quad_bwd_plain, mlp_grad_quad_plain,
     )
     from pde_inverse_torch.ops.cuda import mma_tf32
@@ -381,6 +409,11 @@ def main() -> None:
         res = {("tanh", "silu", "softplus")[int(m.group(1))]: v for k, v in resources(lib_pw).items()
                if (m := re.search(kernel + r"ILi(\d)E", k))}
         check(len(res) == 3, f"{kid} instantiations in the build report: {sorted(res)}")
+        print(f"[build] {kid} instantiations (registers, spill-store bytes): "
+              + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items())), flush=True)
+    for kid, kernel in (("K9", "k9_kernel"), ("K10", "k10_kernel")):
+        res = {k: v for k, v in resources(lib_pw).items() if kernel in k}
+        check(len(res) == len(pt.FRONT_SHAPES), f"{kid} instantiations in the build report: {sorted(res)}")
         print(f"[build] {kid} instantiations (registers, spill-store bytes): "
               + "; ".join(f"{k}: {r}, {b}" for k, (r, b) in sorted(res.items())), flush=True)
     for kid, kernel in (("K5", "k5_kernel"), ("K6", "k6_kernel"), ("K7", "k7_kernel"), ("K8", "k8_kernel")):
@@ -548,6 +581,41 @@ def main() -> None:
     check(all(torch.equal(x, y) for x, y in zip(a, b)), "K4 outputs differ between two calls")
     print(f"[k4-repeat] n={N_POINTS}: two calls bitwise equal in all {len(a)} outputs", flush=True)
     del a, b
+
+    # K9/K10 against their plain versions, held to float64 as K3/K4 are
+    k910_err = {"K9": 0.0, "K10": 0.0}
+    rows = []
+    for n, batch in ((N_POINTS, True), (4_099, False), (20_011, True)):
+        args, bars = front_inputs(dev, n, torch.float32, 8, batch)
+        args64, bars64 = front_inputs(dev, n, torch.float64, 8, False)
+        for name, kernel, plain, a, a64 in (
+                ("K9", front_streams, front_streams_plain, args, args64),
+                ("K10", front_streams_bwd, front_streams_bwd_plain, (*args[:4], *bars), (*args64[:4], *bars64))):
+            got, want, ref = kernel(*a), plain(*a), plain(*a64)
+            torch.cuda.synchronize()
+            worst_k, worst_p = 0.0, 0.0
+            for k_, p_, r_ in zip(got, want, ref):
+                scale = float(r_.abs().max())
+                err_k = float((k_.double() - r_).abs().max()) / scale
+                err_p = float((p_.double() - r_).abs().max()) / scale
+                check(bool(torch.isfinite(k_).all()) and err_k <= F64_FACTOR * err_p + F64_FLOOR,
+                      f"{name} n={n} output {tuple(k_.shape)}: kernel vs f64 {err_k:.3e} > "
+                      f"{F64_FACTOR} x plain-f32 vs f64 {err_p:.3e} + {F64_FLOOR}")
+                worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
+                k910_err[name] = max(k910_err[name], float((k_ - p_).abs().max()))
+            rows.append(f"{name} n={n}{' (strided x, v)' if batch else ''}: {worst_k:.2e} vs {worst_p:.2e}")
+            del got, want, ref
+    print(f"[k9-k10-vs-plain] front end d 4, F 64, w0 64, worst output error relative to its max-abs, "
+          f"kernel vs f64 / plain f32 vs f64: {'; '.join(rows)}; gate <= {F64_FACTOR} x plain + "
+          f"{F64_FLOOR}: pass; max abs err kernel vs plain K9 {k910_err['K9']:.3e}, K10 "
+          f"{k910_err['K10']:.3e}", flush=True)
+    args, bars = front_inputs(dev, N_POINTS, torch.float32, 9, True)
+    for name, fn, a in (("K9", front_streams, args), ("K10", front_streams_bwd, (*args[:4], *bars))):
+        first, again = fn(*a), fn(*a)
+        check(all(torch.equal(x, y) for x, y in zip(first, again)), f"{name} outputs differ between two calls")
+        print(f"[{name.lower()}-repeat] n={N_POINTS}: two calls bitwise equal in all {len(first)} outputs",
+              flush=True)
+    del args, bars, first, again
 
     kernels = {"K5": (pw.mlp_pairwise_sums, pw.mlp_pairwise_sums_plain),
                "K6": (pw.mlp_pairwise_sums_bwd, pw.mlp_pairwise_sums_bwd_plain),
@@ -764,16 +832,20 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     zero_langevin()
     mlp_grad_quad.launches = mlp_grad_quad_bwd.launches = 0
+    front_streams.launches = front_streams_bwd.launches = 0
     result_np = run(cfg_np, "cuda")
     torch.cuda.synchronize()
     np_launches = {"K1": langevin.launches, "K3": mlp_grad_quad.launches,
-                   "K4": mlp_grad_quad_bwd.launches}
+                   "K4": mlp_grad_quad_bwd.launches, "K9": front_streams.launches,
+                   "K10": front_streams_bwd.launches}
     peak_np = torch.cuda.max_memory_allocated()
     n_iter = cfg_np.train.number_of_iterations
     check(len(result_np.losses) == n_iter and bool(np.isfinite(result_np.losses).all()),
           f"np losses not finite: {result_np.losses}")
     check(np_launches["K1"] >= 2 * n_iter and np_launches["K3"] >= n_iter
           and np_launches["K4"] >= n_iter, f"np launches {np_launches} in {n_iter} steps")
+    check(np_launches["K9"] >= n_iter and np_launches["K10"] >= n_iter,
+          f"np front-end launches {np_launches} in {n_iter} steps")
     metrics_np = {**result_np.test_metrics, **result_np.result_metrics}
     check(len(result_np.result_metrics) == 3 and all(math.isfinite(v) for v in metrics_np.values()),
           f"np test metrics not finite: {metrics_np}")
@@ -1213,6 +1285,25 @@ def main() -> None:
               f"{times[name][0]:.4f} ms, plain torch {times[name][1]:.4f} ms (runs: plain "
               f"{p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})", flush=True)
     del mids, streams, cot
+    args, bars = front_inputs(dev, N_PATHS_1M, torch.float32, 10, True)
+    for name, kernel, plain, a in (("K9", front_streams, front_streams_plain, args),
+                                   ("K10", front_streams_bwd, front_streams_bwd_plain, (*args[:4], *bars))):
+        k_fn, p_fn = lambda: kernel(*a), lambda: plain(*a)
+        p1, k1, k2, p2 = time_ms(p_fn, 5), time_ms(k_fn, 20), time_ms(k_fn, 20), time_ms(p_fn, 5)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[timing] {name} front end (n={N_PATHS_1M}, d 4, F 64, w0 64): kernel {times[name][0]:.4f} ms, "
+              f"plain torch {times[name][1]:.4f} ms (runs: plain {p1:.4f}, kernel {k1:.4f}, kernel "
+              f"{k2:.4f}, plain {p2:.4f})", flush=True)
+    x_, v_, *leaves = args
+
+    def front_torch():  # the same front end as PyTorch operations, forward and backward
+        ls = [t.detach().requires_grad_() for t in leaves]
+        torch.autograd.backward(front_streams_plain(x_, v_, *ls), bars)
+
+    front_torch_ms = time_ms(front_torch, 5)
+    print(f"[timing] the front end as PyTorch operations, forward and backward (n={N_PATHS_1M}): "
+          f"{front_torch_ms:.4f} ms; K9 + K10 {times['K9'][0] + times['K10'][0]:.4f} ms", flush=True)
+    del args, bars, x_, v_, leaves
     for n, widths, what in ((N_POINTS_XL, WIDTHS, "XL"), (N_POINTS_OFFLINE, WIDTHS_OFFLINE, "offline")):
         mids, streams, cot = pointwise_inputs(dev, n, torch.float32, 7, widths)
         k3_ms = time_ms(lambda: mlp_grad_quad(mids, "tanh", *streams), 10)
@@ -1245,8 +1336,9 @@ def main() -> None:
               f"plain {p2:.4f})", flush=True)
     del mids, tens, cot
 
-    # S1-S3 at their scripts' shapes, beside one PyTorch call for the same function
-    library = {}
+    # S1-S3 at their scripts' shapes, beside one PyTorch call for the same function;
+    # K9's and K10's library_ms: the PyTorch front end, forward and backward
+    library = {"K9": front_torch_ms, "K10": front_torch_ms}
     gen_s = torch.Generator().manual_seed(12)
     ax_s, av_s = (torch.randn((s1.BI, s1.W0), generator=gen_s).to(dev) for _ in range(2))
     ar_s = torch.randn((s1.N_REFS, s1.W0), generator=gen_s).to(dev)
@@ -1324,6 +1416,15 @@ def main() -> None:
     # at every layer, so the q stream's two are not computed (the first
     # design computed all 12: its bound was 12 / 10 of this one)
     bounds["K4"] = bound(4 * N_POINTS * (7 * WIDTHS[0] + 1), 2.0 * N_POINTS * K4_PRODUCTS * F)
+    # K9: x, v in; z1, dz1, d2z1, cos p, sin p out; three streams over the
+    # rows of W0 (d2z1 has no x rows).  K10: x, v and five cotangents in,
+    # W0, b0, B out; the weight gradients (three streams) and the cotangents
+    # of cos p and sin p (three products over w0 of the 2F cos and sin rows)
+    fd, fnf, fw = FRONT
+    bounds["K9"] = bound(4 * N_PATHS_1M * (2 * fd + 3 * fw + 2 * fnf),
+                         2.0 * N_PATHS_1M * (3 * 2 * fnf + 2 * fd) * fw)
+    bounds["K10"] = bound(4 * N_PATHS_1M * (2 * fd + 3 * fw + 2 * fnf),
+                          2.0 * N_PATHS_1M * ((3 * 2 * fnf + 2 * fd) * fw + 3 * 2 * fnf * fw + 2 * 2 * fd * fnf))
     pairs = float(KMV_NT * KMV_N * KMV_N)
     x_bytes = 4 * (3 * KMV_NT * KMV_N * KMV_WIDTHS[0] + KMV_N + 2 * KMV_NT * KMV_N
                    + KMV_NT * KMV_N * KMV_WIDTHS[0])  # ax, av, ar, mask in; value, hess, s_dz0 out
@@ -1374,6 +1475,14 @@ def main() -> None:
         rows_out.append(row(kid, name, "pde_inverse_torch/csrc/pointwise.cu",
                             f"pde_inverse_tpu/ops/pallas/pointwise_kernel.py:{line}", np_launches[kid],
                             k34_err[kid], *times[kid]))
+    for kid, name in (("K9", "K9 Fourier front end: first-layer streams z1, dz1, d2z1 and cos p, sin p of "
+                       "[x, cos xB, sin xB] (timed: 1,000,000 points; library_ms: the PyTorch front end, "
+                       "forward and backward)"),
+                      ("K10", "K10 VJP of K9: gradients of W0, b0 and B from the cotangents of its five "
+                       "outputs (timed: 1,000,000 points; library_ms as K9's)")):
+        rows_out.append(row(kid, name, "pde_inverse_torch/csrc/pointwise.cu",
+                            "none: XLA's fusion of pde_inverse_tpu/losses/fused_pointwise.py:68-87",
+                            np_launches[kid], k910_err[kid], *times[kid]))
     for kid, name, replaces in (
         ("K5", "K5 pairwise mean-field sums, |f|^2 head (value, vHv, dPhi/dz0 over refs) through k5_kernel "
          "(hidden widths <= 32: K7's thread per point, the feature layer streamed in chunks of 4)",

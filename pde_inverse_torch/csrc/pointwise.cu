@@ -95,6 +95,57 @@
 // design's 10.5 ms.  The same products on the tensor cores (3xTF32 mma.sync)
 // were tried for the weight gradients and lost to the cost of splitting the
 // fragments.
+//
+// K9 and K10: the Fourier front end of a PotentialMLP and its VJP.  They
+// replace no TPU kernel: the JAX package leaves this front end to XLA's
+// fusion (pde_inverse_tpu/losses/fused_pointwise.py:68-87), which keeps
+// p = x B, dp = v B, cos p, sin p and dp^2 out of memory; run as PyTorch
+// operations it is ~95 kernels a step that each read and write [n, 64]
+// tensors.  K9 (entry front_streams) gives the first-layer streams
+//   z1 = x W0y + b0 + cos p W0c + sin p W0s
+//   dz1 = v W0y + (-sin p dp) W0c + (cos p dp) W0s
+//   d2z1 = (-cos p dp^2) W0c + (-sin p dp^2) W0s
+// and cos p, sin p (which the recovery of grad V from delta reads); K10
+// (entry front_streams_bwd) is their VJP for the cotangents of all five:
+// the gradients of W0 = [W0y; W0c; W0s], b0 and B, with p and dp recomputed.
+// Both take d, F, w0 as template parameters (only the presets' 4, 64, 64 is
+// instantiated), full-precision sincosf and FP32 FMAs throughout.
+//
+// What bounds them on an H100.  FP32 FMAs: K9 3 streams x (2F + d) x w0,
+// 25,088 a point at 4, 64, 64 (0.75 ms at n = 1,000,000 and 67 TFLOP/s),
+// against 32 B in and 768 B (+ 512 B of cos p, sin p) out a point (0.38
+// ms at 3.35 TB/s); K10 two such sets, the weight gradients (six F x w0
+// outer products a point) and the cotangents of cos p and sin p (six F x w0
+// matrix-vector products a point), ~50,000 a point (1.5 ms).  At n =
+// 1,000,000 on an H100 at 700 W K9 takes 1.72 ms (44 % of its bound) and
+// K10 3.55 ms (43 %; 128 registers, two blocks an SM), against 16.7 ms for
+// the same front end as PyTorch operations, forward and backward.
+//
+// K9's design: K3's.  A tile of 32 points stages the three streams' inputs
+// feature-major in shared memory ([stream][row][point], rows x | cos | sin,
+// v | -sin dp | cos dp, 0 | -cos dp^2 | -sin dp^2), and a lane pair owns
+// four points by four features of all three streams, which share W0: one
+// float4 of weights and three of streams feed 48 FMAs.  The first half of
+// the warp reduces over the x and cos rows, the second over the sin rows.
+// Nothing [n, F] goes to memory but cos p and sin p; consecutive lanes own
+// consecutive features, so each stream's row of a point is one 256-byte
+// store of the warp.
+//
+// K10's design.  Persistent blocks walk the tiles in order (as K4's).  A
+// tile's cotangents are staged feature-major beside cos p, sin p and dp.
+// The cotangents of cos p and sin p come from K9's routine with W0^T (a lane
+// pair owns four points by four features, the first half of the warp the
+// cos rows and the second the sin rows, each over all w0 rows), are turned
+// into those of p and dp in registers (the halves exchange their parts by
+// one shuffle) and summed into the gradient of B.  The weight gradients:
+// a thread owns four features f by four columns j, at cos row f and sin row
+// f, and sums over the tile's points from the same staged rows (the products
+// -sin dp, ... formed in registers), then adds them once a tile into the
+// block's sums in shared memory.  At its end a block writes one row of
+// partials; the last block to finish (a ticket taken with one atomic)
+// adds the rows in block order, so the gradients are the same bits on every
+// call with the same n on the same card.  Points past
+// n load zeros and add exactly nothing.
 
 #include <cstdint>
 
@@ -1046,6 +1097,432 @@ cudaError_t k4_blocks_per_sm(size_t smem, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k4_kernel<ACT>, kThreads, smem);
 }
 
+// ---- K9 and K10 -----------------------------------------------------------------
+
+constexpr int kFrontTile = 32;  // points a tile of K9 and K10
+
+__device__ __forceinline__ float at4(float4 a, int u) {
+  return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;
+}
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+// acc + <a, b> over the four points, in order
+__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The front end's shapes: rows of W0 (x, cos, sin), a tile's rows of tile + 4
+// floats, the parameter count of the gradients (W0 [K, w0] row-major, b0, B
+// [d, F]).
+template <int D, int F, int W0>
+struct FrontShape {
+  static constexpr int T = kFrontTile;
+  static constexpr int ROW = T + 4;
+  static constexpr int K = D + 2 * F;
+  static constexpr int NW = K * W0;
+  static constexpr int NP = NW + W0 + D * F;
+  static_assert(D % 4 == 0 && F % 16 == 0 && W0 % 16 == 0, "d in 4s, F and w0 in 16s");
+  static_assert((T / 4) * (W0 / 4) == kThreads / 2 && (T / 4) * (F / 4) == kThreads / 2,
+                "one pass of the block's lane pairs over a tile's products");
+  static_assert(kThreads == 256 && D * W0 <= kThreads,
+                "16 x 16 owners of the Fourier rows' gradients; a thread an entry of W0y");
+  // K9: the three streams' inputs, K rows each
+  static constexpr int K9_FLOATS = 3 * K * ROW;
+  // K10: three cotangent streams (w0 rows), cos p / sin p / dp (F rows), x and
+  // v (d rows), the block's sums of the gradients (the Fourier rows of W0;
+  // B's by the tile's point groups; W0y; b0), a flag
+  static constexpr int K10_COT = 0;
+  static constexpr int K10_CSE = 3 * W0 * ROW;
+  static constexpr int K10_XV = K10_CSE + 3 * F * ROW;
+  static constexpr int K10_ACC = K10_XV + 2 * D * ROW;
+  static constexpr int K10_GB = K10_ACC + 2 * F * W0;
+  static constexpr int K10_GY = K10_GB + (T / 4) * D * F;
+  static constexpr int K10_FLAG = K10_GY + D * W0 + W0;
+  static constexpr int K10_FLOATS = K10_FLAG + 4;
+  static_assert(NP % 4 == 0, "the partial rows are float4s");
+};
+
+template <int D, int F, int W0>
+__global__ void __launch_bounds__(kThreads, 2)
+    k9_kernel(int n, const float* __restrict__ x, int ldx, const float* __restrict__ v, int ldv,
+              const float* __restrict__ B, const float* __restrict__ W, const float* __restrict__ b0,
+              float* __restrict__ z1, float* __restrict__ dz1, float* __restrict__ d2z1,
+              float* __restrict__ cosp, float* __restrict__ sinp) {
+  using S = FrontShape<D, F, W0>;
+  constexpr int T = S::T, ROW = S::ROW, K = S::K;
+  constexpr int SS = K * ROW;  // floats between two streams
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int base = blockIdx.x * T;
+
+  // the streams' inputs; consecutive threads take consecutive features of a
+  // point, so that cos p and sin p are written in rows
+  for (int idx = threadIdx.x; idx < T * F; idx += kThreads) {
+    const int c = idx / F;
+    const int f = idx - c * F;
+    const int pt = base + c;
+    float p = 0.0f, e = 0.0f;
+    if (pt < n) {
+#pragma unroll
+      for (int dd = 0; dd < D; ++dd) {
+        const float b = __ldg(B + dd * F + f);
+        p = fmaf(x[static_cast<size_t>(pt) * ldx + dd], b, p);
+        e = fmaf(v[static_cast<size_t>(pt) * ldv + dd], b, e);
+      }
+    }
+    float s, co;
+    sincosf(p, &s, &co);
+    const float ee = e * e;
+    float* r = sm + (D + f) * ROW + c;
+    r[0] = co;
+    r[F * ROW] = s;
+    r[SS] = -(s * e);
+    r[SS + F * ROW] = co * e;
+    r[2 * SS] = -(co * ee);
+    r[2 * SS + F * ROW] = -(s * ee);
+    if (pt < n) {
+      cosp[static_cast<size_t>(pt) * F + f] = co;
+      sinp[static_cast<size_t>(pt) * F + f] = s;
+    }
+  }
+  for (int idx = threadIdx.x; idx < T * D; idx += kThreads) {
+    const int c = idx / D;
+    const int dd = idx - c * D;
+    const int pt = base + c;
+    sm[dd * ROW + c] = pt < n ? x[static_cast<size_t>(pt) * ldx + dd] : 0.0f;
+    sm[SS + dd * ROW + c] = pt < n ? v[static_cast<size_t>(pt) * ldv + dd] : 0.0f;
+  }
+  __syncthreads();
+
+  // four points by four features a lane pair; the first half of the warp
+  // takes the x rows (no d2z1 part) and the cos rows, the second the sin rows
+  const int lane = threadIdx.x & 31;
+  const bool second = lane >= 16;
+  const int slot = (threadIdx.x >> 5) * 16 + (lane & 15);
+  const int jg = slot % (W0 / 4);
+  const int pg = slot / (W0 / 4);
+  float4 o[3][4];
+  zero4(o);
+  if (!second) product4<true>(o, W + jg * 4, W0, sm + pg * 4, SS, ROW, D);
+  const int r0 = D + (second ? F : 0);
+  product4<false>(o, W + r0 * W0 + jg * 4, W0, sm + r0 * ROW + pg * 4, SS, ROW, F);
+  join_halves<false>(o);
+
+  const int j = jg * 4 + (second ? 2 : 0);
+  float* out[3] = {z1, dz1, d2z1};
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const float4 a = pick(second, o[s][0], o[s][2]);
+    const float4 b = pick(second, o[s][1], o[s][3]);
+    const float ba = s == 0 ? __ldg(b0 + j) : 0.0f;
+    const float bb = s == 0 ? __ldg(b0 + j + 1) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int pt = base + pg * 4 + u;
+      if (pt < n) {
+        *reinterpret_cast<float2*>(out[s] + static_cast<size_t>(pt) * W0 + j) =
+            make_float2(at4(a, u) + ba, at4(b, u) + bb);
+      }
+    }
+  }
+}
+
+template <int D, int F, int W0>
+__global__ void __launch_bounds__(kThreads, 2)
+    k10_kernel(int n, const float* __restrict__ x, int ldx, const float* __restrict__ v, int ldv,
+               const float* __restrict__ B, const float* __restrict__ Wt,
+               const float* __restrict__ g_z1, const float* __restrict__ g_dz1,
+               const float* __restrict__ g_d2z1, const float* __restrict__ g_cos,
+               const float* __restrict__ g_sin, float* __restrict__ partials,
+               unsigned int* __restrict__ ticket, float* __restrict__ grads) {
+  using S = FrontShape<D, F, W0>;
+  constexpr int T = S::T, ROW = S::ROW, K = S::K, NW = S::NW, NP = S::NP;
+  constexpr int CS = W0 * ROW;  // floats between two cotangent streams
+  constexpr int TS = F * ROW;   // between the cos p, sin p and dp rows
+  constexpr int NI = F / 16;    // features a thread owns in the weight gradients
+  constexpr int NM = W0 / 16;   // columns
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* cot = sm + S::K10_COT;
+  float* cse = sm + S::K10_CSE;
+  float* xv = sm + S::K10_XV;
+  float* acc = sm + S::K10_ACC;  // [2F][w0]: the cos rows, then the sin rows
+  float* acc_b = sm + S::K10_GB;  // [T / 4][d][F]: B's, by the point group of a lane pair
+  float* acc_y = sm + S::K10_GY;  // [d][w0]: W0y's, then b0's [w0]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const bool second = lane >= 16;
+  const int slot = (tid >> 5) * 16 + (lane & 15);
+  const int kg = slot % (F / 4);
+  const int pg = slot / (F / 4);
+  const int fq = tid >> 4;  // the weight gradients' features fq + 16 i ...
+  const int jq = tid & 15;  // ... by columns jq + 16 m
+  const int n_tiles = (n + T - 1) / T;
+
+  for (int e = tid; e < S::K10_FLAG - S::K10_ACC; e += kThreads) acc[e] = 0.0f;
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    // the cotangents of the streams, 12 loads a thread in flight
+    {
+      const float* src[3] = {g_z1, g_dz1, g_d2z1};
+      const int live = min(T, n - base) * W0;
+      for (int i0 = tid; i0 < T * W0; i0 += 4 * kThreads) {
+        float val[4][3];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int s = 0; s < 3; ++s) {
+            const int idx = i0 + u * kThreads;
+            val[u][s] = idx < live ? src[s][static_cast<size_t>(base) * W0 + idx] : 0.0f;
+          }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int idx = i0 + u * kThreads;
+          if (idx < T * W0) {
+            const int c = idx / W0;
+            const int jj = idx - c * W0;
+#pragma unroll
+            for (int s = 0; s < 3; ++s) cot[s * CS + jj * ROW + c] = val[u][s];
+          }
+        }
+      }
+    }
+    // cos p, sin p, dp; consecutive threads take consecutive points
+    for (int idx = tid; idx < T * F; idx += kThreads) {
+      const int f = idx / T;
+      const int c = idx - f * T;
+      const int pt = base + c;
+      float p = 0.0f, e = 0.0f;
+      if (pt < n) {
+#pragma unroll
+        for (int dd = 0; dd < D; ++dd) {
+          const float b = __ldg(B + dd * F + f);
+          p = fmaf(x[static_cast<size_t>(pt) * ldx + dd], b, p);
+          e = fmaf(v[static_cast<size_t>(pt) * ldv + dd], b, e);
+        }
+      }
+      float s, co;
+      sincosf(p, &s, &co);
+      cse[f * ROW + c] = co;
+      cse[TS + f * ROW + c] = s;
+      cse[2 * TS + f * ROW + c] = e;
+    }
+    for (int idx = tid; idx < T * D; idx += kThreads) {
+      const int dd = idx / T;
+      const int c = idx - dd * T;
+      const int pt = base + c;
+      xv[dd * ROW + c] = pt < n ? x[static_cast<size_t>(pt) * ldx + dd] : 0.0f;
+      xv[(D + dd) * ROW + c] = pt < n ? v[static_cast<size_t>(pt) * ldv + dd] : 0.0f;
+    }
+    __syncthreads();
+
+    // the cotangents of cos p (first half) or sin p (second) at four points
+    // by the features 4 kg + c, from the three streams: s_bar W^T
+    {
+      float4 o[3][4];
+      zero4(o);
+      product4<false>(o, Wt + D + (second ? F : 0) + kg * 4, K, cot + pg * 4, CS, ROW, W0);
+      // the half's cotangent of cos p or sin p given from outside, a row a point
+      float4 g_out[4];
+      const float* g_trig = second ? g_sin : g_cos;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int pt = base + pg * 4 + u;
+        g_out[u] = pt < n ? *reinterpret_cast<const float4*>(g_trig + static_cast<size_t>(pt) * F + kg * 4)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = kg * 4 + c;
+        const float4 cv = ld4(cse + f * ROW + pg * 4);
+        const float4 sv = ld4(cse + TS + f * ROW + pg * 4);
+        const float4 ev = ld4(cse + 2 * TS + f * ROW + pg * 4);
+        float pb[4], eb[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float co = at4(cv, u), si = at4(sv, u), e = at4(ev, u);
+          const float zc = at4(o[0][c], u), pc = at4(o[1][c], u), qc = at4(o[2][c], u);
+          const float ee = e * e;
+          const float g = at4(g_out[u], c);
+          float P, E;
+          if (!second) {  // cos p's: -sin p (Zc + g_cos) - cos p dp Pc + sin p dp^2 Qc
+            P = fmaf(-si, zc + g, fmaf(-(co * e), pc, (si * ee) * qc));
+            E = fmaf(-si, pc, -2.0f * (co * e) * qc);
+          } else {  // sin p's: cos p (Zs + g_sin) - sin p dp Ps - cos p dp^2 Qs
+            P = fmaf(co, zc + g, fmaf(-(si * e), pc, -(co * ee) * qc));
+            E = fmaf(co, pc, -2.0f * (si * e) * qc);
+          }
+          pb[u] = P + __shfl_xor_sync(kFull, P, 16);
+          eb[u] = E + __shfl_xor_sync(kFull, E, 16);
+        }
+        // B's gradient, this half's dims: x p_bar + v dp_bar over the points
+#pragma unroll
+        for (int h = 0; h < D / 2; ++h) {
+          const int dd = (second ? D / 2 : 0) + h;
+          const float4 xd = ld4(xv + dd * ROW + pg * 4);
+          const float4 vd = ld4(xv + (D + dd) * ROW + pg * 4);
+          float a = 0.0f;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            a = fmaf(at4(xd, u), pb[u], a);
+            a = fmaf(at4(vd, u), eb[u], a);
+          }
+          acc_b[(pg * D + dd) * F + f] += a;
+        }
+      }
+    }
+
+    // the Fourier rows' weight gradients: cos row f += cos p zbar - sin p dp
+    // pbar - cos p dp^2 qbar, sin row f += sin p zbar + cos p dp pbar - sin p
+    // dp^2 qbar, one stream at a time
+    {
+      float ac[NI][NM], as[NI][NM];
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int m = 0; m < NM; ++m) ac[i][m] = as[i][m] = 0.0f;
+#pragma unroll 1
+      for (int q = 0; q < T / 4; ++q) {
+        const int po = q * 4;
+        float4 cb[NM];
+#pragma unroll
+        for (int m = 0; m < NM; ++m) cb[m] = ld4(cot + (jq + 16 * m) * ROW + po);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int f = fq + 16 * i;
+          const float4 cv = ld4(cse + f * ROW + po);
+          const float4 sv = ld4(cse + TS + f * ROW + po);
+#pragma unroll
+          for (int m = 0; m < NM; ++m) {
+            ac[i][m] = dot4(ac[i][m], cv, cb[m]);
+            as[i][m] = dot4(as[i][m], sv, cb[m]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < NM; ++m) cb[m] = ld4(cot + CS + (jq + 16 * m) * ROW + po);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int f = fq + 16 * i;
+          const float4 cv = ld4(cse + f * ROW + po);
+          const float4 sv = ld4(cse + TS + f * ROW + po);
+          const float4 ev = ld4(cse + 2 * TS + f * ROW + po);
+          const float4 nse = mul4(make_float4(-sv.x, -sv.y, -sv.z, -sv.w), ev);
+          const float4 ce = mul4(cv, ev);
+#pragma unroll
+          for (int m = 0; m < NM; ++m) {
+            ac[i][m] = dot4(ac[i][m], nse, cb[m]);
+            as[i][m] = dot4(as[i][m], ce, cb[m]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < NM; ++m) cb[m] = ld4(cot + 2 * CS + (jq + 16 * m) * ROW + po);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int f = fq + 16 * i;
+          const float4 cv = ld4(cse + f * ROW + po);
+          const float4 sv = ld4(cse + TS + f * ROW + po);
+          const float4 ev = ld4(cse + 2 * TS + f * ROW + po);
+          const float4 ee = mul4(ev, ev);
+          const float4 ncee = mul4(make_float4(-cv.x, -cv.y, -cv.z, -cv.w), ee);
+          const float4 nsee = mul4(make_float4(-sv.x, -sv.y, -sv.z, -sv.w), ee);
+#pragma unroll
+          for (int m = 0; m < NM; ++m) {
+            ac[i][m] = dot4(ac[i][m], ncee, cb[m]);
+            as[i][m] = dot4(as[i][m], nsee, cb[m]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          const int f = fq + 16 * i;
+          const int jj = jq + 16 * m;
+          acc[f * W0 + jj] += ac[i][m];
+          acc[(F + f) * W0 + jj] += as[i][m];
+        }
+    }
+
+    // W0y's entry (tid / w0, tid % w0) += x zbar + v pbar; b0 += zbar
+    if (tid < D * W0) {
+      const int r = tid / W0;
+      const int jj = tid - r * W0;
+      float a = 0.0f, bs = 0.0f;
+#pragma unroll
+      for (int q = 0; q < T / 4; ++q) {
+        const float4 zb = ld4(cot + jj * ROW + q * 4);
+        a = dot4(a, ld4(xv + r * ROW + q * 4), zb);
+        a = dot4(a, ld4(xv + (D + r) * ROW + q * 4), ld4(cot + CS + jj * ROW + q * 4));
+        bs += (zb.x + zb.y) + (zb.z + zb.w);
+      }
+      acc_y[tid] += a;
+      if (r == 0) acc_y[D * W0 + jj] += bs;
+    }
+    __syncthreads();
+  }
+
+  // the block's row of partials: W0 [K, w0], b0, then B [d, F] summed over
+  // the tile's point groups in order
+  float* part = partials + static_cast<size_t>(blockIdx.x) * NP;
+  for (int e = tid; e < D * W0; e += kThreads) part[e] = acc_y[e];
+  for (int e = tid; e < W0; e += kThreads) part[NW + e] = acc_y[D * W0 + e];
+  for (int e = tid; e < 2 * F * W0; e += kThreads) part[D * W0 + e] = acc[e];
+  for (int e = tid; e < D * F; e += kThreads) {
+    float s = 0.0f;
+    for (int q = 0; q < T / 4; ++q) s += acc_b[q * D * F + e];
+    part[NW + W0 + e] = s;
+  }
+
+  // the last block to finish adds the rows in block order
+  __threadfence();
+  __syncthreads();
+  unsigned int* last = reinterpret_cast<unsigned int*>(sm + S::K10_FLAG);
+  if (tid == 0) *last = atomicAdd(ticket, 1u) == gridDim.x - 1 ? 1u : 0u;
+  __syncthreads();
+  if (*last == 0u) return;
+  __threadfence();
+  // a thread sums R float4s of every row, all in flight together (one row
+  // of the block's is ~35 KB; the rows come from L2)
+  constexpr int NP4 = NP / 4;
+  constexpr int R = (NP4 + kThreads - 1) / kThreads;
+  float4 s[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) s[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* rows4 = reinterpret_cast<const float4*>(partials);
+#pragma unroll 2
+  for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {
+    float4 r[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int e = tid + q * kThreads;
+      r[q] = e < NP4 ? __ldcg(rows4 + static_cast<size_t>(b) * NP4 + e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) s[q] = add4(s[q], r[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int e = tid + q * kThreads;
+    if (e < NP4) reinterpret_cast<float4*>(grads)[e] = s[q];
+  }
+}
+
+// K9's and K10's dynamic shared memory for (d, F, w0), or -1 where no
+// instantiation has that shape (the wrapper's FRONT_SHAPES names the same)
+long long front_shared_bytes(int d, int nf, int w0, bool bwd) {
+  if (d == 4 && nf == 64 && w0 == 64) {
+    using S = FrontShape<4, 64, 64>;
+    return static_cast<long long>(sizeof(float)) * (bwd ? S::K10_FLOATS : S::K9_FLOATS);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on `stream` and
@@ -1167,5 +1644,60 @@ extern "C" int k4_mlp_grad_quad_bwd(int device, int act, int n_mid, const int* w
   if (err != cudaSuccess) return static_cast<int>(err);
   k4_reduce<<<(n_params + kThreads - 1) / kThreads, kThreads, 0, st>>>(partials, grads, blocks,
                                                                         n_params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident K10 blocks per SM; the wrapper sizes the grid (and the partials)
+// from it.
+extern "C" int k10_max_blocks(int device, int d, int nf, int w0, int* blocks) {
+  const long long smem = front_shared_bytes(d, nf, w0, true);
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_shared(k10_kernel<4, 64, 64>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k10_kernel<4, 64, 64>, kThreads, smem));
+}
+
+// x [n, d] and v [n, d] with row strides ldx, ldv; B [d, F]; W = W0 [d + 2F,
+// w0] row-major; outputs z1, dz1, d2z1 [n, w0] and cos p, sin p [n, F]; one
+// block a tile of 32 points.
+extern "C" int k9_front_streams(int device, int d, int nf, int w0, int n, const float* x, int ldx,
+                                const float* v, int ldv, const float* B, const float* W,
+                                const float* b0, float* z1, float* dz1, float* d2z1, float* cosp,
+                                float* sinp, void* stream) {
+  const long long smem = front_shared_bytes(d, nf, w0, false);
+  if (n <= 0 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_shared(k9_kernel<4, 64, 64>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k9_kernel<4, 64, 64><<<(n + kFrontTile - 1) / kFrontTile, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      n, x, ldx, v, ldv, B, W, b0, z1, dz1, d2z1, cosp, sinp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Wt = W0^T [w0, d + 2F] row-major (a Dense layer's weight as PyTorch keeps
+// it); the cotangents of z1, dz1, d2z1 [n, w0] and of cos p, sin p [n, F];
+// partials: [blocks, n_params] scratch; ticket: one unsigned int of scratch,
+// set to 0 on the stream before the launch; grads [n_params]: W0 [d + 2F,
+// w0] row-major, b0 [w0], B [d, F].
+extern "C" int k10_front_streams_bwd(int device, int d, int nf, int w0, int n, int blocks,
+                                     const float* x, int ldx, const float* v, int ldv,
+                                     const float* B, const float* Wt, const float* g_z1,
+                                     const float* g_dz1, const float* g_d2z1, const float* g_cos,
+                                     const float* g_sin, float* partials, unsigned int* ticket,
+                                     float* grads, void* stream) {
+  const long long smem = front_shared_bytes(d, nf, w0, true);
+  if (n <= 0 || blocks <= 0 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_shared(k10_kernel<4, 64, 64>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k10_kernel<4, 64, 64><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      n, x, ldx, v, ldv, B, Wt, g_z1, g_dz1, g_d2z1, g_cos, g_sin, partials, ticket, grads);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,11 @@ differentiable w.r.t. ``params`` with ``torch.autograd`` (and, on CPU
 tensors, with ``torch.func.grad``).  Decomposition:
 
 * the first linear stage (plain rows W0y plus the Fourier rows W0c/W0s on
-  [cos(xB), sin(xB)]) is evaluated here as per-point streams
-  (z1, d_v z1, d_v^2 z1) at the first-layer preactivation;
+  [cos(xB), sin(xB)]) gives per-point streams (z1, d_v z1, d_v^2 z1) at the
+  first-layer preactivation: with a Fourier front end K9
+  (``ops/cuda/pointwise.front_streams``), with K10 as its VJP, where
+  ``front_fits`` names the shape, else its plain version; without one,
+  z1 = x W0y + b0 here;
 * K3 (``ops/cuda/pointwise.mlp_grad_quad``) propagates them through the
   remaining layers and returns {quad, delta = dV/dz1}; K4 is its VJP;
 * nabla comes back through the front end's Jacobian:
@@ -21,12 +24,12 @@ tensors, with ``torch.func.grad``).  Decomposition:
 
 The matrix products outside the kernels are plain ``torch`` ops, as the
 JAX package leaves them to XLA.  Modes (``solver.train.kfp_fused``):
-"auto" runs both kernels on CUDA tensors and leaves CPU tensors on the
-autodiff path; "on" runs K3 and K4; "fwd" runs K3 with the VJP of the
-plain streams; "xla" differentiates the plain streams; "off" is the
-autodiff path (the caller does not call this provider).  On CPU tensors
-"on" and "fwd" run the kernels' plain versions behind the same
-``torch.autograd.Function``.
+"auto" runs the kernels on CUDA tensors and leaves CPU tensors on the
+autodiff path; "on" runs K9, K3, K4 and K10; "fwd" runs K9 and K3 with the
+VJP of the plain versions; "xla" differentiates the plain versions; "off"
+is the autodiff path (the caller does not call this provider).  On CPU
+tensors "on" and "fwd" run the kernels' plain versions behind the same
+``torch.autograd.Function``s.
 """
 
 from __future__ import annotations
@@ -61,30 +64,60 @@ def supported(module) -> bool:
     return isinstance(module, PotentialMLP) and supported_activation(module.activation)
 
 
-def _streams(module, params, x, v):
+def _kernels(mode: str, device: torch.device) -> bool:
+    """Whether `mode` runs the kernels (or, on CPU tensors, their plain
+    versions behind the same autograd Functions)."""
+    return mode in ("on", "fwd") or (mode == "auto" and device.type == "cuda")
+
+
+class _FrontEnd(torch.autograd.Function):
+    """(z1, dz1, d2z1, cos p, sin p) = K9(x, v, B, W0, b0) with the VJP from
+    K10 (``backward_mode="kernel"``) or from differentiating the plain
+    version (``"plain"``).  cos p and sin p are outputs, so that the recovery
+    of nabla reads them and their cotangents reach K10 beside the streams'.
+    K10 gives no gradient for the points x and v."""
+
+    @staticmethod
+    def forward(backward_mode, x, v, B, W0, b0):
+        return pk.front_streams(x, v, B, W0, b0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        backward_mode, *tensors = inputs
+        ctx.backward_mode = backward_mode
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *bars):
+        x, v, B, W0, b0 = ctx.saved_tensors
+        if ctx.backward_mode == "kernel":
+            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+                raise ValueError("the front end's VJP (K10) gives no gradient for x and v")
+            B_bar, W0_bar, b0_bar = pk.front_streams_bwd(x, v, B, W0, *bars)
+            return None, None, None, B_bar, W0_bar, b0_bar
+        _, pullback = vjp(pk.front_streams_plain, x, v, B, W0, b0)
+        return (None, *pullback(bars))
+
+
+def _streams(module, params, x, v, mode):
     """First-layer preactivation streams (z1, d_v z1, d_v^2 z1), the layers
     after the first as [(W [w_in, w_out], b)], and the projection context
     for recovering nabla from delta."""
     dense = lambda k: (params[f"Dense_{k}.weight"].T, params[f"Dense_{k}.bias"])
     W0, b0 = dense(0)
     mids = [dense(k) for k in range(1, module.n_layers)]
-    d = x.shape[-1]
+    d, nf = x.shape[-1], module.fourier_features
     W0y = W0[:d]
-    z1 = x @ W0y + b0
-    dz1 = v @ W0y
-    d2z1 = torch.zeros_like(z1)
-    trig = None
-    if module.fourier_features > 0:
-        nf = module.fourier_features
-        W0c, W0s, B = W0[d: d + nf], W0[d + nf:], params["fourier_B"]
-        p, dp = x @ B, v @ B
-        cosp, sinp = torch.cos(p), torch.sin(p)
-        dp2 = dp * dp
-        z1 = z1 + cosp @ W0c + sinp @ W0s
-        dz1 = dz1 + (-sinp * dp) @ W0c + (cosp * dp) @ W0s
-        d2z1 = d2z1 + (-cosp * dp2) @ W0c + (-sinp * dp2) @ W0s
-        trig = (cosp, sinp, W0c, W0s, B)
-    return mids, z1, dz1, d2z1, trig, W0y
+    if nf == 0:
+        z1 = x @ W0y + b0
+        return mids, z1, v @ W0y, torch.zeros_like(z1), None, W0y
+    B = params["fourier_B"]
+    if _kernels(mode, x.device) and (x.device.type == "cpu" or pk.front_fits(d, nf, W0.shape[1])):
+        streams = _FrontEnd.apply("plain" if mode == "fwd" else "kernel", x, v, B, W0, b0)
+    else:
+        streams = pk.front_streams_plain(x, v, B, W0, b0)
+    z1, dz1, d2z1, cosp, sinp = streams
+    return mids, z1, dz1, d2z1, (cosp, sinp, W0[d: d + nf], W0[d + nf:], B), W0y
 
 
 def _pairs(flat):
@@ -131,14 +164,14 @@ class _FusedSums(torch.autograd.Function):
 def grad_and_quadform(module, params, x: torch.Tensor, v: torch.Tensor, mode: str = "auto"):
     """(nabla V [n, d], v^T Hess V v [n]) for a PotentialMLP, fused.
 
-    mode: 'auto' (K3/K4 on CUDA tensors, the plain streams on CPU), 'on'
-    (K3 and K4), 'fwd' (K3, VJP of the plain streams), 'xla' (the plain
-    streams, differentiated by autograd)."""
+    mode: 'auto' (the kernels on CUDA tensors, the plain versions on CPU),
+    'on' (K9, K3, K4, K10), 'fwd' (K9 and K3, the VJPs of the plain
+    versions), 'xla' (the plain versions, differentiated by autograd)."""
     _check_mode(mode)
     if mode == "off":
         raise ValueError("kfp_fused=off uses the autodiff path; do not call the fused provider")
-    mids, z1, dz1, d2z1, trig, W0y = _streams(module, params, x, v)
-    if mode in ("on", "fwd") or (mode == "auto" and x.device.type == "cuda"):
+    mids, z1, dz1, d2z1, trig, W0y = _streams(module, params, x, v, mode)
+    if _kernels(mode, x.device):
         # the kernels take W [w_in, w_out] row-major
         flat = [t.contiguous() for pair in mids for t in pair]
         quad, delta = _FusedSums.apply(

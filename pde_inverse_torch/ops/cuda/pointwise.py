@@ -24,11 +24,26 @@ share an SM; ``k4_plan`` chooses K4's tile, chunk and where the block keeps
 its weight-gradient sums.  ``mlp_grad_quad.launches`` and
 ``mlp_grad_quad_bwd.launches`` count kernel launches (CPU calls do not
 count).  All arithmetic is float32.
+
+K9 and K10 are the Fourier front end before K3 and its VJP: for the first
+layer W0 [d + 2F, w0] (rows x | cos | sin), b0 [w0] and the frequencies
+B [d, F], ``front_streams`` gives
+
+    z1, dz1, d2z1 [n, w0]   the first-layer streams K3 takes
+    cos p, sin p  [n, F]    p = x B, which the recovery of grad V reads
+
+and ``front_streams_bwd`` the gradients of B, W0 and b0 for the
+cotangents of all five.  They replace XLA's fusion of the same function in
+the JAX package (``pde_inverse_tpu/losses/fused_pointwise.py::_streams``).
+``front_fits`` says which (d, F, w0) have an instantiation; the counters
+``front_streams.launches`` and ``front_streams_bwd.launches`` count kernel
+launches as K3's and K4's do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -47,6 +62,8 @@ K3_CHUNK = 64  # most output features of the last layer K3 holds at a time
 K4_THREADS = 256  # csrc/pointwise.cu kThreads
 K4_TILES = (64, 32, 16, 8)  # points per K4 tile, largest first
 K4_CHUNK = 64  # most output features of the last layer held at a time
+FRONT_SHAPES = ((4, 64, 64),)  # (d, F, w0) that csrc/pointwise.cu instantiates K9 and K10 at
+FRONT_TILE = 32  # points a K9 block, a K10 tile
 
 
 # -- plain versions ----------------------------------------------------------------
@@ -103,7 +120,55 @@ def mlp_grad_quad_bwd_plain(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_
     return mids_bar[::-1], zbar, pbar, qbar
 
 
+def front_streams_plain(x, v, B, W0, b0):
+    """K9's plain version: the first-layer streams of the front end [x, cos
+    p, sin p] with p = x B and dp = v B (the math of the JAX package's
+    ``fused_pointwise._streams``).  Returns (z1, dz1, d2z1, cos p, sin p)."""
+    d, nf = B.shape
+    W0y, W0c, W0s = W0[:d], W0[d: d + nf], W0[d + nf:]
+    p, dp = x @ B, v @ B
+    cosp, sinp = torch.cos(p), torch.sin(p)
+    dp2 = dp * dp
+    z1 = x @ W0y + b0 + cosp @ W0c + sinp @ W0s
+    dz1 = v @ W0y + (-sinp * dp) @ W0c + (cosp * dp) @ W0s
+    d2z1 = (-cosp * dp2) @ W0c + (-sinp * dp2) @ W0s
+    return z1, dz1, d2z1, cosp, sinp
+
+
+def front_streams_bwd_plain(x, v, B, W0, g_z1, g_dz1, g_d2z1, g_cos, g_sin):
+    """K10's plain version: the VJP of ``front_streams_plain`` for the
+    cotangents of its five outputs, with p and dp recomputed, as K10 computes
+    it.  Returns (B_bar [d, F], W0_bar [d + 2F, w0], b0_bar [w0])."""
+    d, nf = B.shape
+    W0c, W0s = W0[d: d + nf], W0[d + nf:]
+    p, e = x @ B, v @ B
+    c, s = torch.cos(p), torch.sin(p)
+    ee = e * e
+    W0_bar = torch.cat([x.T @ g_z1 + v.T @ g_dz1,
+                        c.T @ g_z1 - (s * e).T @ g_dz1 - (c * ee).T @ g_d2z1,
+                        s.T @ g_z1 + (c * e).T @ g_dz1 - (s * ee).T @ g_d2z1])
+    # the streams' cotangents through the cos and sin rows: s_bar W^T
+    zc, zs = g_z1 @ W0c.T, g_z1 @ W0s.T
+    pc, ps = g_dz1 @ W0c.T, g_dz1 @ W0s.T
+    qc, qs = g_d2z1 @ W0c.T, g_d2z1 @ W0s.T
+    c_bar = zc + e * ps - ee * qc + g_cos
+    s_bar = zs - e * pc - ee * qs + g_sin
+    p_bar = -s * c_bar + c * s_bar
+    e_bar = -s * pc + c * ps - 2.0 * e * (c * qc + s * qs)
+    return x.T @ p_bar + v.T @ e_bar, W0_bar, torch.sum(g_z1, dim=0)
+
+
 # -- kernels -----------------------------------------------------------------------
+
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# K9's and K10's C entries (csrc/pointwise.cu): argument types, return type.
+# Each starts device, d, F, w0; pointers and the stream are c_void_p.
+FRONT_ENTRIES = {
+    "k10_max_blocks": ([_ci] * 4 + [ctypes.POINTER(_ci)], _ci),
+    "k9_front_streams": ([_ci] * 5 + [_vp, _ci, _vp, _ci] + [_vp] * 9, _ci),
+    "k10_front_streams_bwd": ([_ci] * 6 + [_vp, _ci, _vp, _ci] + [_vp] * 11, _ci),
+}
 
 
 def _library() -> ctypes.CDLL:
@@ -119,6 +184,8 @@ def _library() -> ctypes.CDLL:
         lib.k3_max_blocks.argtypes = lib.k4_max_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         for fn in (lib.k3_mlp_grad_quad, lib.k4_mlp_grad_quad_bwd, lib.k3_max_blocks, lib.k4_max_blocks):
             fn.restype = ci
+        for name, (args, ret) in FRONT_ENTRIES.items():
+            getattr(lib, name).argtypes, getattr(lib, name).restype = args, ret
     return lib
 
 
@@ -356,3 +423,109 @@ def mlp_grad_quad_bwd(mids: Mids, act_name: str, z1, dz1, d2z1, g_quad, g_delta)
 
 mlp_grad_quad.launches = 0
 mlp_grad_quad_bwd.launches = 0
+
+
+def front_fits(d: int, nf: int, w0: int) -> bool:
+    """Whether K9 and K10 take the front end of `d` inputs, `nf` Fourier
+    features and a first layer of width `w0`: an instantiation has that
+    shape (``FRONT_SHAPES``).  The provider keeps the plain streams
+    elsewhere, and the counters then stay as they are."""
+    return (d, nf, w0) in FRONT_SHAPES
+
+
+def _front_check(x, v, B, W0, tensors, name: str):
+    """(n, d, F, w0) of a front end the kernels take; raises otherwise."""
+    if x.ndim != 2 or v.shape != x.shape or B.ndim != 2 or B.shape[0] != x.shape[1] or W0.ndim != 2:
+        raise ValueError(f"{name}: x, v [n, d] and B [d, F], got {tuple(x.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(B.shape)}")
+    (n, d), nf, w0 = x.shape, B.shape[1], W0.shape[1]
+    if W0.shape[0] != d + 2 * nf:
+        raise ValueError(f"{name}: W0 must be [{d + 2 * nf}, w0], got {tuple(W0.shape)}")
+    for t in (x, v, B, W0, *tensors):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: every input must be float32 on {x.device}, got {t.dtype} on {t.device}")
+    if not front_fits(d, nf, w0):
+        raise ValueError(f"{name}: no instantiation for d, F, w0 = {d}, {nf}, {w0} (FRONT_SHAPES {FRONT_SHAPES})")
+    if not 1 <= n <= (2**31 - 1) // max(w0, nf):
+        raise ValueError(f"{name}: need 1 <= n and n * {max(w0, nf)} < 2^31, got n = {n}")
+    return n, d, nf, w0
+
+
+def _unit_rows(t: torch.Tensor):
+    """`t` [n, d] with unit column stride, and its row stride (the x and v
+    halves of a [n, 2d] batch pass as they are)."""
+    if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous, at an address the kernels' float4 loads take."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def front_streams(x, v, B, W0, b0):
+    """(z1, dz1, d2z1 [n, w0], cos p, sin p [n, F]).  CUDA tensors: the K9
+    kernel (a block a tile of 32 points, nothing summed across points: two
+    calls give bitwise-equal results); CPU tensors: ``front_streams_plain``."""
+    if x.device.type == "cpu":
+        return front_streams_plain(x, v, B, W0, b0)
+    n, d, nf, w0 = _front_check(x, v, B, W0, (b0,), "K9")
+    if tuple(b0.shape) != (w0,):
+        raise ValueError(f"K9: b0 must be [{w0}], got {tuple(b0.shape)}")
+    (x, ldx), (v, ldv) = _unit_rows(x), _unit_rows(v)
+    B, W, b0 = B.contiguous(), _aligned(W0), b0.contiguous()
+    outs = [torch.empty((n, w), dtype=torch.float32, device=x.device) for w in (w0, w0, w0, nf, nf)]
+    device = device_index(x)
+    err = _library().k9_front_streams(
+        device, d, nf, w0, n, x.data_ptr(), ldx, v.data_ptr(), ldv, B.data_ptr(), W.data_ptr(),
+        b0.data_ptr(), *(o.data_ptr() for o in outs), current_stream(device))
+    _raise(err, "K9")
+    front_streams.launches += 1
+    return tuple(outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _k10_grid(device: int, d: int, nf: int, w0: int) -> int:
+    """K10's blocks: as many as are resident on the card at once."""
+    per_sm = ctypes.c_int(0)
+    _raise(_library().k10_max_blocks(device, d, nf, w0, ctypes.byref(per_sm)), "K10 occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError("K10: no block fits an SM")
+    return per_sm.value * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def front_streams_bwd(x, v, B, W0, g_z1, g_dz1, g_d2z1, g_cos, g_sin):
+    """(B_bar [d, F], W0_bar [d + 2F, w0], b0_bar [w0]).  CUDA tensors: the
+    K10 kernel (persistent blocks each sum their tiles into a row of
+    partials, and the last block to finish adds the rows in block order:
+    two calls give bitwise-equal results); CPU tensors:
+    ``front_streams_bwd_plain``."""
+    if x.device.type == "cpu":
+        return front_streams_bwd_plain(x, v, B, W0, g_z1, g_dz1, g_d2z1, g_cos, g_sin)
+    bars = (g_z1, g_dz1, g_d2z1, g_cos, g_sin)
+    n, d, nf, w0 = _front_check(x, v, B, W0, bars, "K10")
+    g_z1, g_dz1, g_d2z1 = (_rows(t, n, w0, "the streams' cotangents") for t in bars[:3])
+    g_cos, g_sin = (_aligned(_rows(t, n, nf, "the cotangents of cos p and sin p")) for t in bars[3:])
+    (x, ldx), (v, ldv) = _unit_rows(x), _unit_rows(v)
+    B, Wt = B.contiguous(), _aligned(W0.t())
+    device = device_index(x)
+    blocks = min(-(-n // FRONT_TILE), _k10_grid(device, d, nf, w0))
+    rows = d + 2 * nf
+    n_params = rows * w0 + w0 + d * nf
+    # the blocks' rows of partials, then the ticket that finds the last block
+    scratch = torch.empty((blocks * n_params + 1,), dtype=torch.float32, device=x.device)
+    grads = torch.empty((n_params,), dtype=torch.float32, device=x.device)
+    err = _library().k10_front_streams_bwd(
+        device, d, nf, w0, n, blocks, x.data_ptr(), ldx, v.data_ptr(), ldv, B.data_ptr(), Wt.data_ptr(),
+        g_z1.data_ptr(), g_dz1.data_ptr(), g_d2z1.data_ptr(), g_cos.data_ptr(), g_sin.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 4 * blocks * n_params, grads.data_ptr(), current_stream(device))
+    _raise(err, "K10")
+    front_streams_bwd.launches += 1
+    n_w = rows * w0
+    return grads[n_w + w0:].view(d, nf), grads[:n_w].view(rows, w0), grads[n_w: n_w + w0]
+
+
+front_streams.launches = 0
+front_streams_bwd.launches = 0

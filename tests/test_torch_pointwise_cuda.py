@@ -1,6 +1,6 @@
-"""K3 and K4, the CUDA pointwise kernels, against their plain PyTorch
-versions on the card, at small and full-width shapes.  The gates repeat
-``chip_smoke.py``'s.
+"""K3 and K4, the CUDA pointwise kernels, and K9 and K10, the Fourier front
+end's, against their plain PyTorch versions on the card, at small and
+full-width shapes.  The gates repeat ``chip_smoke.py``'s.
 
 Without a CUDA device every test skips.  On the card:
 
@@ -19,6 +19,10 @@ from pde_inverse_torch.losses import fused_pointwise as fp
 from pde_inverse_torch.models.mlp import PotentialMLP
 from pde_inverse_torch.ops.cuda import pointwise as pt
 from pde_inverse_torch.ops.cuda.pointwise import (
+    front_streams,
+    front_streams_bwd,
+    front_streams_bwd_plain,
+    front_streams_plain,
     mlp_grad_quad,
     mlp_grad_quad_bwd,
     mlp_grad_quad_bwd_plain,
@@ -54,8 +58,9 @@ def _inputs(dev, widths, n, seed=0, dtype=torch.float32):
 
 
 def _flat(out):
-    """K3 (quad, delta) or K4 (mids_bar, a, b, c) -> list of tensors."""
-    if len(out) == 2:
+    """K3 (quad, delta), K4 (mids_bar, a, b, c), K9 (five tensors) or K10
+    (three) -> list of tensors."""
+    if len(out) != 4:
         return list(out)
     return [t for pair in out[0] for t in pair] + list(out[1:])
 
@@ -186,6 +191,81 @@ def test_k4_plan_matches_the_kernel(cuda):
     assert per_sm.value >= 1
 
 
+FRONT = (4, 64, 64)  # the presets' (d, F, w0)
+
+
+def _front_inputs(dev, n, seed=0, dtype=torch.float32, shape=FRONT, batch=False):
+    """(x, v, B, W0, b0) and the cotangents of K9's five outputs, as the KGMM
+    path draws them: |p| reaches tens.  With `batch`, x and v are the halves
+    of one [n, 2d] batch (rows of stride 2d), as the loss passes them."""
+    d, nf, w0 = shape
+    gen = torch.Generator().manual_seed(seed)
+    xv = torch.randn((n, 2 * d), generator=gen) * torch.tensor([2.0] * d + [0.32] * d)
+    B = torch.randn((d, nf), generator=gen)
+    W0 = torch.randn((d + 2 * nf, w0), generator=gen) / (d + 2 * nf) ** 0.5
+    b0 = torch.randn(w0, generator=gen) * 0.1
+    bars = [torch.randn((n, w), generator=gen) for w in (w0, w0, w0, nf, nf)]
+    to = lambda t: t.to(dev, dtype)
+    xv = to(xv)
+    x, v = (xv[:, :d], xv[:, d:]) if batch else (xv[:, :d].contiguous(), xv[:, d:].contiguous())
+    return (x, v, to(B), to(W0), to(b0)), [to(t) for t in bars]
+
+
+# n on both sides of a tile (32 points) and of one pass of K10's persistent
+# blocks, a point alone, and the loss's strided halves of a batch
+@pytest.mark.parametrize("n,batch", [(1, False), (31, False), (32, False), (33, True), (4_099, False),
+                                     (20_011, True), (250_000, True)])
+def test_front_kernels_match_plain_versions(cuda, n, batch):
+    args, bars = _front_inputs(cuda, n, batch=batch)
+    args64, bars64 = _front_inputs(cuda, n, dtype=torch.float64)
+    _gate(front_streams(*args), front_streams_plain(*args), front_streams_plain(*args64))
+    _gate(front_streams_bwd(*args[:4], *bars), front_streams_bwd_plain(*args[:4], *bars),
+          front_streams_bwd_plain(*args64[:4], *bars64))
+
+
+def test_front_kernels_are_bitwise_repeatable(cuda):
+    args, bars = _front_inputs(cuda, 20_011, batch=True)
+    for fn, a in ((front_streams, args), (front_streams_bwd, (*args[:4], *bars))):
+        first, again = fn(*a), fn(*a)
+        assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+def test_front_padded_points_do_not_leak(cuda):
+    """K10's gradients of n = 33 points (a ragged last tile) equal, bit for
+    bit, those of the same points followed by 15 other points with zero
+    cotangents, as the kernel's own padding adds exactly zero."""
+    args, bars = _front_inputs(cuda, 33)
+    extra, _ = _front_inputs(cuda, 15, seed=1)
+    grow = lambda t, e: torch.cat([t, e])
+    zero_pad = lambda t: torch.cat([t, torch.zeros((15,) + t.shape[1:], device=cuda)])
+    want = front_streams_bwd(*args[:4], *bars)
+    got = front_streams_bwd(grow(args[0], extra[0]), grow(args[1], extra[1]), *args[2:4],
+                            *(zero_pad(t) for t in bars))
+    assert all(torch.equal(p, q) for p, q in zip(want, got))
+
+
+def test_front_shapes_match_the_kernel(cuda):
+    """Two K10 blocks (the grid the wrapper sizes) are resident on an SM at
+    the instantiated shape, and the C side refuses any other."""
+    lib = pt._library()
+    for shape in [FRONT, (2, 64, 64), (4, 32, 64), (4, 64, 32)]:
+        per_sm = ctypes.c_int(0)
+        err = lib.k10_max_blocks(torch.cuda.current_device(), *shape, ctypes.byref(per_sm))
+        assert (err == 0) == pt.front_fits(*shape), (shape, err)
+        if err == 0:
+            assert per_sm.value == 2
+
+
+def test_front_counters_count_kernel_launches_only(cuda):
+    args, bars = _front_inputs(cuda, 10)
+    before = (front_streams.launches, front_streams_bwd.launches)
+    front_streams(*args)
+    front_streams_bwd(*args[:4], *bars)
+    front_streams(*(t.cpu() for t in args))
+    front_streams_bwd(*(t.cpu() for t in args[:4]), *(t.cpu() for t in bars))
+    assert (front_streams.launches, front_streams_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
 def test_padded_points_do_not_leak(cuda):
     """The weight gradients of n = 33 points (a ragged last tile) equal, bit
     for bit, those of the same points followed by 15 points with other
@@ -228,10 +308,12 @@ def test_provider_on_the_card_matches_the_cpu(cuda, mode):
         return dict(zip(leaves, torch.autograd.grad(loss(leaves, xx, vv, m), list(leaves.values()))))
 
     g_cpu = grad(params, x, v, "xla")
-    before = (mlp_grad_quad.launches, mlp_grad_quad_bwd.launches)
+    counts = lambda: (mlp_grad_quad.launches, mlp_grad_quad_bwd.launches, front_streams.launches,
+                      front_streams_bwd.launches)
+    before = counts()
     g_gpu = grad({k: t.to(cuda) for k, t in params.items()}, x.to(cuda), v.to(cuda), mode)
-    assert mlp_grad_quad.launches == before[0] + 1
-    assert mlp_grad_quad_bwd.launches == before[1] + (mode != "fwd")
+    # K3 and K9 in every mode, K4 and K10 but under "fwd"
+    assert counts() == tuple(b + k for b, k in zip(before, (1, mode != "fwd", 1, mode != "fwd")))
     for k, g in g_cpu.items():
         assert _rel(g_gpu[k].cpu(), g, float(g.abs().max())) < 3e-4, k
 
