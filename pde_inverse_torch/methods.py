@@ -110,8 +110,7 @@ class ConsistencyBased:
         key_sample, _ = rng.split(key, 2)
         with span("sample"):
             if stream_batch is not None:
-                ds = self.pde_instance.dataset if dataset is None else dataset
-                data = {"initial": ds["initial"], "terminal": ds["terminal"], **stream_batch}
+                data = self.sample_data(key_sample, dataset, stream_batch)
             elif dataset is not None:
                 data = self.sample_data(key_sample, dataset)
             else:
@@ -165,17 +164,21 @@ class ConsistencyBased:
 
     # -- data policy -----------------------------------------------------------
 
-    def sample_data(self, key: int, dataset=None) -> Dict[str, torch.Tensor]:
+    def sample_data(self, key: int, dataset=None, stream_batch=None) -> Dict[str, torch.Tensor]:
         """One step's {initial, terminal, 0T} batch.  Online, boundary and
         path share the key layout of the problem's combined
         sample_ground_truth; offline, the subsample of `dataset` (by default
-        the problem's) drawn by ``offline_draw``."""
+        the problem's) drawn by ``offline_draw``, or with a `stream_batch`
+        (the streaming loader's gather for this step) that batch beside the
+        dataset's initial and terminal sets."""
         mode = self.pde_instance.sample_mode
         if mode == "online":
             return {**self._boundary_unsharded(key), **self._path_unsharded(key)}
         if mode != "offline":
             raise ValueError(f"unknown sample mode {mode!r}")
         dataset = self.pde_instance.dataset if dataset is None else dataset
+        if stream_batch is not None:
+            return {"initial": dataset["initial"], "terminal": dataset["terminal"], **stream_batch}
         if "tau_groups" in dataset:
             raise NotImplementedError(
                 "the grouped offline policy (tau_groups, offline KMV) is not ported yet: "

@@ -13,7 +13,10 @@ memory, or persisted to ``pde_instance.dataset_path`` (an ``.npz`` file, or
 a directory in the raw array-store format of ``utils/data.py``, generated
 shard by shard).  With ``pde_instance.offline_streaming`` the trajectory
 arrays stay host memmaps (``dataset_stream``) and only initial/terminal go
-to the device.
+to the device; with no ``dataset_path`` the store is the run's own: made
+in a fresh directory under ``tempfile.gettempdir()`` (``TMPDIR``) and
+removed when the instance is collected, when the process exits, or when
+its set-up raises.
 
 The means mu_k are drawn from the port's own generator, so the same
 ``seed`` gives a different ground truth than the JAX package.  To run both
@@ -30,7 +33,10 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import shutil
+import tempfile
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -43,6 +49,7 @@ from pde_inverse_torch.models.parametric import GMMMeansModel
 from pde_inverse_torch.ops.simulate import simulate
 from pde_inverse_torch.potentials import GMMPotential
 from pde_inverse_torch.problems.base import ProblemInstance
+from pde_inverse_torch.tracing import span
 from pde_inverse_torch.utils.data import ArrayStoreWriter, load_array_store, store_bytes
 
 GROUND_TRUTH_FILE = "ground_truth.json"  # beside a store's manifest: what it was generated with
@@ -115,6 +122,7 @@ class KineticFokkerPlanckGMM(ProblemInstance):
         self.distribution_terminal = None  # reachable only by simulation
         self.dataset = None
         self.dataset_stream = None
+        self.store_cleanup = None  # removes the run's own store (_private_store)
         if self.sample_mode == "offline":
             if "dataset" in configuration:
                 self.dataset = self._to_device(configuration["dataset"])
@@ -288,14 +296,17 @@ class KineticFokkerPlanckGMM(ProblemInstance):
         with an ``.npz`` path, loaded from it or generated and saved there;
         with a directory path, loaded from the array store there or
         generated into it shard by shard.  Offline streaming keeps 0T and
-        tau_0T as host memmaps in ``self.dataset_stream``."""
+        tau_0T as host memmaps in ``self.dataset_stream``; without a
+        dataset_path it generates a store of its own (``_private_store``)."""
         p = self.cfg.pde_instance
         path = p.dataset_path
-        if p.offline_streaming and (not path or path.endswith(".npz")):
+        if p.offline_streaming and path.endswith(".npz"):
             raise ValueError(
                 "pde_instance.offline_streaming needs a raw array-store dataset_path "
                 "(directory, not .npz): streaming gathers host-side from the memmap"
             )
+        if p.offline_streaming and not path:
+            return self._private_store(key)
         if not path:
             return self.generate_ground_truth_dataset(key)
         if path.endswith(".npz"):
@@ -313,8 +324,32 @@ class KineticFokkerPlanckGMM(ProblemInstance):
             np.savez(path, mus=self._mus_numpy(), generated_with=np.array(json.dumps(settings)),
                      **{k: v.cpu().numpy() for k, v in dataset.items()})
             return dataset
+        return self._open_store(path, key)
+
+    def _private_store(self, key: int) -> dict:
+        """The streamed dataset from a store of this instance's own: generated
+        into a fresh directory under ``tempfile.gettempdir()``, so that no
+        other run (another seed, or the same one at once) shares or reuses
+        it, and removed when the instance is collected or the process exits
+        (``self.store_cleanup``, a ``weakref.finalize``), or at once if
+        set-up raises.  The memmaps stay readable until they are closed.  A
+        process killed past its exit handlers (SIGKILL) leaves its
+        directory behind, which no later run reuses."""
+        path = tempfile.mkdtemp(prefix="kgmm_store_")
+        self.store_cleanup = weakref.finalize(self, shutil.rmtree, path, ignore_errors=True)
+        try:
+            return self._open_store(path, key)
+        except BaseException:
+            self.store_cleanup()
+            raise
+
+    def _open_store(self, path: str, key: int) -> dict:
+        """The dataset of the array store at `path`, generated there first
+        if it holds none, its record checked."""
+        p = self.cfg.pde_instance
         if not os.path.exists(os.path.join(path, "manifest.json")):
-            self._generate_dataset_to_store(path, key)
+            with span("store"):
+                self._generate_dataset_to_store(path, key)
         record = None
         if os.path.exists(os.path.join(path, GROUND_TRUTH_FILE)):
             with open(os.path.join(path, GROUND_TRUTH_FILE)) as f:

@@ -23,7 +23,12 @@ span is put inside a provider: their kernels name them on the device):
   through the network; their backward is autograd's, under
   ``pde.loss_grad``;
 * ``pde.optimizer``: the optimizer's update, EMA and the parameter norm;
-* ``pde.gather``: a streaming chunk's host gather and its upload;
+* ``pde.gather``: a streaming chunk's host gather from the store's
+  memmaps (``gather_stream_chunk``), and then ``pde.upload``: its copy to
+  the device;
+* ``pde.store``, in set-up: an offline array store's generation on the
+  device, its copy to the host and its memmap writes
+  (``problems/kfp_gmm.py``);
 * ``pde.sync``: the chunk's one copy of its metrics to the host;
 * ``pde.writer``: the NaN guard and the writer's chunk log;
 * ``pde.test``: a test and its log.

@@ -14,7 +14,7 @@ Offline, every step gets the problem's dataset; with offline streaming the
 method gathers each chunk's trajectory batches on the host from the
 chunk's step keys (``gather_stream_chunk``), the trainer uploads them once
 as [K, ...] tensors and hands step i its slice.  ``gather_seconds`` keeps
-the host time of each chunk's gather.
+the host time of each chunk's gather, ``gather_bytes`` the bytes it stages.
 
 EMA (``train.optimizer.use_ema``) follows the JAX trainer: the average
 starts at zeros, is reset to the live parameters at ``ema_switch_step``
@@ -25,7 +25,8 @@ dynamics and the average is a decoupled Polyak average, which is what the
 test and the returned parameters use once engaged.
 
 Each phase runs in a ``tracing.span`` (``pde.step``, ``pde.optimizer``,
-``pde.gather``, ``pde.sync``, ``pde.writer``, ``pde.test``; the method adds
+``pde.gather``, ``pde.upload``, ``pde.sync``, ``pde.writer``, ``pde.test``;
+the method adds
 ``pde.sample`` and ``pde.loss_grad``, the SDE simulator ``pde.langevin`` and
 the kinetic Fokker-Planck loss ``pde.kfp_path`` and ``pde.kfp_boundary``
 inside them), which marks it in a profiler's trace and costs one flag check
@@ -103,6 +104,7 @@ class Trainer:
         self.writer = writer or NullWriter()
         self.losses = np.zeros((0,), np.float32)  # every step's loss
         self.gather_seconds: list = []  # host time of each chunk's streaming gather
+        self.gather_bytes: list = []  # bytes each chunk's streaming gather stages
         self.test_metrics: Dict[str, float] = {}  # the last test's
         ocfg = cfg.train.optimizer
         if ocfg.ema_mode not in ("switch", "track"):
@@ -152,6 +154,8 @@ class Trainer:
                         host = self.method.gather_stream_chunk(
                             stream, [rng.fold_in(self.train_key, s) for s in range(step, step + this_k)])
                         self.gather_seconds.append(time.perf_counter() - t0)
+                        self.gather_bytes.append(sum(v.nbytes for v in host.values()))
+                    with span("upload"):
                         batches = {name: torch.from_numpy(v).to(inst.device) for name, v in host.items()}
                 chunk = []
                 for s in range(step, step + this_k):

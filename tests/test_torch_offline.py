@@ -175,6 +175,24 @@ def test_stream_gather_is_deterministic_and_shaped_as_jax(tmp_path):
     assert np.isin(a["tau_0T_per_traj"], stamps).all()
 
 
+def test_stream_gather_is_every_fifth_stamp_of_each_drawn_trajectory(tmp_path):
+    """The gather against its definition, state by state: the step's
+    Philox draw of a shift and sorted trajectories."""
+    cfg = _stream_cfg(str(tmp_path / "store"))
+    inst = KineticFokkerPlanckGMM(cfg, 0, "cpu")
+    out = ConsistencyBased(inst, cfg, 1, "cpu").gather_stream_chunk(inst.dataset_stream, [21, 22])
+    traj, stamps = inst.dataset_stream["0T"], inst.dataset_stream["tau_0T"]
+    n_traj, n_time, d2 = traj.shape
+    for i, key in enumerate([21, 22]):
+        gen = np.random.Generator(np.random.Philox(key=key))
+        shift = int(gen.integers(n_time - 3 * 5))
+        rows = np.sort(gen.permutation(n_traj)[:8])
+        want = [traj[r, shift + 5 * j] for r in rows for j in range(4)]
+        np.testing.assert_array_equal(out["0T"][i], np.stack(want))
+        np.testing.assert_array_equal(out["tau_0T_per_traj"][i],
+                                      [[stamps[r, shift + 5 * j] for j in range(4)] for r in rows])
+
+
 def test_streamed_trainer_runs_from_the_host_store(tmp_path):
     cfg = _stream_cfg(str(tmp_path / "store"))
     inst = KineticFokkerPlanckGMM(cfg, 0, "cpu")
@@ -194,6 +212,24 @@ def test_streamed_trainer_runs_from_the_host_store(tmp_path):
     assert trainer.losses.shape == (6,) and np.isfinite(trainer.losses).all()
     assert seen == [(32, 8)] * 6 and len(trainer.gather_seconds) == 2
 
+
+def test_streamed_chunks_of_two_train_as_one_chunk_of_six(tmp_path):
+    """Each chunk's batches gathered and uploaded at its start: chunks of 2
+    and one chunk of 6 train alike, the same losses bit for bit."""
+    losses, gathered = [], []
+    for chunk in (2, 6):
+        cfg = _stream_cfg(str(tmp_path / "store"), [f"train.steps_per_chunk={chunk}"])
+        inst = KineticFokkerPlanckGMM(cfg, 0, "cpu")
+        method = ConsistencyBased(inst, cfg, 1, "cpu")
+        real = method.gather_stream_chunk
+        method.gather_stream_chunk = lambda *a, **kw: gathered.append(real(*a, **kw)) or gathered[-1]
+        model, params = method.create_model_fn()
+        trainer = Trainer(cfg, method, 2, functional_forward(model), params)
+        trainer.fit()
+        losses.append(trainer.losses)
+    np.testing.assert_array_equal(*losses)
+    assert [g["0T"].shape for g in gathered] == [(2, 32, 8)] * 3 + [(6, 32, 8)]
+    assert trainer.gather_bytes == [gathered[-1]["0T"].nbytes + gathered[-1]["tau_0T_per_traj"].nbytes]
 
 def test_sharded_store_has_the_shapes_of_in_memory_generation(tmp_path):
     cfg = config_lib.preset("KGMM-offline", SMALL + [f"pde_instance.dataset_path={tmp_path / 's'}",
@@ -290,8 +326,12 @@ def test_dataset_without_the_settings_record_is_refused(tmp_path):
 
 
 def test_offline_refusals():
+    # streaming gathers from a raw array store: an .npz dataset is refused
+    # (with no dataset_path the run streams from a store of its own,
+    # tests/test_torch_private_store.py)
     with pytest.raises(ValueError, match="array-store"):
-        KineticFokkerPlanckGMM(config_lib.preset("KGMM-offline", SMALL + ["pde_instance.offline_streaming=True"]),
+        KineticFokkerPlanckGMM(config_lib.preset("KGMM-offline", SMALL + ["pde_instance.offline_streaming=True",
+                                                                          "pde_instance.dataset_path=d.npz"]),
                                0, "cpu")
     with pytest.raises(ValueError, match="ONLINE"):
         KineticFokkerPlanckGMM(config_lib.preset("KGMM-offline", SMALL + ["pde_instance.init_broaden=1.3"]),

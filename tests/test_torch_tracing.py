@@ -96,7 +96,7 @@ def test_fit_marks_every_phase_under_a_profiler(case, tmp_path):
     langevin = 2 * ((0 if streamed else n) + n_tests) + elsewhere if kfp else 0
     assert counts == {"pde.step": n, **{p: n for p in STEP_PHASES}, "pde.sync": chunks,
                       "pde.writer": chunks, "pde.test": n_tests,
-                      **({"pde.gather": chunks} if streamed else {}),
+                      **({"pde.gather": chunks, "pde.upload": chunks, "pde.store": 1} if streamed else {}),
                       **({p: n for p in KFP_LOSS} if kfp else {}),
                       **({"pde.langevin": langevin} if langevin else {})}
     steps = [s for s in spans if s[0] == "pde.step"]
@@ -104,6 +104,15 @@ def test_fit_marks_every_phase_under_a_profiler(case, tmp_path):
         assert _children(spans, step) == STEP_PHASES
     args = [e.kwinputs.get("step") for e in prof.events() if e.name == "pde.step"]
     assert sorted(args) == list(range(n))
+    if streamed:
+        # the gather is the host's alone; the copy to the device is the upload's
+        ops = [(e.name, e.time_range.start) for e in prof.events() if not e.name.startswith("pde.")]
+        held = lambda span: [o for o, t in ops if span[1] <= t <= span[2]]
+        for span in spans:
+            if span[0] == "pde.gather":
+                assert "aten::to" not in held(span)
+            if span[0] == "pde.upload":  # the trajectories and their stamps
+                assert held(span).count("aten::to") == 2
 
 
 # what each step phase holds, by job: the online sampler's two simulated
@@ -114,6 +123,10 @@ NESTED = {
     "kgmm_np_online": {"pde.sample": ["pde.langevin", "pde.langevin"], "pde.loss_grad": KFP_LOSS},
     "kgmm_np_streamed": {"pde.loss_grad": KFP_LOSS},
 }
+# the simulated batches outside the steps and tests that a span other than
+# pde.sample, pde.loss_grad and pde.test holds: the store's terminal set and
+# its trajectory shard, in pde.store
+SET_UP = {"kgmm_np_streamed": {"pde.store": ["pde.langevin", "pde.langevin"]}}
 
 
 @pytest.mark.parametrize("case", sorted(NESTED))
@@ -129,6 +142,9 @@ def test_kgmm_spans_nest_under_sample_and_loss_grad(case, tmp_path):
                and not any(o[0] in ("pde.sample", "pde.loss_grad", "pde.test")
                            and o[1] <= s[1] and s[2] <= o[2] for o in spans)]
     assert outside == ["pde.langevin"] * CADENCES[case][6]
+    for phase, held in SET_UP.get(case, {}).items():
+        (span,) = [s for s in spans if s[0] == phase]
+        assert _children(spans, span) == held
 
 
 def test_span_records_nothing_without_a_profiler(monkeypatch):
